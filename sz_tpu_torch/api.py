@@ -4,10 +4,11 @@ SZ2.1 blocked-regression codec, under any error bound that resolves to
 an absolute one (ABS, REL, ABS_AND_REL, ABS_OR_REL, PSNR, NORM).
 
 The stream framing (range scan, bound resolution, header, constant and
-verbatim fallbacks, lossless wrap, decode clamp) is ``sz_tpu.api``'s own,
-shared and not ported.  Every configuration outside the slice raises
-``NotImplementedError`` naming its ROADMAP item; nothing is routed to the
-host codec.
+verbatim fallbacks, lossless wrap, decode clamp) is ``framing.py``, the
+port's copy of ``sz_tpu.api``'s.  Both entry points run on the card
+unless the caller passes ``device="cpu"``.  Every configuration outside
+the slice raises ``NotImplementedError`` naming its ROADMAP item; nothing
+is routed to a host codec.
 """
 
 from __future__ import annotations
@@ -15,13 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sz_tpu import api as _api
-from sz_tpu.config import (DEFAULT_CONFIG, MIN_NUM_OF_ELEMENTS, DataType,
-                           SZConfig)
-from sz_tpu.format import bytes_util as bu
-from sz_tpu.format import lossless as ll
-from sz_tpu.format import metadata as md
-
+from sz_tpu_torch import framing, native
+from sz_tpu_torch.config import (DEFAULT_CONFIG, MIN_NUM_OF_ELEMENTS,
+                                 DataType, SZConfig)
+from sz_tpu_torch.format import bytes_util as bu
+from sz_tpu_torch.format import lossless as ll
+from sz_tpu_torch.format import metadata as md
 from sz_tpu_torch.gpu import device as devmod
 from sz_tpu_torch.gpu import engine
 
@@ -52,13 +52,15 @@ def _check_slice(dtype, ndim: int, cfg: SZConfig = None) -> None:
             "random-access streams are not ported yet (ROADMAP 1.6)")
 
 
-def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *, device) -> bytes:
+def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
+             device="cuda") -> bytes:
     """Compress a float32 numpy array into an SZ2 stream, byte-equal to
     ``sz_tpu.compress(data, cfg)``, with the device stages on
     ``device`` ('cuda' runs the Hopper kernels)."""
     dev = devmod.resolve(device)
+    native.tune_malloc()
     data = np.asarray(data)
-    dims = _api._filter_dims(data.shape)
+    dims = framing._filter_dims(data.shape)
     _check_slice(data.dtype, len(dims), cfg)
     n = int(np.prod(dims))
     if n <= MIN_NUM_OF_ELEMENTS:
@@ -67,9 +69,9 @@ def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *, device) -> bytes:
     dt = DataType.FLOAT
     flat = data.reshape(-1)
     (fmin, fmax, value_range, rp, _mode, hdr_cfg,
-     _range_info) = _api._fp_stream_params(data, cfg, dt)
+     _range_info) = framing._fp_stream_params(data, cfg, dt)
     if value_range <= rp:
-        return _api._constant_stream(hdr_cfg, dt, fmin, fmax, flat[0], n)
+        return framing._constant_stream(hdr_cfg, dt, fmin, fmax, flat[0], n)
     if data.ndim == 4:
         # the regression codec folds 4-D to 3-D (sz_float.c:3010)
         d = data.shape
@@ -81,12 +83,12 @@ def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *, device) -> bytes:
         opt_quant_mode=1 if cfg.quantization_intervals == 0 else 0,
         fixed_intervals=cfg.quantization_intervals,
         size_type=cfg.size_type, device=dev)
-    return _api._frame_regression_stream(cfg, hdr_cfg, dt, fmin, fmax, flat,
+    return framing._frame_regression_stream(cfg, hdr_cfg, dt, fmin, fmax, flat,
                                          n, res)
 
 
 def _clamp_tensor(out: torch.Tensor, hdr) -> torch.Tensor:
-    """sz_tpu.api._protect_clamp for a torch tensor."""
+    """framing._protect_clamp for a torch tensor."""
     if not hdr.protect_range:
         return out
     mn = torch.tensor(np.float32(hdr.params.fmin), device=out.device)
@@ -94,13 +96,14 @@ def _clamp_tensor(out: torch.Tensor, hdr) -> torch.Tensor:
     return torch.where(out < mn, mn, torch.where(out > mx, mx, out))
 
 
-def decompress(blob: bytes, shape, dtype=np.float32, *, device,
+def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
                as_tensor: bool = False):
     """Decode an SZ2 float32 regression stream, bit-equal to
     ``sz_tpu.decompress``.  Returns numpy, or a tensor on ``device`` when
     ``as_tensor``."""
     dev = devmod.resolve(device)
-    dims = _api._filter_dims(shape)
+    native.tune_malloc()
+    dims = framing._filter_dims(shape)
     _check_slice(dtype, len(dims))
     n = int(np.prod(dims))
     T = np.float32
@@ -126,10 +129,10 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device,
     off = hdr.body_offset + hdr.size_type
     if hdr.lossless:
         out = np.frombuffer(inner, dtype=">f4", count=n, offset=off)
-        return finish(_api._protect_clamp(out.astype(T), hdr, T))
+        return finish(framing._protect_clamp(out.astype(T), hdr, T))
     if hdr.same:
         v = bu.read_f32_be(inner, off)
-        return finish(_api._protect_clamp(np.full(n, v, dtype=T), hdr, T))
+        return finish(framing._protect_clamp(np.full(n, v, dtype=T), hdr, T))
     if hdr.pw_rel:
         raise NotImplementedError(
             "PW_REL streams are not ported yet (ROADMAP 1.5)")
@@ -140,8 +143,9 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device,
         raise NotImplementedError(
             "random-access streams are not ported yet (ROADMAP 1.6)")
     dims3 = (dims[0] * dims[1], dims[2], dims[3]) if len(dims) == 4 else dims
-    out = engine.decompress(inner[off:], dims3, T, size_type=hdr.size_type,
+    out = engine.decompress(memoryview(inner)[off:], dims3, T,
+                            size_type=hdr.size_type,
                             device=dev, as_tensor=as_tensor)
     if as_tensor:
         return finish(_clamp_tensor(out, hdr))
-    return finish(_api._protect_clamp(out, hdr, T))
+    return finish(framing._protect_clamp(out, hdr, T))

@@ -1,10 +1,11 @@
 """Build and load the hand-written Hopper kernels (``sz_tpu_torch/csrc``).
 
-The CUDA sources expose a plain C interface; ``nvcc`` compiles them all
-into one shared library under ``build/sz_tpu_torch/`` at the repository
-root, named by a hash of the sources and flags (an unchanged build is
-reused), and ``ctypes`` loads it.  Nothing here runs at import time: the
-first CUDA launch calls :func:`lib`.
+The CUDA sources expose a plain C interface; one ``nvcc`` per source,
+all started together, compiles them to objects, which link into one
+shared library under ``build/sz_tpu_torch/`` at the repository root,
+named by a hash of the sources and flags (an unchanged build is reused),
+and ``ctypes`` loads it.  Nothing here runs at import time: the first
+CUDA launch calls :func:`lib`.
 
 The flags keep IEEE float semantics: the codec's contract is bit-exact
 output, so FMA contraction, flush-to-zero and approximate division are
@@ -20,6 +21,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -30,7 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17",
     "--fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -47,6 +49,9 @@ SIGNATURES = {
     "sz_wavefront_decode": (_P, _P, _P, _P, _I, _I, _I, _P),
     "sz_histogram": (_P, _LL, _P, _P),
     "sz_pack_bits": (_P, _LL, _P, _P, _P, _I, _P, _P, _P, _LL, _P),
+    "sz_fsm_sweep": (_P, _P, _I, _LL, _LL, _I, _I, _P, _P, _P),
+    "sz_fsm_sync": (_P, _P, _LL, _I, _LL, _P, _P, _P),
+    "sz_fsm_emit": (_P, _P, _I, _LL, _LL, _I, _I, _P, _P, _LL, _P, _P),
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)
@@ -87,23 +92,32 @@ def library_path() -> pathlib.Path:
 
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into the hashed library unless it exists.  The
-    compiler's resource report (-Xptxas -v) is kept beside it as .log."""
+    compiler's resource reports (-Xptxas -v) are kept beside it as .log."""
     global build_seconds
     so = library_path()
     if so.exists():
         build_seconds = 0.0
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources()]]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(pathlib.Path(tmp) / f"{p.stem}.o") for p in sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+        out = pathlib.Path(tmp) / so.name
+        link = subprocess.run([nvcc, "-shared", *objs, "-o", str(out)],
+                              capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        so.with_suffix(".log").write_text("\n".join(logs))
+        os.replace(out, so)
     build_seconds = time.perf_counter() - t0
     return so
 

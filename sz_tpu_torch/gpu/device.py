@@ -1,9 +1,9 @@
 """Explicit device handling for the port.
 
 Counterpart of ``sz_tpu.tpu.engine._default_backend`` / ``_strict_jit``:
-every public function takes a ``device`` argument and there is no global
-default.  A CUDA request without a usable card raises instead of falling
-back to the CPU.  Strict per-op rounding needs nothing here: PyTorch runs
+every entry point takes a ``device`` argument (the public ``compress`` and
+``decompress`` default to ``"cuda"``); there is no global default.  A CUDA
+request without a usable card raises instead of falling back to the CPU.  Strict per-op rounding needs nothing here: PyTorch runs
 eagerly, one rounding per op, and the port never uses ``torch.compile``.
 """
 

@@ -1,16 +1,16 @@
 """Main-path entry points of the SZ2.1 blocked-regression codec on a
 torch device: the port of ``sz_tpu.tpu.engine.compress`` / ``decompress``.
 
-Same split and same host calls as the JAX engine, with identical bytes:
-the lattice-sized work (coefficient sums, predictor selection, the
-regression predictor, the Lorenzo recurrence K1, the stream reorder, the
-histogram K3, the escape gather and the Huffman bit-pack K4; on decode the
-staging, the prelude and the reconstruction K2) runs on the device; the
-interval optimizer, the coefficient chain, the Huffman tree, the body
-assembly and -- in this slice -- the Huffman decode run on the host
-through ``sz_tpu``'s JAX-free modules.  Span names follow the JAX engine
-so per-layer times read under the same names; each device span ends with
-a synchronize, so it times the device work.
+Same split as the JAX engine with its device decode on, with identical
+bytes: the lattice-sized work (coefficient sums, predictor selection,
+the regression predictor, the Lorenzo recurrence K1, the stream reorder,
+the histogram K3, the escape gather and the Huffman bit-pack K4; on
+decode the Huffman decode K5-K7, the staging, the prelude and the
+reconstruction K2) runs on the device; the interval optimizer, the
+coefficient chain, the Huffman tree and the body layout run on the host
+(``sz_tpu_torch.core``, ``sz_tpu_torch.format``).  Span names follow the
+JAX engine so per-layer times read under the same names; each device
+span ends with a synchronize, so it times the device work.
 """
 
 from __future__ import annotations
@@ -18,23 +18,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sz_tpu.core import optimizer as opt
-from sz_tpu.core import regnd
-from sz_tpu.core.regnd import EncodeResult
-from sz_tpu.format import huffman
-from sz_tpu.utils import trace as _tr
-
 from sz_tpu_torch import state as state_mod
+from sz_tpu_torch.core import optimizer as opt
+from sz_tpu_torch.core import regnd
+from sz_tpu_torch.core.regnd import EncodeResult
+from sz_tpu_torch.format import huffman
 from sz_tpu_torch.gpu import device as devmod
+from sz_tpu_torch.gpu import fsm_kernel
 from sz_tpu_torch.gpu import geometry as geo
 from sz_tpu_torch.gpu import hist_kernel, lorenzo_kernel, pack_kernel, stages
-
-
-def _spec_f32(rank: int, dtype):
-    if np.dtype(dtype) != np.float32:
-        raise NotImplementedError(
-            "float64 is not ported yet (ROADMAP 1.3)")
-    return regnd._spec(rank, np.float32)
+from sz_tpu_torch.utils import trace as _tr
 
 
 def compress(data: np.ndarray, real_precision, *, max_range_radius: int,
@@ -45,7 +38,7 @@ def compress(data: np.ndarray, real_precision, *, max_range_radius: int,
     host array; the result's body is byte-equal to ``regnd.compress``."""
     dev = devmod.resolve(device)
     rank = data.ndim
-    spec = _spec_f32(rank, data.dtype)
+    spec = regnd._spec(rank, data.dtype)
     T = spec.T
     shape = tuple(int(r) for r in data.shape)
     bs = spec.block_size
@@ -120,8 +113,19 @@ def compress(data: np.ndarray, real_precision, *, max_range_radius: int,
     with _tr.trace("assemble"):
         return regnd.assemble_body(
             spec, rp, intervals, use_mean, mean, use_reg, ctypes_, cunpred,
-            cprec, np.zeros(0, np.uint16), unpred_arr, size_type, freq=freq,
-            tables=tables, encoded=encoded)
+            cprec, unpred_arr, size_type, freq=freq, tables=tables,
+            encoded=encoded,
+            encode_coeff_types=lambda t, syms: _pack(t, syms, dev))
+
+
+def _pack(tables, syms: np.ndarray, dev) -> bytes:
+    """A (small) coefficient type stream Huffman-packed by K4."""
+    tt = state_mod.table_tensors(tables, dev)
+    total_bits = int(tables.code_len[syms].astype(np.int64).sum())
+    packed = pack_kernel.pack_bits(
+        torch.from_numpy(np.ascontiguousarray(syms, np.int32)).to(dev),
+        tt["code_hi"], tt["code_lo"], tt["code_len"], total_bits)
+    return packed.cpu().numpy().tobytes()
 
 
 def quantize(x: torch.Tensor, st, use_mean: bool,
@@ -139,15 +143,33 @@ def quantize(x: torch.Tensor, st, use_mean: bool,
 
 def decompress(body: bytes, shape, dtype=np.float32, size_type: int = 8, *,
                device, as_tensor: bool = False):
-    """Port of ``sz_tpu.tpu.engine.decompress`` with the Huffman decode on
-    the host; output bit-equal to ``regnd.decompress``.  Returns numpy, or
-    the device tensor when ``as_tensor``."""
+    """Port of ``sz_tpu.tpu.engine.decompress`` with the device Huffman
+    decode (``device_decode_policy`` on); output bit-equal to
+    ``regnd.decompress``.  Only the coded bytes cross to the device.
+    Returns numpy, or the device tensor when ``as_tensor``.  ``body`` may
+    be a memoryview: the coded stream is then never copied on the host
+    before its upload."""
     dev = devmod.resolve(device)
+    body = memoryview(body)
     shape = tuple(int(r) for r in shape)
-    spec = _spec_f32(len(shape), dtype)
-    T = spec.T
+    n = int(np.prod(shape))
+
+    def decode_coeff_types(tree, encoded, count):
+        return fsm_kernel.decode(tree, encoded, count, dev)[0].cpu().numpy()
+
     with _tr.trace("parse_body"):
-        p = regnd.parse_body(body, shape, dtype, size_type)
+        p = regnd.parse_body(body, shape, dtype, size_type,
+                             decode_coeff_types)
+    spec = p.spec
+    T = spec.T
+    with _tr.trace("stream_upload"):
+        coded = fsm_kernel.upload(p.tree, p.encoded, dev)
+        devmod.sync(dev)
+    with _tr.trace("huffman_device"):
+        types, steps = fsm_kernel.decode_coded(coded, n, dev)
+        del coded
+        devmod.sync(dev)
+    _tr.count("fsm_steps", steps)
     g = geo.geom_small(shape, spec.block_size)
     use_reg = p.indicator == 0
     lc_full = np.zeros((g["nblocks"], spec.ncoeff), dtype=T)
@@ -158,9 +180,9 @@ def decompress(body: bytes, shape, dtype=np.float32, size_type: int = 8, *,
         recip=T(T(1) / rp), intervals=p.intervals, mean=p.mean, device=dev)
     with _tr.trace("delattice"):
         t_lat, unpred_lat = stages.delattice(
-            torch.from_numpy(np.asarray(p.types, dtype=np.int32)).to(dev),
-            torch.from_numpy(np.array(p.unpred, dtype=T)).to(dev),
+            types, torch.from_numpy(np.array(p.unpred, dtype=T)).to(dev),
             g["dbs"], shape)
+        del types
         devmod.sync(dev)
     with _tr.trace("decode_fixpoint"):
         known_mask, known, q_lor = stages.decode_inputs(

@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from sz_tpu.core import blocks as B
+from sz_tpu_torch.core import blocks as B
 
 
 @functools.lru_cache(maxsize=16)

@@ -19,9 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sz_tpu.core import blocks as B
-from sz_tpu.core import optimizer as opt
-from sz_tpu.core import regnd
+from sz_tpu_torch.core import blocks as B
+from sz_tpu_torch.core import optimizer as opt
+from sz_tpu_torch.core import regnd
 
 from sz_tpu_torch.gpu import geometry as geo
 

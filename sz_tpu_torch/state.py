@@ -33,7 +33,7 @@ class CodecState:
     def with_tables(self, tables) -> "CodecState":
         """This state plus a ``huffman.HuffmanTables``' code table."""
         dev = self.lc_full.device
-        return dataclasses.replace(self, **_table_tensors(tables, dev))
+        return dataclasses.replace(self, **table_tensors(tables, dev))
 
     def to_numpy(self) -> dict:
         """The numpy values this state was built from (uint64 halves)."""
@@ -49,7 +49,7 @@ class CodecState:
         return out
 
 
-def _table_tensors(tables, device) -> dict:
+def table_tensors(tables, device) -> dict:
     def u64(a):
         return torch.from_numpy(
             np.ascontiguousarray(a, dtype=np.uint64).view(np.int64)).to(device)

@@ -1,7 +1,9 @@
 """The ported slice end to end on the CPU: sz_tpu_torch's compress and
-decompress against the numpy oracle (sz_tpu.core.regnd), the JAX engine
-(sz_tpu.tpu.engine) and the reference golden stream.  Tolerance: exact --
-bodies and streams byte-equal, reconstructions bit-equal.
+decompress (Huffman decode through the plain versions of K5-K7) against
+the numpy oracle (sz_tpu.core.regnd), the JAX engine (sz_tpu.tpu.engine,
+also with its device FSM decode in interpret mode) and the reference
+golden stream.  Tolerance: exact -- bodies and streams byte-equal,
+reconstructions bit-equal.
 """
 
 import pathlib
@@ -16,6 +18,7 @@ from sz_tpu.core import regnd
 from sz_tpu.tpu import engine as jeng
 
 import sz_tpu_torch
+from sz_tpu_torch import config as tcfg
 from sz_tpu_torch import state
 from sz_tpu_torch.gpu import engine as teng
 from sz_tpu_torch.gpu import geometry as geo
@@ -78,10 +81,25 @@ def test_slice_matches_oracle_and_jax_engine(case):
         assert ref.total_unpred > jeng.ESC_K
 
 
+def test_decompress_matches_jax_device_decode(monkeypatch):
+    """The JAX engine with its device FSM decode forced (Pallas kernels
+    A-C in interpret mode; the stream clears its 2^16-bit minimum)."""
+    data = _wave((24, 25, 26), 24)
+    res = regnd.compress(data, 1e-3, **KW)
+    assert len(res.body) * 8 > (1 << 16)
+    monkeypatch.setenv("SZ_TPU_DEVICE_DECODE", "force")
+    want = jeng.decompress(res.body, data.shape, np.float32)
+    got = teng.decompress(res.body, data.shape, np.float32, device="cpu")
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(
+        _bits(got), _bits(regnd.decompress(res.body, data.shape,
+                                           np.float32)))
+
+
 def test_decodes_reference_golden():
-    from sz_tpu.config import DataType
-    from sz_tpu.format import lossless as ll
-    from sz_tpu.format import metadata as md
+    from sz_tpu_torch.config import DataType
+    from sz_tpu_torch.format import lossless as ll
+    from sz_tpu_torch.format import metadata as md
     golden_out = np.fromfile(GOLDEN / "f32_3d64_abs1e-3.out", dtype="<f4")
     blob = (GOLDEN / "f32_3d64_abs1e-3.sz").read_bytes()
     inner = ll.decompress(blob, expected_size=golden_out.nbytes * 2 + 64)
@@ -103,8 +121,9 @@ def test_decodes_reference_golden():
 ])
 def test_api_matches_host_api(mode, value):
     data = _wave((20, 30, 26), 21)
-    cfg = SZConfig(engine="numpy").with_bound(mode, value)
-    ref = sz_tpu.compress(data, cfg)
+    ref = sz_tpu.compress(data, SZConfig(engine="numpy").with_bound(
+        mode, value))
+    cfg = tcfg.SZConfig().with_bound(tcfg.ErrorBoundMode(int(mode)), value)
     got = sz_tpu_torch.compress(data, cfg, device="cpu")
     assert got == ref
     out = sz_tpu_torch.decompress(got, data.shape, np.float32, device="cpu")
@@ -119,18 +138,21 @@ def test_api_matches_host_api(mode, value):
 
 def test_api_framing_paths():
     """Constant fields, 4-D folding and the clamp of protect_value_range
-    go through sz_tpu.api's shared framing, byte-equal."""
+    go through the port's framing, byte-equal to sz_tpu.api's."""
     cfg = SZConfig(engine="numpy").with_bound(ErrorBoundMode.ABS, 1e-3)
+    tc = tcfg.SZConfig().with_bound(tcfg.ErrorBoundMode.ABS, 1e-3)
     const = np.full((10, 12, 14), 2.5, np.float32)
-    assert sz_tpu_torch.compress(const, cfg, device="cpu") == \
+    assert sz_tpu_torch.compress(const, tc, device="cpu") == \
         sz_tpu.compress(const, cfg)
     d4 = _wave((3, 7, 12, 13), 22)
-    assert sz_tpu_torch.compress(d4, cfg, device="cpu") == \
+    assert sz_tpu_torch.compress(d4, tc, device="cpu") == \
         sz_tpu.compress(d4, cfg)
     cfgp = SZConfig(engine="numpy", protect_value_range=True).with_bound(
         ErrorBoundMode.ABS, 1e-2)
+    tcp = tcfg.SZConfig(protect_value_range=True).with_bound(
+        tcfg.ErrorBoundMode.ABS, 1e-2)
     d = _wave((16, 18, 20), 23)
-    blob = sz_tpu_torch.compress(d, cfgp, device="cpu")
+    blob = sz_tpu_torch.compress(d, tcp, device="cpu")
     assert blob == sz_tpu.compress(d, cfgp)
     ref = sz_tpu.decompress(blob, d.shape, np.float32, engine="numpy")
     np.testing.assert_array_equal(

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: each CUDA kernel bit-equal to its
-plain torch version, and the main path byte-equal to the numpy oracle, on
-the GPU.  They skip where torch.cuda.is_available() is false.
+plain torch version (K5-K7 also on the decoded symbols), and the main
+path byte-equal to the numpy oracle, on the GPU.  They skip where
+torch.cuda.is_available() is false.
 
 This file imports no jax, so it also runs on a machine without it; there
 run it without the JAX-side conftest:
@@ -15,7 +16,8 @@ import torch
 from sz_tpu.core import regnd
 from sz_tpu.format import huffman
 
-from sz_tpu_torch.gpu import engine, hist_kernel, lorenzo_kernel, pack_kernel
+from sz_tpu_torch.gpu import (engine, fsm_kernel, hist_kernel,
+                              lorenzo_kernel, pack_kernel)
 
 RADIUS, MEAN = 32, np.float32(0.25)
 RP = np.float32(1e-3)
@@ -108,3 +110,81 @@ def test_engine_on_card_matches_oracle(cuda, shape):
     np.testing.assert_array_equal(
         out.view(np.uint32),
         regnd.decompress(ref.body, shape, np.float32).view(np.uint32))
+
+
+def _fsm_case(name):
+    rng = np.random.default_rng(61)
+    if name == "never_syncs":
+        types = rng.integers(0, 8, 16000).astype(np.int32)
+        return types, 8
+    if name == "fixed_9_bits":      # 9 phases that never meet: 8 slots
+        return rng.integers(0, 512, 16000).astype(np.int32), 512
+    nstate, a, n = {"skewed": (600, 1.5, 40000),
+                    "tree_18k_nodes_smem": (10000, 0.8, 400000),
+                    "tree_80k_nodes_l2": (40000, 0.6, 2000000)}[name]
+    p = 1.0 / np.arange(1, nstate + 1) ** a
+    return rng.choice(nstate, size=n, p=p / p.sum()).astype(np.int32), nstate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["skewed", "tree_18k_nodes_smem",
+                                  "tree_80k_nodes_l2", "never_syncs",
+                                  "fixed_9_bits"])
+def test_fsm_kernels_match_plain(cuda, name):
+    types, nstate = _fsm_case(name)
+    t = huffman.build_tables(types, nstate)
+    enc = huffman.encode(t, types)
+    tree = (t.L, t.R, t.C, t.T, t.node_count)
+    c = fsm_kernel.upload(tree, enc, cuda)
+    k = fsm_kernel.fsm_sweep(c.bits, c.trans, c.total_bits, c.depth)
+    p = fsm_kernel.fsm_sweep_plain(c.bits, c.trans, c.total_bits, c.depth)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    for stride in (1, 2, 64):
+        a = fsm_kernel.fsm_sync(*k, stride)
+        b = fsm_kernel.fsm_sync_plain(*k, stride)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    got, steps = fsm_kernel.decode_coded(c, len(types), cuda)
+    want, steps_cpu = fsm_kernel.decode(tree, enc, len(types), "cpu")
+    assert steps == steps_cpu
+    np.testing.assert_array_equal(got.cpu().numpy(), types)
+    np.testing.assert_array_equal(want.numpy(), types)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [130, 1100])
+def test_fsm_deep_codes_match_plain(cuda, depth):
+    """Codes past the boundary-bitmap path (F + D >= 1120) and past one
+    1024-bit chunk (F = 2048): random bits through a caterpillar tree
+    whose code k is k ones and a zero."""
+    nc = 2 * depth + 1
+    L, R = np.zeros(nc, np.uint32), np.zeros(nc, np.uint32)
+    C, T = np.zeros(nc, np.uint32), np.zeros(nc, np.uint8)
+    for k in range(depth):
+        node = 0 if k == 0 else depth + k
+        L[node], C[k + 1], T[k + 1] = k + 1, k, 1
+        R[node] = depth + k + 1 if k + 1 < depth else 2 * depth
+    C[2 * depth], T[2 * depth] = depth, 1
+    raw = np.random.default_rng(depth).integers(0, 256, 50000).astype(
+        np.uint8)
+    raw[1000:1000 + depth // 8 + 2] = 0xFF      # one code past 1024 bits
+    c = fsm_kernel.upload((L, R, C, T, nc), raw.tobytes(), cuda)
+    assert c.depth == depth
+    k = fsm_kernel.fsm_sweep(c.bits, c.trans, c.total_bits, c.depth)
+    p = fsm_kernel.fsm_sweep_plain(c.bits, c.trans, c.total_bits, c.depth)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    entry, off, total, _ = fsm_kernel.compose(*k)
+    got = fsm_kernel.fsm_emit(c.bits, c.trans, c.total_bits, c.depth,
+                              entry, off, total)
+    want = fsm_kernel.fsm_emit_plain(c.bits, c.trans, c.total_bits,
+                                     c.depth, entry, off, total)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_fsm_corrupt_stream_raises_on_card(cuda):
+    types, nstate = _fsm_case("skewed")
+    t = huffman.build_tables(types, nstate)
+    enc = huffman.encode(t, types)[:-400]
+    with pytest.raises(ValueError, match="corrupt"):
+        fsm_kernel.decode((t.L, t.R, t.C, t.T, t.node_count), enc,
+                          len(types), cuda)
