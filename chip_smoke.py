@@ -10,22 +10,29 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
   1. environment: versions, card name and power limit, the kernel build
      (one nvcc per source, in parallel) and the host runtime build (cc);
   2. each Hopper kernel bit-equal to its plain torch version on the
-     card, with both times: K1-K4 at their test shapes, and K5-K7 (the
+     card, with both times: K1-K4 at their test shapes; K5-K7 (the
      Huffman decode) on skewed streams, trees past 8192 nodes (table in
      shared memory and in L2), a stream past 2^31 bits, a code of 1100
      bits, and a stream of the 512^3 stream's size whose chunks never
-     self-synchronize, each with its K6 steps and decode time;
-  3. the main path, sz_tpu_torch.compress/decompress on the card: each
-     stream and reconstruction hashes to the SHA-256 of the host
-     oracle's (sz_tpu, engine="numpy"; recomputed on the CPU by
-     tests/test_torch_smoke_oracle.py), and the reference golden stream
-     decodes bit-equal; the launch counters of K1-K7 must all rise;
-  4. 512^3 float32 (NYX scale): the error bound holds, compress and
+     self-synchronize, each with its K6 steps and decode time; K8/K9
+     (the MSST19 PW_REL recurrence, both directions, the decode also
+     rebuilding the encode's reconstruction) at the CPU tests' shapes,
+     256^3 and 1800x3600, a 1e-5 table past 4096 states, a signed field
+     with zeros and a ragged 2-D shape;
+  3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
+     1e-3 and PW_REL 1e-3 streams and reconstructions hash to the
+     SHA-256 of the host oracle's (sz_tpu, engine="numpy"; recomputed on
+     the CPU by tests/test_torch_smoke_oracle.py and
+     tests/test_torch_smoke_oracle_pwrel.py), and the reference golden
+     streams decode bit-equal; the launch counters of K1-K9 must all
+     rise;
+  4. 512^3 float32 (NYX scale): the ABS error bound holds, compress and
      decompress MB/s (warm, best of 3) with per-span times and counts,
      the kernel launches of one decompress, the device-to-host copy of
      537 MB, the decompress of bench.py's synth field (the earlier
      records' input), and K5-K7 timed against their plain versions on
-     the main-path stream.
+     the main-path stream; then PW_REL 1e-3 at 512^3 (the point-wise
+     bound asserted) and at 1800x3600, MB/s with spans and launches.
 The last two lines are the kernel record and {"ok": true, "device": ...}.
 Without CUDA, or outside a checkout, it fails without a result.  It
 imports neither jax nor any module of sz_tpu.
@@ -45,8 +52,10 @@ import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parent
 ABS = 1e-3
+PW_REL = 1e-3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 OPS_PER_S_32BIT = 67e12       # H100 SXM 32-bit rate outside tensor cores
+OPS_PER_S_64BIT = 34e12       # H100 SXM f64 rate outside tensor cores
 
 
 def _log(phase: str, **nums) -> None:
@@ -98,6 +107,28 @@ ORACLE = {
 }
 
 
+def pwrel_field(kind: str, shape, seed: int) -> np.ndarray:
+    """The PW_REL inputs, still exact float32 arithmetic: ``field`` as
+    it is (signed, with its exact zeros: the sign bitmap and the zero
+    flush), or its magnitude plus 2^-6 (positive, no zeros)."""
+    x = field(shape, seed)
+    return x if kind == "signed" else np.abs(x) + np.float32(2.0 ** -6)
+
+
+# name -> (kind, shape, seed, SHA-256 of the oracle's stream, of its
+# decode), PW_REL 1e-3
+ORACLE_PWREL = {
+    "pwrel_signed_256": (
+        "signed", (256, 256, 256), 42,
+        "54dfd2598ef222221549078e1994c822de547110158d840cc6ab8c5e0b670813",
+        "77735abf81917e979ae0172201215f7fb9f7c18a99a12ed8a03e53c272605eb9"),
+    "pwrel_cesm_atm_1800x3600": (
+        "abs", (1800, 3600), 6,
+        "81f7c4fac7853065db71e776501ec0ebb1af9a996fd5450289bf6fd14b33bca2",
+        "fc1270fe9591bad2c4cfb40e1f28efa1ee5684ee21c78d362a25dce38ba9b1bf"),
+}
+
+
 def sha256(b) -> str:
     return hashlib.sha256(b).hexdigest()
 
@@ -139,10 +170,12 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(moved_bytes: int, ops: int = 0) -> tuple:
+def bound(moved_bytes: int, ops: int = 0, ops64: int = 0) -> tuple:
     """(least ms, what bounds it): the bytes the function must move over
-    the memory rate, or its operations over the 32-bit peak rate."""
-    tb, to = moved_bytes / HBM_BYTES_PER_S, ops / OPS_PER_S_32BIT
+    the memory rate, or its 32-bit and 64-bit operations over their peak
+    rates."""
+    tb = moved_bytes / HBM_BYTES_PER_S
+    to = ops / OPS_PER_S_32BIT + ops64 / OPS_PER_S_64BIT
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -482,6 +515,134 @@ def phase_fsm_cases(dev) -> list:
     return rows
 
 
+# --- phase 2: K8/K9 -------------------------------------------------------
+
+def msst19_inputs(x: np.ndarray, ratio: float, dev):
+    """A field's K8/K9 inputs as the PW_REL path makes them: zeros
+    replaced by nearZero * (1 + ratio)^-3.0001, the optimizer's interval
+    count, the two tables.  Returns (intervals, (work, table, pt, base,
+    top, bits, ign))."""
+    import torch
+    from sz_tpu_torch.core import pwr
+    from sz_tpu_torch.gpu import msst19_engine
+    near = pwr.range_size_msst19(x)[5]
+    work = x.copy()
+    work[work == 0] = np.float32(near * np.float32(
+        np.power(1.0 + ratio, -3.0001)))
+    iv = pwr._optimize_intervals_msst19(work, ratio, 32768, 100,
+                                        np.float32(0.99))
+    cache = pwr._cache_table(iv, ratio, 3)
+    rl = msst19_engine.req_length(ratio, x.ndim)
+    return iv, (torch.from_numpy(work).to(dev),
+                torch.from_numpy(cache.table.reshape(-1).view(np.int16)).to(
+                    dev),
+                torch.from_numpy(pwr._precision_table(iv, ratio, 3)).to(dev),
+                cache.base_index, cache.top_index, cache.bits,
+                max(32 - rl, 0))
+
+
+def msst19_ops(shape, escapes: int, decode: bool) -> tuple:
+    """(32-bit, 64-bit) operations of one K8/K9 call on this shape: the
+    predictor's products and quotient by position (the C's shorter forms
+    on the first plane, row and column; counted at every point, escapes
+    too), the encode's ratio division, and one f64 product per point
+    that is not an escape."""
+    n = int(np.prod(shape))
+    ratio = 0 if decode else n - 1
+    recon = n - escapes
+    if len(shape) == 2:
+        r2, r3 = shape
+        pred = 2 * (r2 - 1) * (r3 - 1) + 2 * max(r3 - 2, 0)
+        return pred + ratio, recon
+    r1, r2, r3 = shape
+    pred = (6 * (r1 - 1) * (r2 - 1) * (r3 - 1)
+            + 2 * ((r1 - 1) * (r3 - 1) + (r1 - 1) * (r2 - 1)
+                   + (r2 - 1) * (r3 - 1) + max(r3 - 2, 0)))
+    return ratio, pred + recon
+
+
+def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
+    """K8 (rank 3) or K9 (rank 2), both directions, against the plain
+    versions on one field; the decode gets the escapes' stored values
+    and must also rebuild the encode's reconstruction."""
+    import torch
+    from sz_tpu_torch.gpu import msst19_kernel as mk
+    iv, args = msst19_inputs(x, ratio, dev)
+    pre = "wavefront3d" if len(shape) == 3 else "lines2d"
+    enc, dec = getattr(mk, pre + "_encode"), getattr(mk, pre + "_decode")
+    enc_p = getattr(mk, pre + "_encode_plain")
+    dec_p = getattr(mk, pre + "_decode_plain")
+    t_k, R_k = enc(*args)
+    t_p, R_p = enc_p(*args)
+    e_err = max(max_abs_err(t_k, t_p), max_abs_err(R_k, R_p))
+    mask = mk._mask_i32(args[-1])
+    known = torch.where(t_k == 0, (args[0].view(torch.int32) & mask).view(
+        torch.float32), torch.zeros_like(args[0]))
+    pt = args[2]
+    o_k, o_p = dec(t_k, known, pt), dec_p(t_k, known, pt)
+    d_err = max_abs_err(o_k, o_p)
+    escapes = int((t_k == 0).sum())
+    row = dict(case=name, shape=list(shape), ratio=ratio, intervals=iv,
+               table_states=args[1].numel(), escapes=escapes,
+               encode_bit_equal=e_err == 0.0, decode_bit_equal=d_err == 0.0,
+               decode_rebuilds_encode=bit_equal(o_k.abs(), R_k))
+    entries = {}
+    if timed:
+        runs = {  # each input read once, each output written once
+            pre + "_encode": (e_err, lambda: enc(*args),
+                              lambda: enc_p(*args),
+                              bound(nbytes(args[0], args[1], pt, t_k, R_k),
+                                    *msst19_ops(shape, escapes, False))),
+            pre + "_decode": (d_err, lambda: dec(t_k, known, pt),
+                              lambda: dec_p(t_k, known, pt),
+                              bound(nbytes(t_k, known, pt, o_k),
+                                    *msst19_ops(shape, escapes, True))),
+        }
+        for key, (err, kern, plain, (b_ms, b_by)) in runs.items():
+            ms, plain_ms = cuda_ms(kern, 3), cuda_ms(plain, 1)
+            row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
+            entries["msst19_" + key] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, shape=list(shape))
+    _log(f"kernel {kid} msst19 vs plain", **row)
+    if not (row["encode_bit_equal"] and row["decode_bit_equal"]
+            and row["decode_rebuilds_encode"]):
+        raise AssertionError(f"{kid} differs from its plain version on "
+                             f"{name}: {row}")
+    return row, entries
+
+
+def phase_msst19_cases(dev) -> tuple:
+    """Phase 2, K8/K9.  Returns (rows, timed record entries)."""
+    import torch
+    rows, entries = [], {}
+    cases = [  # the CPU tests' test_kernel_forced_parity shapes
+        ("forced_parity", (9, 11, 13), "abs", 5, 1e-3),
+        ("forced_parity_signed", (14, 10, 12), "signed", 7, 1e-3),
+        ("forced_parity", (4, 3, 3), "abs", 9, 1e-3),
+        ("forced_parity", (26, 31), "abs", 11, 1e-3),
+        ("forced_parity_signed", (18, 23), "signed", 13, 1e-3),
+        ("signed_with_zeros", (64, 64, 64), "signed", 3, 1e-3),
+        ("ragged_2d", (777, 1031), "abs", 4, 1e-4),
+        ("past_4096_states", (128, 128, 128), "abs", 5, 1e-5),
+        ("main_path_256", (256, 256, 256), "signed", 42, PW_REL),
+        ("main_path_cesm_atm", (1800, 3600), "abs", 6, PW_REL),
+    ]
+    for name, shape, kind, seed, ratio in cases:
+        x = pwrel_field(kind, shape, seed)
+        kid = "K8" if len(shape) == 3 else "K9"
+        row, ent = msst19_vs_plain(name, kid, shape, x, ratio, dev,
+                                   timed=name.startswith("main_path"))
+        if name == "signed_with_zeros" and not (x == 0).any():
+            raise AssertionError("the signed case has no zeros")
+        if name == "past_4096_states" and row["intervals"] <= 4096:
+            raise AssertionError(f"1e-5 gave {row['intervals']} states")
+        rows.append(row)
+        entries.update(ent)
+        torch.cuda.empty_cache()
+    return rows, entries
+
+
 # --- phase 3: the main path -----------------------------------------------
 
 def phase_main_path(dev, record: dict) -> None:
@@ -519,7 +680,53 @@ def phase_main_path(dev, record: dict) -> None:
                           want.view(np.uint32)):
         raise AssertionError("golden f32_3d64_abs1e-3 decodes differently")
     _log("main path", case="golden_f32_3d64_abs1e-3", decode_bit_equal=True)
+    cfg = SZConfig().with_bound(ErrorBoundMode.PW_REL, PW_REL)
+    for name, (kind, shape, seed, want_stream, want_recon) in \
+            ORACLE_PWREL.items():
+        x = pwrel_field(kind, shape, seed)
+        t0 = time.perf_counter()
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        t1 = time.perf_counter()
+        out = sz_tpu_torch.decompress(blob, x.shape, np.float32, device=dev)
+        t2 = time.perf_counter()
+        if sha256(blob) != want_stream:
+            raise AssertionError(f"{name}: stream differs from the oracle")
+        if sha256(out.tobytes()) != want_recon:
+            raise AssertionError(f"{name}: decode differs from the oracle")
+        row = dict(case=name, shape=list(shape), bound="PW_REL 1e-3",
+                   stream_sha256_equal=True, decode_sha256_equal=True,
+                   ratio=x.nbytes / len(blob), zeros=int((x == 0).sum()),
+                   negatives=int((x < 0).sum()),
+                   max_rel_err=pointwise_err(x, out),
+                   port_compress_s=t1 - t0, port_decompress_s=t2 - t1)
+        _log("main path", **row)
+        rows.append(row)
+    for name, shape in (("f32_2d_pwrel1e-3", (128, 64)),
+                        ("f32_3d_pwrel1e-3", (128, 8, 8))):
+        want = np.fromfile(golden / f"{name}.out", dtype="<f4")
+        got = sz_tpu_torch.decompress((golden / f"{name}.sz").read_bytes(),
+                                      shape, np.float32, device=dev)
+        if not np.array_equal(got.reshape(-1).view(np.uint32),
+                              want.view(np.uint32)):
+            raise AssertionError(f"golden {name} decodes differently")
+        _log("main path", case=f"golden_{name}", decode_bit_equal=True)
     record["main_path"] = rows
+
+
+def pointwise_err(x: np.ndarray, out: np.ndarray) -> float:
+    """The largest |x^ - x| / |x| over x != 0; raises unless it is within
+    PW_REL * (1 + PW_REL) and x^ is 0 wherever x is 0 (a field without
+    negative values: a signed field's replaced zeros may decode to a
+    tiny negative escape, as in the reference)."""
+    nz = x != 0
+    rel = (np.abs(out.astype(np.float64) - x)[nz]
+           / np.abs(x[nz].astype(np.float64)))
+    err = float(rel.max())
+    if not err <= PW_REL * (1 + PW_REL):
+        raise AssertionError(f"point-wise error {err} above the bound")
+    if not (x < 0).any() and (out[~nz] != 0).any():
+        raise AssertionError("a zero decoded to a non-zero value")
+    return err
 
 
 # --- phase 4: full size ---------------------------------------------------
@@ -616,6 +823,49 @@ def phase_full_size(dev, record: dict, wrappers: dict,
     return blob
 
 
+def phase_full_size_pwrel(dev, record: dict, wrappers: dict) -> None:
+    """PW_REL 1e-3 at 512^3 (|field|: NYX-like, positive with exact
+    zeros; nothing cut) and at 1800x3600 (the CESM-ATM shape, K9): the
+    point-wise bound, MB/s warm best of 3, spans and launch counts."""
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+
+    cfg = SZConfig().with_bound(ErrorBoundMode.PW_REL, PW_REL)
+    rows = {}
+    for name, x in (("pwrel_512", np.abs(field((512, 512, 512), 42))),
+                    ("pwrel_cesm_atm_1800x3600",
+                     pwrel_field("abs", (1800, 3600), 6))):
+        mb = x.nbytes / 1e6
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        out = sz_tpu_torch.decompress(blob, x.shape, np.float32, device=dev)
+        err = pointwise_err(x, out)
+        del out
+        tc, spans_c, _ = _best_of(
+            lambda: sz_tpu_torch.compress(x, cfg, device=dev), 3)
+        td, spans_d, counts_d = _best_of(
+            lambda: sz_tpu_torch.decompress(blob, x.shape, np.float32,
+                                            device=dev), 3)
+        launches = {}
+        for what, fn in (("compress", lambda: sz_tpu_torch.compress(
+                x, cfg, device=dev)), ("decompress", lambda: (
+                    sz_tpu_torch.decompress(blob, x.shape, np.float32,
+                                            device=dev)))):
+            for w in wrappers.values():
+                w.launches = 0
+            fn()
+            launches[what] = {k: w.launches for k, w in wrappers.items()
+                              if w.launches}
+        row = dict(shape=list(x.shape), bound="PW_REL 1e-3",
+                   zeros=int((x == 0).sum()), ratio=x.nbytes / len(blob),
+                   max_rel_err=err, compress_MBps=mb / tc,
+                   decompress_MBps=mb / td, compress_s=tc, decompress_s=td,
+                   compress_spans_s=spans_c, decompress_spans_s=spans_d,
+                   decompress_counts=counts_d, launches=launches)
+        _log(f"full size {name}", **row)
+        rows[name] = row
+    record["full_pwrel"] = rows
+
+
 def phase_fsm_timing(dev, blob: bytes, shape=(512, 512, 512)) -> dict:
     """K5-K7 on the 512^3 main-path stream, each against its plain
     version (K6: one step, stride 1; a decode makes ceil(log2 L))."""
@@ -698,6 +948,14 @@ KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
                  "sz_tpu/tpu/fsm_kernel.py:172"),
     "fsm_emit": ("K7", "sz_tpu_torch/csrc/fsm.cu",
                  "sz_tpu/tpu/fsm_kernel.py:298"),
+    "msst19_wavefront3d_encode": ("K8", "sz_tpu_torch/csrc/msst19.cu",
+                                  "sz_tpu/tpu/msst19_kernel.py:463"),
+    "msst19_wavefront3d_decode": ("K8", "sz_tpu_torch/csrc/msst19.cu",
+                                  "sz_tpu/tpu/msst19_kernel.py:498"),
+    "msst19_lines2d_encode": ("K9", "sz_tpu_torch/csrc/msst19.cu",
+                              "sz_tpu/tpu/msst19_kernel.py:723"),
+    "msst19_lines2d_decode": ("K9", "sz_tpu_torch/csrc/msst19.cu",
+                              "sz_tpu/tpu/msst19_kernel.py:760"),
 }
 
 
@@ -727,7 +985,7 @@ def main() -> int:
     print(smi, flush=True)
     from sz_tpu_torch import native
     from sz_tpu_torch.gpu import (_build, fsm_kernel, hist_kernel,
-                                  lorenzo_kernel, pack_kernel)
+                                  lorenzo_kernel, msst19_kernel, pack_kernel)
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     t0 = time.perf_counter()
@@ -755,6 +1013,8 @@ def main() -> int:
     # phase 2: each kernel against its plain version
     entries = phase_kernels(dev)
     record["fsm_cases"] = phase_fsm_cases(dev)
+    record["msst19_cases"], msst19_entries = phase_msst19_cases(dev)
+    entries.update(msst19_entries)
 
     # phase 3: the main path; the launch counters cover exactly this run
     wrappers = {"wavefront_quantize": lorenzo_kernel.wavefront_quantize,
@@ -763,7 +1023,11 @@ def main() -> int:
                 "pack_bits": pack_kernel.pack_bits,
                 "fsm_sweep": fsm_kernel.fsm_sweep,
                 "fsm_sync": fsm_kernel.fsm_sync,
-                "fsm_emit": fsm_kernel.fsm_emit}
+                "fsm_emit": fsm_kernel.fsm_emit,
+                "msst19_wavefront3d_encode": msst19_kernel.wavefront3d_encode,
+                "msst19_wavefront3d_decode": msst19_kernel.wavefront3d_decode,
+                "msst19_lines2d_encode": msst19_kernel.lines2d_encode,
+                "msst19_lines2d_decode": msst19_kernel.lines2d_decode}
     for w in wrappers.values():
         w.launches = 0
     phase_main_path(dev, record)
@@ -773,9 +1037,11 @@ def main() -> int:
     if idle:
         raise AssertionError(f"main path never launched {idle}")
 
-    # phase 4: full size, then K5-K7 timed on its stream
+    # phase 4: full size, then K5-K7 timed on its stream, then PW_REL
     blob = phase_full_size(dev, record, wrappers)
     entries.update(phase_fsm_timing(dev, blob))
+    del blob
+    phase_full_size_pwrel(dev, record, wrappers)
 
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.") or m == "sz_tpu"

@@ -1,7 +1,10 @@
 """``compress`` / ``decompress`` of the PyTorch port, for the slice it
 covers: float32 fields of rank 2 or 3 (rank 4 folds to 3) through the
 SZ2.1 blocked-regression codec, under any error bound that resolves to
-an absolute one (ABS, REL, ABS_AND_REL, ABS_OR_REL, PSNR, NORM).
+an absolute one (ABS, REL, ABS_AND_REL, ABS_OR_REL, PSNR, NORM), and
+through the MSST19 codec under any point-wise relative bound (PW_REL and
+the modes above it) when it is accelerated (``accelerate_pw_rel`` and a
+ratio of at least 1e-5, the reference's default route).
 
 The stream framing (range scan, bound resolution, header, constant and
 verbatim fallbacks, lossless wrap, decode clamp) is ``framing.py``, the
@@ -19,11 +22,13 @@ import torch
 from sz_tpu_torch import framing, native
 from sz_tpu_torch.config import (DEFAULT_CONFIG, MIN_NUM_OF_ELEMENTS,
                                  DataType, SZConfig)
+from sz_tpu_torch.core import pwr
 from sz_tpu_torch.format import bytes_util as bu
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
+from sz_tpu_torch.format import tdps as tdps_mod
 from sz_tpu_torch.gpu import device as devmod
-from sz_tpu_torch.gpu import engine
+from sz_tpu_torch.gpu import engine, msst19_engine
 
 
 def _check_slice(dtype, ndim: int, cfg: SZConfig = None) -> None:
@@ -41,8 +46,11 @@ def _check_slice(dtype, ndim: int, cfg: SZConfig = None) -> None:
     if cfg is None:
         return
     if cfg.error_bound_mode.is_pw_rel:
-        raise NotImplementedError(
-            "PW_REL bounds are not ported yet (ROADMAP 1.5)")
+        if not framing.accelerated_pw_rel(cfg):
+            raise NotImplementedError(
+                "pre-log PW_REL (accelerate_pw_rel=False or a ratio below "
+                "1e-5) is not ported yet (ROADMAP 1.4)")
+        return
     if not cfg.with_regression:
         raise NotImplementedError(
             "the classic codec (with_regression=False) is not ported yet "
@@ -69,13 +77,24 @@ def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
     dt = DataType.FLOAT
     flat = data.reshape(-1)
     (fmin, fmax, value_range, rp, _mode, hdr_cfg,
-     _range_info) = framing._fp_stream_params(data, cfg, dt)
+     range_info) = framing._fp_stream_params(data, cfg, dt)
     if value_range <= rp:
         return framing._constant_stream(hdr_cfg, dt, fmin, fmax, flat[0], n)
     if data.ndim == 4:
-        # the regression codec folds 4-D to 3-D (sz_float.c:3010)
+        # both codecs fold 4-D to 3-D (sz_float.c:2989-2992, :3010)
         d = data.shape
         data = data.reshape(d[0] * d[1], d[2], d[3])
+    if cfg.error_bound_mode.is_pw_rel:
+        tdps = pwr.compress_pwrel(
+            data, cfg.pw_rel_bound_ratio, range_info=range_info,
+            encode=msst19_engine.compress,
+            max_range_radius=cfg.max_range_radius,
+            sample_distance=cfg.sample_distance,
+            pred_threshold=np.float32(cfg.pred_threshold),
+            plus_bits=cfg.plus_bits, opt_quant_mode=cfg.opt_quant_mode,
+            fixed_intervals=cfg.quantization_intervals, device=dev)
+        return framing._frame_pwrel_stream(cfg, hdr_cfg, dt, fmin, fmax,
+                                           flat, n, tdps)
     res = engine.compress(
         data, rp, max_range_radius=cfg.max_range_radius,
         sample_distance=cfg.sample_distance,
@@ -98,9 +117,9 @@ def _clamp_tensor(out: torch.Tensor, hdr) -> torch.Tensor:
 
 def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
                as_tensor: bool = False):
-    """Decode an SZ2 float32 regression stream, bit-equal to
-    ``sz_tpu.decompress``.  Returns numpy, or a tensor on ``device`` when
-    ``as_tensor``."""
+    """Decode an SZ2 float32 regression or MSST19 PW_REL stream,
+    bit-equal to ``sz_tpu.decompress``.  Returns numpy, or a tensor on
+    ``device`` when ``as_tensor``."""
     dev = devmod.resolve(device)
     native.tune_malloc()
     dims = framing._filter_dims(shape)
@@ -133,19 +152,25 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
     if hdr.same:
         v = bu.read_f32_be(inner, off)
         return finish(framing._protect_clamp(np.full(n, v, dtype=T), hdr, T))
+    dims3 = (dims[0] * dims[1], dims[2], dims[3]) if len(dims) == 4 else dims
     if hdr.pw_rel:
-        raise NotImplementedError(
-            "PW_REL streams are not ported yet (ROADMAP 1.5)")
-    if not hdr.regression:
+        if not hdr.msst19:
+            raise NotImplementedError(
+                "pre-log PW_REL streams are not ported yet (ROADMAP 1.4)")
+        t = tdps_mod.from_bytes(memoryview(inner)[off:], dt, is_pwr=True,
+                                msst19=True, size_type=hdr.size_type)
+        out = msst19_engine.decompress(t, dims3, device=dev,
+                                       as_tensor=as_tensor)
+    elif not hdr.regression:
         raise NotImplementedError(
             "classic (SZ1.4) streams are not ported yet (ROADMAP 1.4)")
-    if hdr.random_access:
+    elif hdr.random_access:
         raise NotImplementedError(
             "random-access streams are not ported yet (ROADMAP 1.6)")
-    dims3 = (dims[0] * dims[1], dims[2], dims[3]) if len(dims) == 4 else dims
-    out = engine.decompress(memoryview(inner)[off:], dims3, T,
-                            size_type=hdr.size_type,
-                            device=dev, as_tensor=as_tensor)
+    else:
+        out = engine.decompress(memoryview(inner)[off:], dims3, T,
+                                size_type=hdr.size_type,
+                                device=dev, as_tensor=as_tensor)
     if as_tensor:
         return finish(_clamp_tensor(out, hdr))
     return finish(framing._protect_clamp(out, hdr, T))

@@ -105,6 +105,10 @@ class SZConfig:
     with_regression: bool = True  # SZ 2.1 blocked regression vs SZ 1.4
     random_access: bool = False
     protect_value_range: bool = False
+    accelerate_pw_rel: bool = True  # MSST19 when applicable
+    plus_bits: int = 3
+
+    segment_size: int = 36  # legacy pwr segment size
 
     sol_id: int = 101  # SZ (defines.h:21)
     data_endian_little: bool = True

@@ -1,8 +1,9 @@
 """Whole-stream framing of float streams (the port's copy of the framing
-helpers of ``sz_tpu.api``): bound resolution, the header, the
-constant-field and verbatim fallbacks, the lossless wrap and the decode
-clamp.  Mirrors SZ_compress_args_float / SZ_decompress_args_float
-(sz_float.c:2811-3039, szd_float.c:50-176).
+helpers of ``sz_tpu.api``): bound resolution (with the MSST19 range and
+sign scan for PW_REL), the header, the constant-field and verbatim
+fallbacks, the lossless wrap and the decode clamp.  Mirrors
+SZ_compress_args_float / SZ_decompress_args_float (sz_float.c:2811-3039,
+szd_float.c:50-176).
 """
 
 from __future__ import annotations
@@ -13,9 +14,11 @@ import math
 import numpy as np
 
 from sz_tpu_torch.config import DataType, ErrorBoundMode, SZConfig, SZMode
+from sz_tpu_torch.core import pwr
 from sz_tpu_torch.format import bytes_util as bu
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
+from sz_tpu_torch.format import tdps as tdps_mod
 
 
 def _filter_dims(shape) -> tuple:
@@ -60,19 +63,33 @@ def _resolve_precision(cfg: SZConfig, value_range: float, n: int,
     raise ValueError(f"unsupported bound mode {mode}")
 
 
+def accelerated_pw_rel(cfg: SZConfig) -> bool:
+    """PW_REL through MSST19 (sz_float.c:2888-2890): the accelerated
+    codec unless it is switched off or the ratio is below 1e-5."""
+    return (cfg.error_bound_mode.is_pw_rel and cfg.accelerate_pw_rel
+            and not (cfg.pw_rel_bound_ratio < 0.000009999))
+
+
 def _fp_stream_params(data: np.ndarray, cfg: SZConfig, dt: DataType):
     """Range scan + bound resolution + header-config rewrite for one
     float stream (sz_float.c:2838-2868).
 
-    Returns (fmin, fmax, value_range, rp, eff_mode, hdr_cfg, range_info).
+    Returns (fmin, fmax, value_range, rp, eff_mode, hdr_cfg, range_info);
+    range_info is the MSST19 scan (``pwr.range_size_msst19``: also the
+    signs and nearZero) for accelerated PW_REL, else None.
     """
     T = np.float32 if dt == DataType.FLOAT else np.float64
     flat = data.reshape(-1)
-    # computeRangeSize (dataCompression.c:102/148): order-independent
-    fmin = T(flat.min())
-    value_range = T(T(flat.max()) - fmin)
+    range_info = None
+    if accelerated_pw_rel(cfg):
+        range_info = pwr.range_size_msst19(data)
+        fmin, value_range = range_info[0], range_info[1]
+    else:
+        # computeRangeSize (dataCompression.c:102/148): order-independent
+        fmin = T(flat.min())
+        value_range = T(T(flat.max()) - fmin)
     out = _fp_params_from_range(cfg, dt, fmin, value_range, data.size)
-    return (*out[:6], None)
+    return (*out[:6], range_info)
 
 
 def _fp_params_from_range(cfg: SZConfig, dt: DataType, fmin, value_range,
@@ -99,10 +116,28 @@ def _frame_regression_stream(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
     """Header + element count + body, the StoreOriData fallback and the
     lossless wrap: the tail of SZ_compress_args_float
     (sz_float.c:2978-3039)."""
-    T = np.float32 if dt == DataType.FLOAT else np.float64
     header = md.make_header(hdr_cfg, dt, fmin, fmax, regression=True,
                             random_access=cfg.random_access)
-    body = header + bu.size_be(n, cfg.size_type) + res.body
+    return _finish(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
+                   header + bu.size_be(n, cfg.size_type) + res.body)
+
+
+def _frame_pwrel_stream(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
+                        tdps) -> bytes:
+    """The same tail around a PW_REL TDPS body (sz_float.c:2888-2997):
+    the header carries the PW_REL and MSST19 flags."""
+    tdps.segment_size = cfg.segment_size
+    header = md.make_header(hdr_cfg, dt, fmin, fmax, pw_rel=True,
+                            msst19=bool(tdps.msst19))
+    return _finish(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
+                   header + bu.size_be(n, cfg.size_type)
+                   + tdps_mod.to_bytes(tdps, cfg.size_type))
+
+
+def _finish(cfg, hdr_cfg, dt, fmin, fmax, flat, n, body) -> bytes:
+    """The StoreOriData fallback and the lossless wrap of a framed
+    body."""
+    T = np.float32 if dt == DataType.FLOAT else np.float64
     esize = np.dtype(T).itemsize
     mlen = md.meta_length(dt)
     if len(body) >= n * esize + 3 + mlen + cfg.size_type + 1:

@@ -1,0 +1,190 @@
+"""The MSST19 PW_REL codec on a torch device: the port of
+``sz_tpu.tpu.msst19_engine.compress`` / ``decompress``, with identical
+bytes and bits.
+
+Encode: the interval optimizer and the two tables on the host
+(``core.pwr``), the recurrence on the device (K8 for rank 3, K9 for rank
+2), the histogram of the raster-order types (K3), the escapes' values
+gathered in raster order, the escape stream and the Huffman tree on the
+host, the bit-pack on the device (K4), the TDPS container.  Decode: the
+Huffman decode on the device (K5-K7), the escape stream on the host, the
+escapes placed in raster order, the recurrence (K8/K9), then the zero
+flush and the sign bitmap (``decompress_pwrel``'s restore,
+szd_float_pwr.c:1425), all on the device.
+
+The chain is native IEEE f64 on the card, so every table runs there:
+the TPU engine's envelope (4096 boundary states), its host bail-out past
+it and its decode-verify fallback have no counterpart.  Span names
+follow the JAX engine; each device span ends with a synchronize.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sz_tpu_torch import state as state_mod
+from sz_tpu_torch.config import DataType
+from sz_tpu_torch.core import classic
+from sz_tpu_torch.core import pwr
+from sz_tpu_torch.format import bytes_util as bu
+from sz_tpu_torch.format import huffman
+from sz_tpu_torch.format import lossless as ll
+from sz_tpu_torch.format.tdps import TDPS
+from sz_tpu_torch.gpu import device as devmod
+from sz_tpu_torch.gpu import fsm_kernel, hist_kernel, msst19_kernel
+from sz_tpu_torch.gpu import pack_kernel
+from sz_tpu_torch.utils import trace as _tr
+
+
+def req_length(ratio: float, rank: int) -> int:
+    """The escapes' kept bits: computeReqLength_float_MSST19 (9 - expo)
+    for rank 3, but the float 2-D kernel calls the double variant
+    (12 - expo; sz_float.c quirk, kept)."""
+    if rank == 3:
+        return 9 - classic.get_exponent(np.float32(ratio), np.float32)
+    return 12 - classic.get_exponent(np.float64(ratio), np.float64)
+
+
+def compress(work: np.ndarray, pw_ratio: float, fmax, near_zero, *,
+             max_range_radius: int, sample_distance: int,
+             pred_threshold: float, plus_bits: int = 3,
+             opt_quant_mode: int = 1, fixed_intervals: int = 0,
+             device) -> TDPS:
+    """Port of ``sz_tpu.tpu.msst19_engine.compress`` for a float32 rank-2
+    or rank-3 field whose zeros the caller has replaced; the TDPS is
+    byte-equal to ``sz_tpu.core.pwr.compress_msst19``'s."""
+    dev = devmod.resolve(device)
+    T = np.float32
+    work = np.ascontiguousarray(work, dtype=T)
+    rank = work.ndim
+    if rank not in (2, 3):
+        raise ValueError("the MSST19 engine takes rank-2 or rank-3 fields")
+    ratio = float(pw_ratio)
+    if opt_quant_mode == 1:
+        with _tr.trace("optimizer"):
+            intervals = pwr._optimize_intervals_msst19(
+                work, ratio, max_range_radius, sample_distance,
+                pred_threshold)
+    else:
+        intervals = fixed_intervals
+    ptable = pwr._precision_table(intervals, ratio, plus_bits)
+    cache = pwr._cache_table(int(intervals), ratio, int(plus_bits))
+    median = T(np.sqrt(np.float64(abs(T(near_zero * fmax)))))
+    rl = req_length(ratio, rank)
+
+    with _tr.trace("upload"):
+        x = torch.from_numpy(work).to(dev)
+        tab = torch.from_numpy(cache.table.reshape(-1).view(np.int16)).to(dev)
+        pt = torch.from_numpy(ptable).to(dev)
+        devmod.sync(dev)
+    with _tr.trace("quantize"):
+        encode = (msst19_kernel.wavefront3d_encode if rank == 3
+                  else msst19_kernel.lines2d_encode)
+        types, _rec = encode(x, tab, pt, cache.base_index, cache.top_index,
+                             cache.bits, max(32 - rl, 0))
+        del _rec
+        types = types.reshape(-1)
+        hist = hist_kernel.histogram(types).cpu().numpy()
+    n_esc = int(hist[0])
+    with _tr.trace("escapes"):
+        esc_vals = (x.reshape(-1)[types == 0].cpu().numpy() if n_esc
+                    else np.zeros(0, T))
+    enc = classic.ExactEncoder(rl)
+    enc.add_batch(esc_vals)
+
+    state_num = 2 * intervals
+    freq = np.zeros(2 * state_num, np.int64)
+    m = min(65536, 2 * state_num)
+    freq[:m] = hist[:m]
+    with _tr.trace("huffman_tree"):
+        tables = huffman.build_tables(None, state_num, freq=freq)
+    max_len = int(tables.code_len.max())
+    total_bits = int((freq[:len(tables.code_len)]
+                      * tables.code_len.astype(np.int64)).sum())
+    tt = state_mod.table_tensors(tables, dev)
+    with _tr.trace("bitpack_device"):
+        packed = pack_kernel.pack_bits(types, tt["code_hi"], tt["code_lo"],
+                                       tt["code_len"], total_bits)
+        devmod.sync(dev)
+    with _tr.trace("stream_download"):
+        body = packed.cpu().numpy().tobytes()
+    type_array = (bu.u32_be(tables.node_count) + bu.u32_be(state_num // 2)
+                  + tables.tree_bytes + body)
+    return TDPS(
+        data_type=DataType.FLOAT, ds_length=work.size, intervals=intervals,
+        median_value=float(median), req_length=rl, real_precision=ratio,
+        type_array=type_array, lead_num=enc.lead_packed(),
+        exact_mid_bytes=bytes(enc.mid_bytes),
+        residual_mid_bits=enc.resi_packed(),
+        exact_data_num=enc.exact_count(),
+        max_quant_intervals=max_range_radius * 2, is_pwr=True, msst19=True,
+        plus_bits=plus_bits, max_bits=max_len)
+
+
+def restore(out: torch.Tensor, thr, signs) -> torch.Tensor:
+    """decompress_pwrel's MSST19 epilogue (szd_float_pwr.c:1425): values
+    below ``thr`` (min_log_value) flush to zero (only non-negative ones
+    when there is a sign bitmap), then the bitmap's sign bits are set on
+    the rest.  ``signs``: uint8 tensor, or None."""
+    thr = torch.tensor(np.float32(thr), device=out.device)
+    if signs is None:
+        return torch.where(out < thr, torch.zeros_like(out), out)
+    zero = (out < thr) & (out >= 0)
+    out = torch.where(zero, torch.zeros_like(out), out)
+    u = out.view(torch.int32)
+    flip = (signs != 0) & ~zero
+    return torch.where(flip, u | -2 ** 31, u).view(torch.float32)
+
+
+def decompress(tdps: TDPS, shape, *, device, as_tensor: bool = False):
+    """Port of ``sz_tpu.tpu.msst19_engine.decompress``: the MSST19 decode
+    with the sign and zero restore, bit-equal to
+    ``sz_tpu.core.pwr.decompress_pwrel``.  Returns numpy, or the device
+    tensor when ``as_tensor``."""
+    dev = devmod.resolve(device)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) not in (2, 3):
+        raise ValueError("the MSST19 engine takes rank-2 or rank-3 fields")
+    n = int(np.prod(shape))
+    intervals = int(tdps.intervals)
+    with _tr.trace("huffman_device"):
+        ta = tdps.type_array
+        node_count = bu.read_u32_be(ta, 0)
+        tsize = huffman.tree_bytes_size(node_count)
+        tree = huffman.deserialize_tree(ta[8:8 + tsize], node_count)
+        coded = fsm_kernel.upload((*tree, node_count), ta[8 + tsize:], dev)
+        types, steps = fsm_kernel.decode_coded(coded, n, dev)
+        del coded
+        counts = torch.stack([(types == 0).sum(),
+                              (types >= intervals).sum()]).cpu()
+    _tr.count("fsm_steps", steps)
+    n_esc, n_bad = int(counts[0]), int(counts[1])
+    if n_bad:
+        raise ValueError(f"corrupt stream: {n_bad} types past the "
+                         f"{intervals} intervals")
+    with _tr.trace("escapes"):
+        unpred = classic.ExactDecoder(tdps).next_batch(n_esc)
+        known = torch.zeros(n, dtype=torch.float32, device=dev)
+        known[types == 0] = torch.from_numpy(unpred).to(dev)
+    ptable = pwr._precision_table(intervals, tdps.real_precision,
+                                  tdps.plus_bits)
+    signs = None
+    if len(tdps.pwr_err_bound_bytes):
+        signs = np.frombuffer(ll.decompress(bytes(tdps.pwr_err_bound_bytes),
+                                            expected_size=n),
+                              dtype=np.uint8, count=n).copy()
+    with _tr.trace("decode_fixpoint"):
+        pt = torch.from_numpy(ptable).to(dev)
+        decode = (msst19_kernel.wavefront3d_decode if len(shape) == 3
+                  else msst19_kernel.lines2d_decode)
+        out = decode(types.reshape(shape), known.reshape(shape), pt)
+        del types, known
+        s_dev = None if signs is None else torch.from_numpy(
+            signs.reshape(shape)).to(dev)
+        out = restore(out, tdps.min_log_value, s_dev)
+        devmod.sync(dev)
+    if as_tensor:
+        return out
+    with _tr.trace("download"):
+        return out.cpu().numpy()

@@ -1,0 +1,293 @@
+"""K8 ``wavefront3d_encode``/``wavefront3d_decode`` and K9
+``lines2d_encode``/``lines2d_decode``: the multiplicative recurrence of
+the MSST19 PW_REL codec, encode and decode.
+
+CUDA kernels in ``csrc/msst19.cu``.  K8 replaces T11,
+``sz_tpu/tpu/msst19_kernel.py::_make_wf_kernel`` (``encode``/``decode``
+-> ``_wf_call``), the 3-D wavefront; K9 replaces T12, ``::_make_wf2_kernel``
+(``encode2d``/``decode2d`` -> ``_wf2_call``), the 2-D line kernel.  The
+TPU forms computed the f64 chain in software and found the state with a
+stairstep search limited to 4096 boundary states; here the chain is
+native IEEE f64 and the state one indexed load of the cache table, so
+every table runs on the card (the 1e-4 and 1e-5 bounds included).  K8 is
+bound by its r1 + r2 + r3 - 2 dependent diagonal launches, K9 by its
+r2 + r3 - 1 dependent lines inside one block; neither by bytes or
+arithmetic.  ``msst19.cu``'s note has the detail.
+
+Beside each kernel sits its plain torch version: an anti-diagonal
+wavefront on tensors in the form of ``sz_tpu.core.pwr``'s
+``_encode_msst19_fast``/``_decode_msst19_fast`` (each diagonal, or each
+line of a rank-2 field, one vectorized exact step), with every f64
+product and quotient a separate torch op.  The wrappers take it only for
+CPU tensors; for CUDA tensors they launch the kernel or raise.
+
+Tables: ``table`` is the cache table flattened, its uint16 states carried
+as int16 bit patterns; ``pt`` the float64 precision table; ``base``,
+``top`` and ``bits`` the cache table's exponent window and mantissa
+bits (``core.pwr.CacheTable``); ``ign`` = max(32 - req_length, 0), the
+low bits an escape's reconstruction clears.  The encoders return the
+int32 types and the float32 magnitude reconstruction; the decoders take
+the types and ``known`` (the escapes' signed values in place, anything
+elsewhere) and return the reconstruction: escapes signed, the rest
+magnitudes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sz_tpu_torch.gpu import _build
+
+_F32, _F64, _I32, _I64 = torch.float32, torch.float64, torch.int32, torch.int64
+
+
+def _mask_i32(ign: int) -> int:
+    """~(2^ign - 1) as an int32 bit pattern."""
+    m = (~((1 << ign) - 1)) & 0xFFFFFFFF if ign < 32 else 0
+    return m - (1 << 32) if m >= 1 << 31 else m
+
+
+# --- plain versions -------------------------------------------------------
+
+def _diag(d: int, r1: int, r2: int, r3: int, dev):
+    """(i, j, k) int64 index vectors of the cells with i + j + k == d."""
+    i_lo, i_hi = max(0, d - (r2 - 1) - (r3 - 1)), min(r1 - 1, d)
+    i = torch.arange(i_lo, i_hi + 1, dtype=_I64, device=dev)
+    e = d - i
+    j_lo = (e - (r3 - 1)).clamp(min=0)
+    lens = torch.minimum(e, torch.full_like(e, r2 - 1)) - j_lo + 1
+    seg = torch.repeat_interleave(torch.arange(len(i), device=dev), lens)
+    starts = torch.cumsum(lens, 0) - lens
+    j = j_lo[seg] + torch.arange(int(lens.sum()), dtype=_I64,
+                                 device=dev) - starts[seg]
+    i = i[seg]
+    return i, j, d - i - j
+
+
+def _pred_plain(R, fg, i, j, k, r3: int, r23: int, dbl: bool):
+    """The predictor of the cells of one diagonal from the magnitudes of
+    their neighbours in the guard-padded flat lattice R (``fg``: their
+    padded indices).  Every case is computed for every cell and the
+    cell's own case is selected; the cases a cell does not use may read
+    anything."""
+    A, B = R[fg - 1].abs(), R[fg - r3].abs()
+    Dg, A2 = R[fg - r3 - 1].abs(), R[fg - 2].abs()
+    j0, k0, k1 = j == 0, k == 0, k == 1
+    zero = torch.zeros_like(A)
+    if dbl:
+        a, b, dg, a2 = (t.to(_F64) for t in (A, B, Dg, A2))
+        lin = (a * a / a2).to(_F32)
+        p2 = (a * b / dg).to(_F32)
+    else:
+        lin = A * A / A2
+        p2 = A * B / Dg
+    pred0 = torch.where(j0 & k0, zero, torch.where(
+        j0 & k1, A, torch.where(j0, lin, torch.where(k0, B, p2))))
+    if not dbl:
+        return pred0
+    C, E = R[fg - r23].abs(), R[fg - r23 - r3].abs()
+    F, G = R[fg - r23 - 1].abs(), R[fg - r23 - r3 - 1].abs()
+    c, e, f, g = (t.to(_F64) for t in (C, E, F, G))
+    rw = (a * c / f).to(_F32)
+    cl = (b * c / e).to(_F32)
+    p3 = (a * b * c * g / (dg * e * f)).to(_F32)
+    predk = torch.where(j0 & k0, C, torch.where(
+        j0, rw, torch.where(k0, cl, p3)))
+    return torch.where(i == 0, pred0, predk)
+
+
+def _lookup_plain(ratio, tab, base: int, top: int, bits: int):
+    """CacheTable.lookup on the bits of float64(ratio); 0 outside."""
+    b = ratio.to(_F64).view(_I64) & 0x7FFFFFFFFFFFFFFF
+    expo = (b >> 52) - base
+    ok = (expo >= 0) & (expo <= top - base)
+    key = (expo << bits) + ((b & 0x000FFFFFFFFFFFFF) >> (52 - bits))
+    return torch.where(ok, tab[torch.where(ok, key, 0)], 0)
+
+
+def _recon_plain(pred, s, pt):
+    """f32(f64(|pred|) * pt[s]); NaN for a type past the table."""
+    ok = s < pt.numel()
+    ptx = torch.where(ok, pt[torch.where(ok, s, 0)], float("nan"))
+    return (pred.abs().to(_F64) * ptx).to(_F32)
+
+
+def _vol(t):
+    return t if t.dim() == 3 else t.unsqueeze(0)
+
+
+def _encode_plain(data, table, pt, base, top, bits, ign, dbl: bool):
+    shape, dev = data.shape, data.device
+    r1, r2, r3 = _vol(data).shape
+    r23, n = r2 * r3, data.numel()
+    guard = r23 + r3 + 2
+    cur_all = data.reshape(-1).abs()
+    tab = table.reshape(-1).to(_I64) & 0xFFFF
+    R = torch.zeros(guard + n, dtype=_F32, device=dev)
+    types = torch.zeros(n, dtype=_I32, device=dev)
+    mask = _mask_i32(ign)
+    for d in range(r1 + r2 + r3 - 2):
+        i, j, k = _diag(d, r1, r2, r3, dev)
+        fi = (i * r2 + j) * r3 + k
+        pred = _pred_plain(R, fi + guard, i, j, k, r3, r23, dbl)
+        cur = cur_all[fi]
+        s = _lookup_plain(cur / pred, tab, base, top, bits)
+        if d == 0:
+            s = torch.zeros_like(s)          # the first point escapes
+        esc = (cur.view(_I32) & mask).view(_F32)
+        R[fi + guard] = torch.where(s != 0, _recon_plain(pred, s, pt), esc)
+        types[fi] = s.to(_I32)
+    return types.reshape(shape), R[guard:].reshape(shape)
+
+
+def _decode_plain(types, known, pt, dbl: bool):
+    shape, dev = types.shape, types.device
+    r1, r2, r3 = _vol(types).shape
+    r23, n = r2 * r3, types.numel()
+    guard = r23 + r3 + 2
+    t_all, kv_all = types.reshape(-1).to(_I64), known.reshape(-1)
+    out = torch.zeros(guard + n, dtype=_F32, device=dev)
+    for d in range(r1 + r2 + r3 - 2):
+        i, j, k = _diag(d, r1, r2, r3, dev)
+        fi = (i * r2 + j) * r3 + k
+        pred = _pred_plain(out, fi + guard, i, j, k, r3, r23, dbl)
+        s = t_all[fi]
+        out[fi + guard] = torch.where(s != 0, _recon_plain(pred, s, pt),
+                                      kv_all[fi])
+    return out[guard:].reshape(shape)
+
+
+def wavefront3d_encode_plain(data, table, pt, base, top, bits, ign):
+    return _encode_plain(data, table, pt, base, top, bits, ign, True)
+
+
+def wavefront3d_decode_plain(types, known, pt):
+    return _decode_plain(types, known, pt, True)
+
+
+def lines2d_encode_plain(data, table, pt, base, top, bits, ign):
+    return _encode_plain(data, table, pt, base, top, bits, ign, False)
+
+
+def lines2d_decode_plain(types, known, pt):
+    return _decode_plain(types, known, pt, False)
+
+
+# --- wrappers -------------------------------------------------------------
+
+def _check(name: str, rank: int, lattice, *more):
+    """Validate ((tensor, dtype), ...) of one lattice shape and the
+    tables; returns the device type ('cpu' or 'cuda')."""
+    shape = lattice[0][0].shape
+    if len(shape) != rank:
+        raise ValueError(f"{name}: a rank-{rank} lattice is required")
+    for t, dt in lattice:
+        if t.shape != shape or t.dtype != dt:
+            raise ValueError(f"{name}: inputs of shape {tuple(shape)} and "
+                             f"dtypes {[str(d) for _, d in lattice]}")
+    for t, dt in more:
+        if t.dim() != 1 or t.dtype != dt or t.numel() == 0:
+            raise ValueError(f"{name}: tables must be non-empty 1-D "
+                             f"{dt} tensors")
+    tensors = [t for t, _ in lattice + list(more)]
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on one device")
+    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: contiguous tensors required")
+    return dev.type
+
+
+def _check_window(name, table, base, top, bits):
+    if not 0 <= bits <= 52 or top < base or \
+            table.numel() != (top - base + 1) << bits:
+        raise ValueError(f"{name}: the cache table must hold "
+                         f"(top - base + 1) << bits states")
+
+
+def _p(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def wavefront3d_encode(data, table, pt, base: int, top: int, bits: int,
+                       ign: int):
+    """K8 encode: states of a rank-3 float32 field (int32) and its
+    magnitude reconstruction (float32)."""
+    kind = _check("wavefront3d_encode", 3, [(data, _F32)], (table, torch.int16),
+                  (pt, _F64))
+    _check_window("wavefront3d_encode", table, base, top, bits)
+    if kind == "cpu":
+        return wavefront3d_encode_plain(data, table, pt, base, top, bits, ign)
+    types = torch.empty(data.shape, dtype=_I32, device=data.device)
+    R = torch.empty(data.shape, dtype=_F32, device=data.device)
+    rc = _build.lib().sz_msst19_wavefront3d_encode(
+        _p(data), _p(table), _p(pt), pt.numel(), base, top, bits, ign,
+        _p(types), _p(R), *data.shape, _stream(data))
+    _build.check(rc, "wavefront3d_encode")
+    wavefront3d_encode.launches += 1
+    return types, R
+
+
+def wavefront3d_decode(types, known, pt):
+    """K8 decode: the rank-3 reconstruction from the types and the
+    escapes' values."""
+    kind = _check("wavefront3d_decode", 3, [(types, _I32), (known, _F32)],
+                  (pt, _F64))
+    if kind == "cpu":
+        return wavefront3d_decode_plain(types, known, pt)
+    out = torch.empty(types.shape, dtype=_F32, device=types.device)
+    rc = _build.lib().sz_msst19_wavefront3d_decode(
+        _p(types), _p(known), _p(pt), pt.numel(), _p(out), *types.shape,
+        _stream(types))
+    _build.check(rc, "wavefront3d_decode")
+    wavefront3d_decode.launches += 1
+    return out
+
+
+def lines2d_encode(data, table, pt, base: int, top: int, bits: int,
+                   ign: int):
+    """K9 encode: states of a rank-2 float32 field (int32) and its
+    magnitude reconstruction (float32)."""
+    kind = _check("lines2d_encode", 2, [(data, _F32)], (table, torch.int16),
+                  (pt, _F64))
+    _check_window("lines2d_encode", table, base, top, bits)
+    if kind == "cpu":
+        return lines2d_encode_plain(data, table, pt, base, top, bits, ign)
+    types = torch.empty(data.shape, dtype=_I32, device=data.device)
+    R = torch.empty(data.shape, dtype=_F32, device=data.device)
+    lines = torch.empty(3 * data.shape[1], dtype=_F32, device=data.device)
+    rc = _build.lib().sz_msst19_lines2d_encode(
+        _p(data), _p(table), table.numel(), _p(pt), pt.numel(), base, top,
+        bits, ign, _p(types), _p(R), _p(lines), *data.shape, _stream(data))
+    _build.check(rc, "lines2d_encode")
+    lines2d_encode.launches += 1
+    return types, R
+
+
+def lines2d_decode(types, known, pt):
+    """K9 decode: the rank-2 reconstruction from the types and the
+    escapes' values."""
+    kind = _check("lines2d_decode", 2, [(types, _I32), (known, _F32)],
+                  (pt, _F64))
+    if kind == "cpu":
+        return lines2d_decode_plain(types, known, pt)
+    out = torch.empty(types.shape, dtype=_F32, device=types.device)
+    lines = torch.empty(3 * types.shape[1], dtype=_F32, device=types.device)
+    rc = _build.lib().sz_msst19_lines2d_decode(
+        _p(types), _p(known), _p(pt), pt.numel(), _p(out), _p(lines),
+        *types.shape, _stream(types))
+    _build.check(rc, "lines2d_decode")
+    lines2d_decode.launches += 1
+    return out
+
+
+wavefront3d_encode.launches = wavefront3d_decode.launches = 0
+lines2d_encode.launches = lines2d_decode.launches = 0

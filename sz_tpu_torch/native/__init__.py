@@ -44,6 +44,14 @@ _SIGNATURES = {
                         None),
     "coeff_chain_decode_f32": ((_P, _I64, _I, _P, _P, _P, _P, _P), None),
     "huff_build_tree": ((_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P), _I64),
+    "exact_stream_f32": ((_P, _I64, _I, ctypes.c_float, _I, _P, _P, _P, _P,
+                          _P, _P), None),
+    "classic1d_decode_f32": ((_P, _I64, ctypes.c_float, _I, _I,
+                              ctypes.c_float, _I, _P, _P, _P, _P), None),
+    "range_scan_f32": ((_P, _I64, _P, _P, _P, _P), _I),
+    "msst19_build_table": ((_P, _I64, ctypes.c_double, _I, _I64, _I64, _P),
+                           None),
+    "pack_w_bits": ((_P, _I64, _I, _P), None),
     "ZSTD_compress": ((_P, _SZ, _P, _SZ, _I), _SZ),
     "ZSTD_decompress": ((_P, _SZ, _P, _SZ), _SZ),
     "ZSTD_compressBound": ((_SZ,), _SZ),
@@ -200,6 +208,80 @@ def huff_build_tree(freq: np.ndarray, state_num: int, node_count: int):
         raise ValueError(f"Huffman tree of {node_count} nodes expected, "
                          f"the build returned {rc}")
     return code_hi, code_lo, code_len, L, R, C, T
+
+
+def exact_stream(vals: np.ndarray, req_length: int, median, raw: bool,
+                 prev: bytes):
+    """Batched float32 exact-value escape stream.  Returns
+    (lead u8[n], mid bytes, resi u8[<=n], recon, new_prev)."""
+    vals = np.ascontiguousarray(vals, np.float32)
+    n = vals.size
+    rb = req_length // 8
+    lead = np.zeros(max(n, 1), np.uint8)
+    mid = np.zeros(max(n * max(rb, 1), 1), np.uint8)
+    resi = np.zeros(max(n, 1), np.uint8)
+    recon = np.zeros(n, np.float32)
+    prev_io = np.zeros(8, np.uint8)
+    prev_io[:len(prev)] = np.frombuffer(prev, np.uint8)
+    nmid = np.zeros(1, np.int64)
+    lib().exact_stream_f32(_ptr(vals), n, req_length, float(median),
+                           1 if raw else 0, _ptr(prev_io), _ptr(lead),
+                           _ptr(mid), _ptr(nmid), _ptr(resi), _ptr(recon))
+    has_resi = (req_length % 8) != 0 and rb < 4
+    return (lead[:n], mid[:int(nmid[0])].tobytes(),
+            resi[:n] if has_resi else resi[:0], recon, prev_io[:4].tobytes())
+
+
+def classic1d_decode(types: np.ndarray, interval2, radius: int,
+                     req_length: int, median, raw: bool, lead: np.ndarray,
+                     mid: bytes, resi: bytes) -> np.ndarray:
+    """The float32 classic 1-D decoder (escapes from the exact-value
+    stream, the rest from the types)."""
+    types = np.ascontiguousarray(types, np.int32)
+    n = types.size
+    lead = np.ascontiguousarray(lead, np.uint8)
+    midb = np.frombuffer(mid, np.uint8) if len(mid) else np.zeros(1, np.uint8)
+    resb = (np.frombuffer(resi, np.uint8) if len(resi)
+            else np.zeros(1, np.uint8))
+    out = np.zeros(n, np.float32)
+    lib().classic1d_decode_f32(_ptr(types), n, float(interval2), radius,
+                               req_length, float(median), 1 if raw else 0,
+                               _ptr(lead), _ptr(midb), _ptr(resb), _ptr(out))
+    return out
+
+
+def range_scan(flat: np.ndarray):
+    """(fmin, fmax, near, signs u8[n], positive) of a float32 field in
+    one pass (computeRangeSize_float_MSST19)."""
+    flat = np.ascontiguousarray(flat, np.float32)
+    signs = np.zeros(flat.size, np.uint8)
+    mn, mx, nr = ctypes.c_float(0), ctypes.c_float(0), ctypes.c_float(0)
+    pos = lib().range_scan_f32(_ptr(flat), flat.size, _ptr(signs),
+                               ctypes.byref(mn), ctypes.byref(mx),
+                               ctypes.byref(nr))
+    f32 = np.float32
+    return f32(mn.value), f32(mx.value), f32(nr.value), signs, bool(pos)
+
+
+def msst19_build_table(pt: np.ndarray, precision: float, bits: int,
+                       base_index: int, nsub: int) -> np.ndarray:
+    """The MSST19 cache table: (nsub, 2^bits) uint16 states."""
+    pt = np.ascontiguousarray(pt, np.float64)
+    table = np.zeros((nsub, 1 << bits), np.uint16)
+    lib().msst19_build_table(_ptr(pt), pt.size, precision, bits, base_index,
+                             nsub, _ptr(table))
+    return table
+
+
+def pack_w_bits(vals: np.ndarray, w: int) -> bytes:
+    """MSB-first fixed-width (w < 8) bit pack, zero-padded to a byte
+    (convertIntArray2ByteArray_fast_dynamic, TypeManager.c:377)."""
+    vals = np.ascontiguousarray(vals, np.uint8)
+    n = vals.size
+    out = np.zeros((n * w + 7) // 8, np.uint8)
+    if n:
+        lib().pack_w_bits(_ptr(vals), n, w, _ptr(out))
+    return out.tobytes()
 
 
 def zstd_compress(data: bytes, level: int) -> bytes:

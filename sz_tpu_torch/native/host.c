@@ -5,6 +5,11 @@
  *   - the coefficient delta-quantization chain and its decode
  *     (sz_float.c:6787-6814, szd_float.c:3376-3414)
  *   - the reference-exact Huffman tree build (Huffman.c:76-185, 443-585)
+ *   - the PW_REL/MSST19 host stages: the exact-value escape stream and
+ *     its decode (dataCompression.c:575, CompressElement.c:230,
+ *     szd_float.c:185), the range/sign scan (dataCompression.c:121),
+ *     the cache-table build (MultiLevelCacheTableWideInterval.c:47-186)
+ *     and the fixed-width bit pack (TypeManager.c:377)
  *
  * Built with `cc -O3 -ffp-contract=off` (no FMA contraction, no
  * -march, no fast-math) by sz_tpu_torch/native/__init__.py; bound with
@@ -14,6 +19,7 @@
 #include <stdint.h>
 #include <stdlib.h>
 #include <math.h>
+#include <string.h>
 
 float seq_sum_f32(const float *x, int64_t n) {
     float acc = 0.0f;
@@ -242,4 +248,186 @@ int64_t huff_build_tree(const int64_t *freq, int64_t freq_len,
     free(st_n); free(st_l); free(st_1); free(st_2);
     free(pn); free(pp); free(pr);
     return node_count;
+}
+
+/* ------------------------------------------------------------------ */
+/* Exact-value escape stream (addExactData dataCompression.c:575,      */
+/* updateLossyCompElement CompressElement.c:230) — batched, and its    */
+/* decode (the classic 1D decoder with every type an escape).          */
+/* ------------------------------------------------------------------ */
+
+typedef struct {
+    int esize, req_bytes, resi_len;
+    uint8_t prev[8];
+    uint8_t *lead;  int64_t nlead;
+    uint8_t *mid;   int64_t nmid;
+    uint8_t *resi;  int64_t nresi;
+} xenc;
+
+static inline float xenc_add_f32(xenc *E, float value, float median,
+                                 int raw, uint32_t mask) {
+    float norm = raw ? value : value - median;
+    uint32_t ival;
+    memcpy(&ival, &norm, 4);
+    uint8_t cur[4] = { (uint8_t)(ival >> 24), (uint8_t)(ival >> 16),
+                       (uint8_t)(ival >> 8), (uint8_t)ival };
+    uint32_t rbits = ival & mask;
+    float recon;
+    memcpy(&recon, &rbits, 4);
+    if (!raw) recon = recon + median;
+    int lead = 0;
+    while (lead < 3 && cur[lead] == E->prev[lead]) lead++;
+    E->lead[E->nlead++] = (uint8_t)lead;
+    for (int b = lead; b < E->req_bytes; b++) E->mid[E->nmid++] = cur[b];
+    if (E->resi_len && E->req_bytes < 4)
+        E->resi[E->nresi++] = cur[E->req_bytes] >> (8 - E->resi_len);
+    memcpy(E->prev, cur, 4);
+    return recon;
+}
+
+static inline uint64_t xenc_mask(int esize, int req_length) {
+    int ign = esize * 8 - req_length;
+    if (ign < 0) ign = 0;
+    uint64_t full = esize == 4 ? 0xFFFFFFFFull : 0xFFFFFFFFFFFFFFFFull;
+    return (~((1ull << ign) - 1ull)) & full;
+}
+
+/* Batched escape stream: state passed in/out so Python can interleave
+ * batches with its own adds.  prev_io: 8 bytes.  Returns new lead
+ * count (== entries appended so far in this call: n). */
+void exact_stream_f32(const float *vals, int64_t n, int req_length,
+                      float median, int raw, uint8_t *prev_io,
+                      uint8_t *lead, uint8_t *mid, int64_t *nmid,
+                      uint8_t *resi, float *recon) {
+    xenc E;
+    E.esize = 4; E.req_bytes = req_length / 8; E.resi_len = req_length % 8;
+    if (E.req_bytes > 4) E.req_bytes = 4;
+    memcpy(E.prev, prev_io, 8);
+    E.lead = lead; E.nlead = 0;
+    E.mid = mid; E.nmid = 0;
+    E.resi = resi; E.nresi = 0;
+    uint32_t mask = (uint32_t)xenc_mask(4, req_length);
+    for (int64_t i = 0; i < n; i++) {
+        float r = xenc_add_f32(&E, vals[i], median, raw, mask);
+        if (recon) recon[i] = r;
+    }
+    memcpy(prev_io, E.prev, 8);
+    *nmid = E.nmid;
+}
+
+/* Classic 1D decode (decompressDataSeries_float_1D szd_float.c:185).
+ * lead: unpacked 2-bit values; resi consumed as a bit cursor. */
+void classic1d_decode_f32(const int32_t *types, int64_t n, float interval2,
+                          int radius, int req_length, float median, int raw,
+                          const uint8_t *lead, const uint8_t *mid,
+                          const uint8_t *resi, float *out) {
+    int req_bytes = req_length / 8, resi_len = req_length % 8;
+    if (req_bytes > 4) req_bytes = 4;
+    uint8_t prev[4] = {0};
+    int64_t midp = 0, bitp = 0;
+    float cur = 0.0f;
+    for (int64_t i = 0, k = 0; i < n; i++) {
+        int t = types[i];
+        if (t == 0) {
+            uint8_t b[4] = {0};
+            int ln = lead[k++];
+            for (int j = 0; j < ln; j++) b[j] = prev[j];
+            for (int j = ln; j < req_bytes; j++) b[j] = mid[midp++];
+            if (resi_len && req_bytes < 4) {
+                int v = 0;
+                for (int w = 0; w < resi_len; w++) {
+                    v = (v << 1) | ((resi[bitp >> 3] >> (7 - (bitp & 7))) & 1);
+                    bitp++;
+                }
+                b[req_bytes] = (uint8_t)(v << (8 - resi_len));
+            }
+            memcpy(prev, b, 4);
+            uint32_t ival = ((uint32_t)b[0] << 24) | ((uint32_t)b[1] << 16)
+                          | ((uint32_t)b[2] << 8) | b[3];
+            float val;
+            memcpy(&val, &ival, 4);
+            cur = raw ? val : val + median;
+        } else {
+            cur = cur + (float)(t - radius) * interval2;
+        }
+        out[i] = cur;
+    }
+}
+
+/* One-pass MSST19 range/sign scan (computeRangeSize_*_MSST19).
+ * signs[0] stays 0; near starts at x[0], strictly-smaller nonzero
+ * magnitudes update it (first occurrence wins).  Returns positive. */
+int range_scan_f32(const float *x, int64_t n, uint8_t *signs,
+                   float *fmin, float *fmax, float *near) {
+    int positive = 1;
+    float mn = x[0], mx = x[0], nr = x[0];
+    signs[0] = 0;
+    for (int64_t i = 1; i < n; i++) {
+        float v = x[i];
+        int s = v < 0;
+        signs[i] = (uint8_t)s;
+        if (s) positive = 0;
+        if (v < mn) mn = v;
+        if (v > mx) mx = v;
+        if (v != 0 && fabsf(v) < fabsf(nr)) nr = v;
+    }
+    *fmin = mn; *fmax = mx; *near = nr;
+    return positive;
+}
+
+/* MSST19 cache-table construction
+ * (MultiLevelCacheTableWideInterval.c:47-186 state machine): for each
+ * (exponent subrange, truncated mantissa) cell, assign the precision-
+ * table interval whose (lo, hi) window contains the cell. */
+void msst19_build_table(const double *pt, int64_t count, double precision,
+                        int bits, int64_t base_index, int64_t nsub,
+                        uint16_t *table) {
+    int64_t size = 1ll << bits;
+    double *lo = malloc(count * sizeof(double));
+    double *hi = malloc(count * sizeof(double));
+    for (int64_t i = 0; i < count; i++) {
+        lo[i] = pt[i] / (1 + precision);
+        hi[i] = pt[i] / (1 - precision);
+    }
+    int64_t index = 0;
+    int flag = 0;
+    for (int64_t i = 0; i < nsub; i++) {
+        int64_t expo = i + base_index;
+        for (int64_t j = 0; j < size; j++) {
+            uint64_t vb = ((uint64_t)expo << 52)
+                        + ((uint64_t)j << (52 - bits));
+            uint64_t vt = ((uint64_t)expo << 52)
+                        + ((uint64_t)(j + 1) << (52 - bits));
+            double bot_s, top_s;
+            memcpy(&bot_s, &vb, 8);
+            memcpy(&top_s, &vt, 8);
+            if (top_s < hi[index] && bot_s > lo[index]) {
+                table[i * size + j] = (uint16_t)index;
+                flag = 1;
+            } else if (flag && index < count - 1) {
+                index++;
+                table[i * size + j] = (uint16_t)index;
+            } else {
+                table[i * size + j] = 0;
+            }
+        }
+    }
+    free(lo); free(hi);
+}
+
+/* MSB-first fixed-width (w < 8) bit pack of byte values
+ * (convertIntArray2ByteArray_fast_dynamic, TypeManager.c:377). */
+void pack_w_bits(const uint8_t *vals, int64_t n, int w, uint8_t *out) {
+    uint64_t acc = 0;
+    int accbits = 0;
+    int64_t ob = 0;
+    for (int64_t i = 0; i < n; i++) {
+        acc = (acc << w) | vals[i];
+        accbits += w;
+        while (accbits >= 8) {
+            out[ob++] = (uint8_t)(acc >> (accbits - 8));
+            accbits -= 8;
+        }
+    }
+    if (accbits) out[ob++] = (uint8_t)(acc << (8 - accbits));
 }

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: each CUDA kernel bit-equal to its
-plain torch version (K5-K7 also on the decoded symbols), and the main
-path byte-equal to the numpy oracle, on the GPU.  They skip where
+plain torch version (K5-K7 also on the decoded symbols, K8/K9's decode
+also rebuilding their encode's reconstruction), and the main path and
+the MSST19 PW_REL path byte-equal to the numpy oracle, on the GPU.  They skip where
 torch.cuda.is_available() is false.
 
 This file imports no jax, so it also runs on a machine without it; there
@@ -13,11 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+import sz_tpu
+from sz_tpu.config import ErrorBoundMode as JMode
+from sz_tpu.config import SZConfig as JConfig
 from sz_tpu.core import regnd
 from sz_tpu.format import huffman
 
+import sz_tpu_torch
+from sz_tpu_torch.core import pwr
 from sz_tpu_torch.gpu import (engine, fsm_kernel, hist_kernel,
-                              lorenzo_kernel, pack_kernel)
+                              lorenzo_kernel, msst19_engine, msst19_kernel,
+                              pack_kernel)
 
 RADIUS, MEAN = 32, np.float32(0.25)
 RP = np.float32(1e-3)
@@ -188,3 +195,64 @@ def test_fsm_corrupt_stream_raises_on_card(cuda):
     with pytest.raises(ValueError, match="corrupt"):
         fsm_kernel.decode((t.L, t.R, t.C, t.T, t.node_count), enc,
                           len(types), cuda)
+
+
+def _msst19_case(shape, ratio, signed, dev):
+    """A zero-free field and its MSST19 tables on ``dev``: (data, table,
+    pt, base, top, bits, ign)."""
+    data = _field(shape, 13)
+    data = data if signed else np.abs(data) + np.float32(0.01)
+    data[data == 0] = np.float32(0.5)
+    iv = pwr._optimize_intervals_msst19(data, ratio, 32768, 100,
+                                        np.float32(0.99))
+    cache = pwr._cache_table(iv, ratio, 3)
+    rl = msst19_engine.req_length(ratio, len(shape))
+    return (torch.from_numpy(data).to(dev),
+            torch.from_numpy(cache.table.reshape(-1).view(np.int16)).to(dev),
+            torch.from_numpy(pwr._precision_table(iv, ratio, 3)).to(dev),
+            cache.base_index, cache.top_index, cache.bits, max(32 - rl, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ratio,signed", [
+    ((20, 33, 47), 1e-3, False), ((30, 26, 34), 1e-5, True),
+    ((150, 130), 1e-3, True), ((777, 1031), 1e-4, False)])
+def test_msst19_kernels_match_plain(cuda, shape, ratio, signed):
+    args = _msst19_case(shape, ratio, signed, cuda)
+    rank3 = len(shape) == 3
+    enc = (msst19_kernel.wavefront3d_encode if rank3
+           else msst19_kernel.lines2d_encode)
+    enc_p = (msst19_kernel.wavefront3d_encode_plain if rank3
+             else msst19_kernel.lines2d_encode_plain)
+    dec = (msst19_kernel.wavefront3d_decode if rank3
+           else msst19_kernel.lines2d_decode)
+    dec_p = (msst19_kernel.wavefront3d_decode_plain if rank3
+             else msst19_kernel.lines2d_decode_plain)
+    t_k, R_k = enc(*args)
+    t_p, R_p = enc_p(*args)
+    assert _bits_equal(t_k, t_p) and _bits_equal(R_k, R_p)
+    mask = msst19_kernel._mask_i32(args[-1])
+    known = torch.where(t_k == 0, (args[0].view(torch.int32) & mask).view(
+        torch.float32), torch.zeros_like(args[0]))
+    out = dec(t_k, known, args[2])
+    assert _bits_equal(out, dec_p(t_k, known, args[2]))
+    assert _bits_equal(out.abs(), R_k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ratio", [((40, 48, 56), 1e-3),
+                                         ((30, 26, 34), 1e-5),
+                                         ((300, 200), 1e-3)])
+def test_pwrel_on_card_matches_oracle(cuda, shape, ratio):
+    data = _field(shape, 17)
+    data[::7] = 0
+    cfg = JConfig(error_bound_mode=JMode.PW_REL, pw_rel_bound_ratio=ratio,
+                  engine="numpy")
+    want = sz_tpu.compress(data, cfg)
+    got = sz_tpu_torch.compress(data, sz_tpu_torch.SZConfig().with_bound(
+        sz_tpu_torch.ErrorBoundMode.PW_REL, ratio), device=cuda)
+    assert got == want
+    np.testing.assert_array_equal(
+        sz_tpu_torch.decompress(want, shape, device=cuda).view(np.uint32),
+        sz_tpu.decompress(want, shape, np.float32,
+                          engine="numpy").view(np.uint32))

@@ -16,7 +16,7 @@ import torch
 import sz_tpu_torch
 from sz_tpu_torch.config import ErrorBoundMode, SZConfig
 from sz_tpu_torch.gpu import (_build, fsm_kernel, hist_kernel, lorenzo_kernel,
-                              pack_kernel)
+                              msst19_kernel, pack_kernel)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -96,16 +96,24 @@ _X3 = np.linspace(0, 1, 10 * 11 * 12, dtype=np.float32).reshape(10, 11, 12)
 _ABS = SZConfig().with_bound(ErrorBoundMode.ABS, 1e-3)
 
 
+_PW = SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)
+
+
 @pytest.mark.parametrize("data,cfg,item", [
     (_X3.astype(np.float64), _ABS, "1.3"),
-    (_X3, SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3), "1.5"),
+    (_X3, SZConfig(accelerate_pw_rel=False).with_bound(ErrorBoundMode.PW_REL,
+                                                       1e-3), "1.4"),
+    (_X3, SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-6), "1.4"),
     (_X3, SZConfig(with_regression=False).with_bound(
         ErrorBoundMode.ABS, 1e-3), "1.4"),
     (_X3, SZConfig(random_access=True).with_bound(ErrorBoundMode.ABS, 1e-3),
      "1.6"),
     (_X3.reshape(-1), _ABS, "1.4"),
     ((_X3 * 100).astype(np.int32), _ABS, "1.10"),
-], ids=["f64", "pw_rel", "classic", "random_access", "1d", "int"])
+    (_X3.reshape(-1), _PW, "1.4"),
+    (_X3.astype(np.float64), _PW, "1.3"),
+], ids=["f64", "pw_rel", "pw_rel_1e-6", "classic", "random_access",
+        "1d", "int", "pw_rel_1d", "pw_rel_f64"])
 def test_out_of_slice_raises(data, cfg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
         sz_tpu_torch.compress(data, cfg, device="cpu")
@@ -119,6 +127,27 @@ def test_out_of_slice_raises(data, cfg, item):
 def test_out_of_slice_decompress_raises(dtype, shape, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
         sz_tpu_torch.decompress(b"\0" * 64, shape, dtype, device="cpu")
+
+
+def test_prelog_pw_rel_stream_decode_raises():
+    """A stream of the pre-log PW_REL codec (the MSST19 flag off) is
+    refused, not decoded by another codec."""
+    import sz_tpu
+    from sz_tpu.config import ErrorBoundMode as JMode
+    from sz_tpu.config import SZConfig as JConfig
+    cfg = JConfig(accelerate_pw_rel=False, engine="numpy").with_bound(
+        JMode.PW_REL, 1e-3)
+    blob = sz_tpu.compress(_X3 + 1, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.4\\)"):
+        sz_tpu_torch.decompress(blob, _X3.shape, device="cpu")
+
+
+def _msst19_meta():
+    m = torch.empty((4, 5, 6), device="meta")
+    t = torch.empty((4, 5, 6), dtype=torch.int32, device="meta")
+    tab = torch.empty(16, dtype=torch.int16, device="meta")
+    pt = torch.empty(8, dtype=torch.float64, device="meta")
+    return m, t, tab, pt
 
 
 def test_wrappers_take_no_fallback_off_cpu():
@@ -147,6 +176,15 @@ def test_wrappers_take_no_fallback_off_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         fsm_kernel.fsm_emit(bits, trans, 8, 2, one,
                             one.to(torch.int64), 4)
+    m, t, tab, pt = _msst19_meta()
+    with pytest.raises(ValueError, match="unsupported device"):
+        msst19_kernel.wavefront3d_encode(m, tab, pt, 1023, 1023, 4, 13)
+    with pytest.raises(ValueError, match="unsupported device"):
+        msst19_kernel.wavefront3d_decode(t, m, pt)
+    with pytest.raises(ValueError, match="unsupported device"):
+        msst19_kernel.lines2d_encode(m[0], tab, pt, 1023, 1023, 4, 10)
+    with pytest.raises(ValueError, match="unsupported device"):
+        msst19_kernel.lines2d_decode(t[0], m[0], pt)
 
 
 def test_wrappers_check_shapes():
@@ -183,6 +221,21 @@ def test_wrappers_check_shapes():
                                                       dtype=torch.int64), 1)
     with pytest.raises(ValueError, match="dtype"):
         fsm_kernel.fsm_emit(bits, trans, 8, 2, two, two, 4)
+    t3 = torch.zeros((4, 5, 6), dtype=torch.int32)
+    tab = torch.zeros(16, dtype=torch.int16)
+    pt = torch.ones(8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="rank-3"):
+        msst19_kernel.wavefront3d_encode(x[0], tab, pt, 1023, 1023, 4, 13)
+    with pytest.raises(ValueError, match="rank-2"):
+        msst19_kernel.lines2d_decode(t3, x, pt)
+    with pytest.raises(ValueError, match="shape"):
+        msst19_kernel.wavefront3d_decode(t3, torch.zeros((4, 5, 7)), pt)
+    with pytest.raises(ValueError, match="dtype"):
+        msst19_kernel.lines2d_decode(t3[0], x[0].double(), pt)
+    with pytest.raises(ValueError, match="tables"):
+        msst19_kernel.wavefront3d_decode(t3, x, pt.float())
+    with pytest.raises(ValueError, match="cache table"):
+        msst19_kernel.wavefront3d_encode(x, tab, pt, 1023, 1024, 4, 13)
 
 
 def test_kernel_build_keeps_ieee_floats():
@@ -192,7 +245,7 @@ def test_kernel_build_keeps_ieee_floats():
     assert "fast_math" not in flags and "fast-math" not in flags
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"lorenzo.cu", "hist.cu", "pack.cu",
-                                      "fsm.cu"}
+                                      "fsm.cu", "msst19.cu"}
     for p in srcs:
         text = p.read_text()
         assert "fast_math" not in text and "fmad=true" not in text

@@ -1,6 +1,7 @@
 """The port's own copies of the host stages (sz_tpu_torch.config, core,
 format, framing, native) against their sz_tpu counterparts on seeded
-inputs.  Tolerance: exact -- equal bytes, equal bits, equal values.
+inputs, the MSST19 PW_REL stages and tables included.  Tolerance: exact
+-- equal bytes, equal bits, equal values.
 """
 
 import dataclasses
@@ -14,23 +15,29 @@ from sz_tpu import api as japi
 from sz_tpu import config as jcfg
 from sz_tpu import native as jnative
 from sz_tpu.core import blocks as jblocks
+from sz_tpu.core import classic as jclassic
 from sz_tpu.core import optimizer as jopt
+from sz_tpu.core import pwr as jpwr
 from sz_tpu.core import regnd as jregnd
 from sz_tpu.format import bytes_util as jbu
 from sz_tpu.format import huffman as jhuff
 from sz_tpu.format import lossless as jll
 from sz_tpu.format import metadata as jmd
+from sz_tpu.format import tdps as jtdps
 
 from sz_tpu_torch import config as tcfg
 from sz_tpu_torch import framing
 from sz_tpu_torch import native as tnative
 from sz_tpu_torch.core import blocks as tblocks
+from sz_tpu_torch.core import classic as tclassic
 from sz_tpu_torch.core import optimizer as topt
+from sz_tpu_torch.core import pwr as tpwr
 from sz_tpu_torch.core import regnd as tregnd
 from sz_tpu_torch.format import bytes_util as tbu
 from sz_tpu_torch.format import huffman as thuff
 from sz_tpu_torch.format import lossless as tll
 from sz_tpu_torch.format import metadata as tmd
+from sz_tpu_torch.format import tdps as ttdps
 from sz_tpu_torch.gpu import fsm_kernel
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -251,9 +258,7 @@ def test_fp_stream_params_match(mode, value):
     assert a[:5] == b[:5] and a[6] is None and b[6] is None
     assert int(a[4]) == int(b[4])
     ta, jb = dataclasses.asdict(a[5]), dataclasses.asdict(b[5])
-    jb.pop("engine")
-    for k in ("accelerate_pw_rel", "plus_bits", "snapshot_cmpr_step",
-              "segment_size", "pwr_type"):
+    for k in ("engine", "snapshot_cmpr_step", "pwr_type"):
         jb.pop(k)
     assert ta == jb
     assert framing._resolve_precision(t, 2.5, 1000) == \
@@ -324,3 +329,134 @@ def test_assemble_body_matches(rank, use_mean):
     assert a.body == b.body
     assert (a.reg_count, a.total_unpred, a.use_mean) == \
         (b.reg_count, b.total_unpred, b.use_mean)
+
+
+# --- the MSST19 PW_REL host stages ----------------------------------------
+
+def _pw_field(shape, seed, zeros=0.0):
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    x = (np.exp(np.sin(np.linspace(0, 17, n))) * (1 + 0.05 * rng.standard_normal(
+        n)) - 1.2).astype(np.float32).reshape(shape)
+    x[rng.random(shape) < zeros] = 0
+    return x
+
+
+@pytest.mark.parametrize("shape,seed", [((30, 31, 32), 41), ((200, 150), 43)])
+def test_pwrel_fp_stream_params_match(shape, seed):
+    data = _pw_field(shape, seed, zeros=0.01)
+    t, j = _configs("PW_REL", 1e-3)
+    a = framing._fp_stream_params(data, t, tcfg.DataType.FLOAT)
+    b = japi._fp_stream_params(data, j, jcfg.DataType.FLOAT)
+    assert a[:5] == b[:5] and int(a[4]) == int(b[4])
+    for x, y in zip(a[6], b[6]):
+        np.testing.assert_array_equal(x, y)
+    assert not a[6][4] and (a[6][3] == 1).any()     # signed: a sign bitmap
+    assert tpwr.range_size_msst19(data)[5] == jpwr.range_size_msst19(data)[5]
+
+
+def test_range_size_msst19_keeps_the_reference_quirks():
+    """signs[0] is never set and nearZero starts at data[0]."""
+    x = _pw_field((40, 50), 47)
+    x[0, 0] = -0.0
+    x[0, 1] = -3.0
+    for data in (x, np.abs(x)):
+        a, b = tpwr.range_size_msst19(data), jpwr.range_size_msst19(data)
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+        assert a[3][0] == 0
+
+
+@pytest.mark.parametrize("intervals,ratio", [(256, 1e-3), (4096, 1e-3),
+                                             (65536, 1e-4), (65536, 1e-5),
+                                             (512, 1e-2)])
+def test_msst19_tables_match(intervals, ratio):
+    a = tpwr._precision_table(intervals, ratio, 3)
+    b = jpwr._precision_table(intervals, ratio, 3)
+    np.testing.assert_array_equal(a.view(np.uint64), b.view(np.uint64))
+    ta = tpwr._cache_table(intervals, ratio, 3)
+    tb = jpwr._cache_table(intervals, ratio, 3)
+    assert (ta.bits, ta.base_index, ta.top_index) == \
+        (tb.bits, tb.base_index, tb.top_index)
+    np.testing.assert_array_equal(ta.table, tb.table)
+    assert ta.table.dtype == np.uint16 and int(ta.table.max()) == \
+        intervals - 1
+
+
+@pytest.mark.parametrize("shape,zeros", [((30, 31, 32), 0.0),
+                                         ((300, 310), 0.0),
+                                         ((20, 25, 30), 0.02),
+                                         ((120, 90), 0.02)])
+@pytest.mark.parametrize("ratio", [1e-2, 1e-3, 1e-5])
+def test_msst19_optimizer_matches(shape, zeros, ratio):
+    """Without zeros the vectorized walk; with sampled zeros the serial
+    one."""
+    data = _pw_field(shape, 53, zeros)
+    a = tpwr._optimize_intervals_msst19(data, ratio, 32768, 100,
+                                        np.float32(0.99))
+    b = jpwr._optimize_intervals_msst19(data, ratio, 32768, 100,
+                                        np.float32(0.99))
+    assert a == b
+    fast = tpwr._optimize_intervals_msst19_fast(data, ratio, 32768, 100,
+                                                np.float32(0.99))
+    assert (fast is None) == (zeros > 0)
+
+
+@pytest.mark.parametrize("req_length", [19, 22, 26, 29, 32])
+def test_exact_stream_and_its_decode_match(req_length):
+    rng = np.random.default_rng(req_length)
+    vals = (rng.standard_normal(5000) * np.exp(rng.uniform(-20, 20, 5000))
+            ).astype(np.float32)
+    vals[::7] = vals[::7] * np.float32(1.0001)   # shared leading bytes
+    a, b = tclassic.ExactEncoder(req_length), jclassic.ExactEncoder(
+        req_length, np.float32(0), np.float32, raw=True)
+    ra = np.concatenate([a.add_batch(vals[:1234]), a.add_batch(vals[1234:])])
+    rb = np.concatenate([b.add_batch(vals[:1234]), b.add_batch(vals[1234:])])
+    np.testing.assert_array_equal(ra.view(np.uint32), rb.view(np.uint32))
+    assert a.exact_count() == b.exact_count() == vals.size
+    assert (a.lead_packed(), bytes(a.mid_bytes), a.resi_packed()) == \
+        (b.lead_packed(), bytes(b.mid_bytes), b.resi_packed())
+    t = ttdps.TDPS(data_type=tcfg.DataType.FLOAT, ds_length=0, intervals=0,
+                   median_value=0.0, req_length=req_length,
+                   real_precision=0.0, type_array=b"",
+                   lead_num=a.lead_packed(), exact_mid_bytes=bytes(a.mid_bytes),
+                   residual_mid_bits=a.resi_packed(),
+                   exact_data_num=a.exact_count())
+    got = tclassic.ExactDecoder(t).next_batch(vals.size)
+    want = jclassic.ExactDecoder(t, np.float32, raw=True).next_batch(vals.size)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(got.view(np.uint32), ra.view(np.uint32))
+    with pytest.raises(ValueError, match="corrupt"):
+        tclassic.ExactDecoder(t).next_batch(vals.size - 1)
+
+
+def test_get_exponent_matches():
+    for v in (1e-2, 1e-3, 1e-4, 1e-5, 0.5, 3.0, 1e-30):
+        for T in (np.float32, np.float64):
+            assert tclassic.get_exponent(v, T) == jclassic.get_exponent(v, T)
+
+
+@pytest.mark.parametrize("msst19,size_type", [(True, 8), (True, 4),
+                                              (False, 8)])
+def test_tdps_round_trip_matches(msst19, size_type):
+    kw = dict(ds_length=0, intervals=4096, median_value=1.25, req_length=19,
+              real_precision=1e-3, type_array=b"\x01\x02\x03" * 50,
+              lead_num=b"\x1b" * 7, exact_mid_bytes=b"\xaa" * 30,
+              residual_mid_bits=b"\x55" * 5, exact_data_num=25,
+              max_quant_intervals=65536, rad_expo=3, segment_size=36,
+              pwr_err_bound_bytes=b"\x28\xb5" * 9, min_log_value=2.5e-4,
+              is_pwr=True, msst19=msst19, plus_bits=3 if msst19 else 0,
+              max_bits=17 if msst19 else 0)
+    a = ttdps.TDPS(data_type=tcfg.DataType.FLOAT, **kw)
+    b = jtdps.TDPS(data_type=jcfg.DataType.FLOAT, **kw)
+    raw = ttdps.to_bytes(a, size_type)
+    assert raw == jtdps.to_bytes(b, size_type)
+    back = ttdps.from_bytes(raw, tcfg.DataType.FLOAT, is_pwr=True,
+                            msst19=msst19, size_type=size_type)
+    want = jtdps.from_bytes(raw, jcfg.DataType.FLOAT, is_pwr=True,
+                            msst19=msst19, size_type=size_type)
+    ta, tb = dataclasses.asdict(back), dataclasses.asdict(want)
+    assert {k: v for k, v in ta.items() if k != "data_type"} == \
+        {k: v for k, v in tb.items() if k != "data_type"}
+    assert int(back.data_type) == int(want.data_type)
+    assert ttdps.to_bytes(back, size_type) == raw
