@@ -10,7 +10,11 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
   1. environment: versions, card name and power limit, the kernel build
      (one nvcc per source, in parallel) and the host runtime build (cc);
   2. each Hopper kernel bit-equal to its plain torch version on the
-     card, with both times: K1-K4 at their test shapes; K5-K7 (the
+     card, with both times: K1/K2 (the tiled Lorenzo recurrence) on
+     ragged, sub-tile, single-row, all- and no-regression lattices, each
+     called twice, and timed at the main path's shapes (256^3,
+     100x500x500, 1800x3600, 512^3; at 512^3 the plain versions run on
+     the first planes only); K3/K4 at their test shapes; K5-K7 (the
      Huffman decode) on skewed streams, trees past 8192 nodes (table in
      shared memory and in L2), a stream past 2^31 bits, a code of 1100
      bits, and a stream of the 512^3 stream's size whose chunks never
@@ -25,7 +29,8 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      the CPU by tests/test_torch_smoke_oracle.py and
      tests/test_torch_smoke_oracle_pwrel.py), and the reference golden
      streams decode bit-equal; the launch counters of K1-K9 must all
-     rise;
+     rise; run under torch.profiler: each kernel's device time summed
+     over the phase, and the device's idle share;
   4. 512^3 float32 (NYX scale): the ABS error bound holds, compress and
      decompress MB/s (warm, best of 3) with per-span times and counts,
      the kernel launches of one decompress, the device-to-host copy of
@@ -188,7 +193,10 @@ CAP_SZF = np.float32(2 * RADIUS - 2)
 MEAN = np.float32(0.25)
 
 
-def k1_inputs(shape, seed, dev):
+def k1_inputs(shape, seed, dev, regression: str = "mixed"):
+    """K1's inputs: a field with 10 % of its points at the mean, and
+    regression points on 30 % of the points ("mixed"), on all or on
+    none."""
     import torch
     rng = np.random.default_rng(seed)
     n = int(np.prod(shape))
@@ -196,6 +204,8 @@ def k1_inputs(shape, seed, dev):
             + 0.02 * rng.standard_normal(n)).astype(np.float32).reshape(shape)
     data[rng.random(shape) < 0.1] = MEAN
     reg = rng.random(shape) < 0.3
+    if regression != "mixed":
+        reg = np.full(shape, regression == "all")
     # regression points: codes >= 1 (an escaped one would carry rec = data)
     t_reg = rng.integers(1, 2 * RADIUS, shape).astype(np.int32)
     rec_reg = (data + rng.uniform(-1e-3, 1e-3, shape)).astype(np.float32)
@@ -239,62 +249,136 @@ def u64_tensor(a, dev):
         a, np.uint64).view(np.int64)).to(dev)
 
 
-def phase_kernels(dev) -> dict:
-    """Phase 2, K1-K4: kernel vs plain version on the card (K2 on the
+def cuda_once(fn) -> tuple:
+    """(fn(), device milliseconds of that one call)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+# (shape, use_mean, regression points): the earlier cases, then what a
+# tiled kernel can get wrong -- shapes that are no multiple of a tile,
+# shapes smaller than one tile, a single row along each axis, and
+# lattices that are all regression or have none
+LORENZO_EXACT = [
+    ((64, 64, 64), False, "mixed"), ((64, 64, 64), True, "mixed"),
+    ((25, 14, 20), True, "mixed"), ((150, 130), False, "mixed"),
+    ((3, 5, 7), False, "mixed"), ((3, 5, 7), True, "mixed"),
+    ((1, 1, 4097), True, "mixed"), ((4097, 1, 1), False, "mixed"),
+    ((1, 4097, 1), True, "mixed"),
+    ((33, 9, 65), False, "mixed"), ((33, 9, 65), True, "mixed"),
+    ((2, 3, 2), True, "mixed"), ((7, 20), False, "mixed"),
+    ((1, 4097), True, "mixed"), ((4097, 1), False, "mixed"),
+    ((33, 9, 65), True, "all"), ((33, 9, 65), False, "none"),
+    ((100, 300), False, "all"), ((100, 300), True, "none"),
+]
+# the shapes the ABS main path runs K1/K2 at (phases 3 and 4), timed
+LORENZO_TIMED = [(256, 256, 256), (100, 500, 500), (1800, 3600),
+                 (512, 512, 512)]
+# above this many points the plain versions (minutes at 512^3) run only
+# on the lattice's first planes: no point depends on a later plane, so
+# the kernel's first planes must equal the plain version's on those
+# planes alone.  Two layers of 3-D tiles and a plane of the third, so
+# that two hand-offs along i are held against the plain version.
+PLAIN_MAX_POINTS = 1 << 26
+
+
+def lorenzo_case(dev, shape, use_mean, regression, timed) -> dict:
+    """K1 and K2 against their plain versions on one lattice: K2 on the
     inputs a decoder derives from K1's output, so it must also rebuild
-    K1's R).  Returns the per-kernel record entries (times and bounds at
-    the largest shape)."""
+    K1's R; each kernel called twice, bit-equal.  Timed: the kernels'
+    mean time, the plain version's one call, the bound."""
+    from sz_tpu_torch.gpu import lorenzo_kernel as lk
+    scal = (RP, RECIP, CAP_SZF, RADIUS, MEAN)
+    args = k1_inputs(shape, 1, dev, regression)
+    if not use_mean:
+        args[4] = None
+    n = int(np.prod(shape))
+    whole = n <= PLAIN_MAX_POINTS
+    sub = slice(None) if whole else slice(0, 2 * lk.TILE3[0] + 1)
+
+    def k1():
+        return lk.wavefront_quantize(*args, *scal, use_mean=use_mean,
+                                     want_R=True)
+
+    t_k, R_k = k1()
+    t_2, R_2 = k1()
+    again = bit_equal(t_k, t_2) and bit_equal(R_k, R_2)
+    del t_2, R_2
+    part = [a[sub].contiguous() if a is not None else None for a in args]
+    (t_p, R_p), plain_ms = cuda_once(lambda: lk.quantize_plain(
+        *part, *scal, use_mean=use_mean))
+    err = max(max_abs_err(t_k[sub], t_p), max_abs_err(R_k[sub], R_p))
+    row = dict(shape=list(shape), use_mean=use_mean, regression=regression,
+               plain_on=list(t_p.shape), K1_bit_equal=err == 0.0,
+               K1_repeat_bit_equal=again, K1_max_abs_err=err)
+    entries = {}
+    if timed:
+        ms = cuda_ms(k1, 5 if whole else 3)
+        # K1 reads its five inputs and writes t and R
+        b_ms, b_by = bound(nbytes(*args, t_k, R_k))
+        row["K1"] = dict(ms=ms, plain_ms=plain_ms if whole else None,
+                         bound_ms=b_ms)
+        entries["wavefront_quantize"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms if whole else None,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=list(shape))
+    del t_p, R_p, part
+    dec = k2_inputs(args, t_k, use_mean)
+    del args, t_k
+    D_k = lk.wavefront_decode(*dec)
+    again = bit_equal(D_k, lk.wavefront_decode(*dec))
+    part = [a[sub].contiguous() for a in dec]
+    D_p, plain_ms = cuda_once(lambda: lk.decode_plain(*part))
+    err = max_abs_err(D_k[sub], D_p)
+    row.update(K2_bit_equal=err == 0.0, K2_repeat_bit_equal=again,
+               K2_rebuilds_K1_R=bit_equal(D_k, R_k), K2_max_abs_err=err)
+    del D_p, part, R_k
+    if timed:
+        ms = cuda_ms(lambda: lk.wavefront_decode(*dec), 5 if whole else 3)
+        b_ms, b_by = bound(nbytes(*dec, D_k))
+        row["K2"] = dict(ms=ms, plain_ms=plain_ms if whole else None,
+                         bound_ms=b_ms)
+        entries["wavefront_decode"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms if whole else None,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=list(shape))
+    _log("kernel K1/K2 vs plain", **row)
+    if not all(row[k] for k in ("K1_bit_equal", "K1_repeat_bit_equal",
+                                "K2_bit_equal", "K2_repeat_bit_equal",
+                                "K2_rebuilds_K1_R")):
+        raise AssertionError(f"K1/K2 differ from their plain versions or "
+                             f"from each other: {row}")
+    return row, entries
+
+
+def phase_lorenzo(dev) -> tuple:
+    """Phase 2, K1/K2.  Returns (rows, record entries at 256^3)."""
+    import torch
+    rows, entries = [], {}
+    for shape, use_mean, regression in LORENZO_EXACT:
+        rows.append(lorenzo_case(dev, shape, use_mean, regression, False)[0])
+    for shape in LORENZO_TIMED:
+        row, ent = lorenzo_case(dev, shape, True, "mixed", True)
+        rows.append(row)
+        if shape == (256, 256, 256):
+            entries = ent
+        torch.cuda.empty_cache()
+    return rows, entries
+
+
+def phase_kernels(dev) -> dict:
+    """Phase 2, K3 and K4: kernel vs plain version on the card.  Returns
+    the per-kernel record entries."""
     import torch
     from sz_tpu_torch.gpu import hist_kernel as hk
-    from sz_tpu_torch.gpu import lorenzo_kernel as lk
     from sz_tpu_torch.gpu import pack_kernel as pk
 
     entries = {}
-    cases = [((64, 64, 64), False), ((64, 64, 64), True),
-             ((25, 14, 20), True), ((150, 130), False),
-             ((256, 256, 256), True)]
-    scal = (RP, RECIP, CAP_SZF, RADIUS, MEAN)
-    for shape, use_mean in cases:
-        args = k1_inputs(shape, 1, dev)
-        if not use_mean:
-            args[4] = None
-        t_k, R_k = lk.wavefront_quantize(*args, *scal, use_mean=use_mean,
-                                         want_R=True)
-        t_p, R_p = lk.quantize_plain(*args, *scal, use_mean=use_mean)
-        err = max(max_abs_err(t_k, t_p), max_abs_err(R_k, R_p))
-        ok = bit_equal(t_k, t_p) and bit_equal(R_k, R_p)
-        ms = cuda_ms(lambda: lk.wavefront_quantize(
-            *args, *scal, use_mean=use_mean), 5)
-        plain_ms = cuda_ms(lambda: lk.quantize_plain(
-            *args, *scal, use_mean=use_mean), 1)
-        # K1 reads its five inputs and writes t and R
-        b_ms, b_by = bound(nbytes(*args, t_k, R_k))
-        _log("kernel K1 wavefront_quantize", shape=list(shape),
-             use_mean=use_mean, bit_equal=ok, max_abs_err=err, ms=ms,
-             plain_ms=plain_ms, bound_ms=b_ms)
-        if not ok:
-            raise AssertionError(f"K1 differs from its plain version at "
-                                 f"{shape} use_mean={use_mean}")
-        entries["wavefront_quantize"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, shape=list(shape))
-        dec = k2_inputs(args, t_k, use_mean)
-        D_k, D_p = lk.wavefront_decode(*dec), lk.decode_plain(*dec)
-        err = max_abs_err(D_k, D_p)
-        ok = bit_equal(D_k, D_p) and bit_equal(D_k, R_k)
-        ms = cuda_ms(lambda: lk.wavefront_decode(*dec), 5)
-        plain_ms = cuda_ms(lambda: lk.decode_plain(*dec), 1)
-        b_ms, b_by = bound(nbytes(*dec, D_k))
-        _log("kernel K2 wavefront_decode", shape=list(shape),
-             use_mean=use_mean, bit_equal=ok, rebuilds_K1_R=ok,
-             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
-        if not ok:
-            raise AssertionError(f"K2 differs from its plain version or "
-                                 f"from K1's R at {shape}")
-        entries["wavefront_decode"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, shape=list(shape))
-
     rng = np.random.default_rng(3)
     n = 1 << 24
     sym = np.clip(rng.normal(32768, 20, n), 0, 65535).astype(np.int32)
@@ -933,6 +1017,60 @@ def phase_fsm_timing(dev, blob: bytes, shape=(512, 512, 512)) -> dict:
     return entries
 
 
+# device kernel name (a part of it) -> the wrapper that launches it
+DEVICE_NAMES = (
+    ("wavefront_quantize_kernel", "wavefront_quantize"),
+    ("wavefront_decode_kernel", "wavefront_decode"),
+    ("histogram_kernel", "histogram"),
+    ("pack_scan_tiles", "pack_bits"), ("scan_tile_sums", "pack_bits"),
+    ("pack_place", "pack_bits"), ("byteswap_words", "pack_bits"),
+    ("fsm_sweep_kernel", "fsm_sweep"), ("fsm_sync_kernel", "fsm_sync"),
+    ("fsm_emit_kernel", "fsm_emit"),
+    ("wavefront3d_encode_kernel", "msst19_wavefront3d_encode"),
+    ("wavefront3d_decode_kernel", "msst19_wavefront3d_decode"),
+    ("lines2d_kernel<false>", "msst19_lines2d_encode"),
+    ("lines2d_kernel<true>", "msst19_lines2d_decode"),
+    ("Memcpy", "memcpy"), ("Memset", "memset"),
+)
+
+
+def profiled(fn) -> dict:
+    """Run fn() under torch.profiler (CPU and CUDA activities): device
+    time summed by kernel (torch's own kernels as "torch"), the device's
+    busy time (union of its events) and idle share of the host wall
+    around fn()."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per, spans = {}, []
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        key = next((k for part, k in DEVICE_NAMES if part in e.name),
+                   "torch")
+        ms, count = per.get(key, (0.0, 0))
+        per[key] = (ms + (b - a) / 1e3, count + 1)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy = busy_us / 1e6
+    return dict(wall_s=wall, device_events=len(spans), device_busy_s=busy,
+                device_idle_share=(1 - busy / wall) if spans else None,
+                device_ms={k: v[0] for k, v in sorted(per.items())},
+                device_events_by_kernel={k: v[1]
+                                         for k, v in sorted(per.items())})
+
+
 KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
     "wavefront_quantize": ("K1", "sz_tpu_torch/csrc/lorenzo.cu",
                            "sz_tpu/tpu/pallas_kernels.py:404"),
@@ -1011,7 +1149,8 @@ def main() -> int:
                            if "registers" in ln or "Compiling entry" in ln]
 
     # phase 2: each kernel against its plain version
-    entries = phase_kernels(dev)
+    record["lorenzo_cases"], entries = phase_lorenzo(dev)
+    entries.update(phase_kernels(dev))
     record["fsm_cases"] = phase_fsm_cases(dev)
     record["msst19_cases"], msst19_entries = phase_msst19_cases(dev)
     entries.update(msst19_entries)
@@ -1030,9 +1169,11 @@ def main() -> int:
                 "msst19_lines2d_decode": msst19_kernel.lines2d_decode}
     for w in wrappers.values():
         w.launches = 0
-    phase_main_path(dev, record)
+    prof = profiled(lambda: phase_main_path(dev, record))
     launches = {k: w.launches for k, w in wrappers.items()}
     _log("main path launches", **launches)
+    _log("main path device time (torch.profiler)", **prof)
+    record["main_path_profile"] = prof
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"main path never launched {idle}")

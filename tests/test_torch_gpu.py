@@ -55,9 +55,16 @@ def _field(shape, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(20, 33, 47), (1, 40, 300), (150, 130)])
+@pytest.mark.parametrize("shape", [
+    (20, 33, 47), (1, 40, 300), (150, 130),
+    # no multiple of a tile, smaller than a tile, one row along an axis
+    (3, 5, 7), (33, 9, 65), (1, 1, 4097), (4097, 1, 1), (2, 3, 2),
+    (7, 20), (4097, 1)])
 @pytest.mark.parametrize("use_mean", [False, True])
 def test_lorenzo_kernels_match_plain(cuda, shape, use_mean):
+    """K1/K2 bit-equal to their plain versions, and a second call on the
+    same inputs bit-equal to the first (the flags and the claim counter
+    start from zero on every call)."""
     rng = np.random.default_rng(7)
     data = _field(shape, 7)
     data[rng.random(shape) < 0.1] = MEAN
@@ -72,9 +79,13 @@ def test_lorenzo_kernels_match_plain(cuda, shape, use_mean):
                                           use_mean=use_mean, want_R=True)
     p = lorenzo_kernel.quantize_plain(*args, *SCALARS, use_mean=use_mean)
     assert _bits_equal(k[0], p[0]) and _bits_equal(k[1], p[1])
+    k2 = lorenzo_kernel.wavefront_quantize(*args, *SCALARS,
+                                           use_mean=use_mean, want_R=True)
+    assert _bits_equal(k2[0], k[0]) and _bits_equal(k2[1], k[1])
     dec = [args[3], args[2], (args[1].to(torch.float32) - RADIUS) * 2 * RP]
-    assert _bits_equal(lorenzo_kernel.wavefront_decode(*dec),
-                       lorenzo_kernel.decode_plain(*dec))
+    got = lorenzo_kernel.wavefront_decode(*dec)
+    assert _bits_equal(got, lorenzo_kernel.decode_plain(*dec))
+    assert _bits_equal(lorenzo_kernel.wavefront_decode(*dec), got)
 
 
 @pytest.mark.gpu

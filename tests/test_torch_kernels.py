@@ -9,6 +9,8 @@ chip_smoke.py.  Tolerance everywhere: exact (equal bits,
 equal bytes) -- the codec's contract is bit-exactness.
 """
 
+import pathlib
+import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -222,3 +224,162 @@ def test_k4_plain_matches_huffman_encode_long_codes():
     got, _ = _pack(syms, tables.code_hi, tables.code_lo,
                    tables.code_len.astype(np.int32))
     assert got == huffman.encode(tables, syms)
+
+
+# --- the tiled K1/K2's geometry and order -----------------------------------
+
+def test_tiles_match_the_cuda_source():
+    """TILE3 / TILE2, from which the wrapper makes the claim order, are
+    the tile shapes lorenzo.cu compiles (TileShape<3> / TileShape<2>)."""
+    src = (pathlib.Path(lorenzo_kernel.__file__).resolve().parent.parent
+           / "csrc" / "lorenzo.cu").read_text()
+    dims = re.findall(
+        r"static constexpr int (b[ijk]) = kRank == 3 \? (\d+) : (\d+);", src)
+    assert [d[0] for d in dims] == ["bi", "bj", "bk"]
+    assert tuple(int(d[1]) for d in dims) == lorenzo_kernel.TILE3
+    assert tuple(int(d[2]) for d in dims) == lorenzo_kernel.TILE2
+
+
+def _shape3(shape):
+    return (1,) * (3 - len(shape)) + tuple(shape)
+
+
+@pytest.mark.parametrize("shape", [
+    (3, 5, 7), (9, 17, 70), (33, 9, 65), (1, 1, 4097), (4097, 1, 1),
+    (1, 4097, 1), (40, 70), (70, 130), (1800, 3600), (100, 500, 500),
+    (256, 256, 256)])
+def test_tile_order_covers_and_respects_dependencies(shape):
+    """Every point lies in exactly one tile; every tile's three
+    predecessors are claimed before it; the prefix counts delimit the
+    tile-diagonals."""
+    shape3 = _shape3(shape)
+    tile = lorenzo_kernel.tile_of(shape3)
+    assert tile[0] * tile[1] % 32 == 0
+    grid, order, starts = lorenzo_kernel.tile_order(shape3, tile)
+    ntiles = int(np.prod(grid))
+    np.testing.assert_array_equal(np.sort(order), np.arange(ntiles))
+    # the ragged tiles' extents add up to the lattice, and every point's
+    # tile is in the grid
+    ext = [np.minimum(b, r - b * np.arange(n))
+           for r, b, n in zip(shape3, tile, grid)]
+    assert all((e > 0).all() for e in ext)
+    assert int(np.prod([e.sum() for e in ext])) == int(np.prod(shape3))
+    assert all((r - 1) // b == n - 1 for r, b, n in zip(shape3, tile, grid))
+    rank = np.empty(ntiles, np.int64)
+    rank[order] = np.arange(ntiles)
+    rank = rank.reshape(grid)
+    assert (rank[1:] > rank[:-1]).all()
+    assert (rank[:, 1:] > rank[:, :-1]).all()
+    assert (rank[:, :, 1:] > rank[:, :, :-1]).all()
+    S = np.indices(grid).sum(axis=0).reshape(-1)[order]
+    assert starts[0] == 0 and starts[-1] == ntiles
+    assert starts.size == sum(grid) - 1
+    for d in range(starts.size - 1):
+        assert (S[starts[d]:starts[d + 1]] == d).all()
+
+
+def _nb(R, i, j, k):
+    return R[i, j, k] if min(i, j, k) >= 0 else np.float32(0)
+
+
+def _pred7_np(R, i, j, k):
+    """pred7 in lorenzo.cu's op order, numpy float32 scalars."""
+    p = _nb(R, i, j, k - 1) + _nb(R, i, j - 1, k)
+    p = p + _nb(R, i - 1, j, k)
+    p = p - _nb(R, i, j - 1, k - 1)
+    p = p - _nb(R, i - 1, j, k - 1)
+    p = p - _nb(R, i - 1, j - 1, k)
+    return p + _nb(R, i - 1, j - 1, k - 1)
+
+
+def _quant_np(cur, pred):
+    """lorenzo.cu's quant: (t, rec)."""
+    diff = cur - pred
+    itv = np.abs(diff) * RECIP + np.float32(1)
+    if not itv < CAP_SZF:
+        return 0, cur
+    if diff < 0:
+        itv = -itv
+    tu = int(np.trunc(itv / np.float32(2))) + RADIUS
+    rec = pred + np.float32(2 * (tu - RADIUS)) * RP
+    return (tu, rec) if np.abs(cur - rec) <= RP else (0, cur)
+
+
+def _walk_tiles(shape3, point):
+    """Visit the lattice as the kernel does: tiles in tile_order, and in
+    a tile the step s = li + lj + lk, lanes (li, lj) in order; every
+    in-lattice neighbour must be done before its point."""
+    tile = lorenzo_kernel.tile_of(shape3)
+    grid, order, _ = lorenzo_kernel.tile_order(shape3, tile)
+    done = np.zeros(shape3, bool)
+    offs = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)][1:]
+    for flat in order:
+        org = [int(n) * b for n, b in zip(np.unravel_index(flat, grid),
+                                          tile)]
+        ext = [min(b, r - o) for b, r, o in zip(tile, shape3, org)]
+        for s in range(sum(ext) - 2):
+            for li in range(ext[0]):
+                for lj in range(ext[1]):
+                    lk = s - li - lj
+                    if not 0 <= lk < ext[2]:
+                        continue
+                    i, j, k = org[0] + li, org[1] + lj, org[2] + lk
+                    assert all(done[i - a, j - b, k - c] for a, b, c in offs
+                               if min(i - a, j - b, k - c) >= 0)
+                    point(i, j, k)
+                    done[i, j, k] = True
+    assert done.all()
+
+
+WALK_SHAPES = [(3, 5, 7), (9, 17, 70), (5, 20), (70, 130)]
+
+
+@pytest.mark.parametrize("use_mean", [False, True])
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_k1_tile_walk_matches_quantize_plain(shape, use_mean):
+    """The tiled K1's order and per-point arithmetic, walked in numpy,
+    equal quantize_plain bit for bit (which the tests above hold to the
+    Pallas kernels)."""
+    data, t_reg, rec_reg, reg, mm = _k1_inputs(shape, 8)
+    shape3 = _shape3(shape)
+    data, t_reg, rec_reg, reg, mm = (a.reshape(shape3) for a in
+                                     (data, t_reg, rec_reg, reg, mm))
+    t = np.zeros(shape3, np.int32)
+    R = np.zeros(shape3, np.float32)
+
+    def point(i, j, k):
+        if reg[i, j, k]:
+            t[i, j, k], R[i, j, k] = t_reg[i, j, k], rec_reg[i, j, k]
+            return
+        q, rec = _quant_np(data[i, j, k], _pred7_np(R, i, j, k))
+        if use_mean:
+            if q != 0 and q <= RADIUS:
+                q -= 1
+            if mm[i, j, k]:
+                q, rec = RADIUS, MEAN
+        t[i, j, k], R[i, j, k] = q, rec
+
+    _walk_tiles(shape3, point)
+    t_p, R_p = _k1_plain(_k1_inputs(shape, 8), use_mean)
+    np.testing.assert_array_equal(t_p.numpy().reshape(shape3), t)
+    np.testing.assert_array_equal(R_p.numpy().reshape(shape3).view(np.uint32),
+                                  R.view(np.uint32))
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_k2_tile_walk_matches_decode_plain(shape):
+    """The tiled K2, walked in numpy, equals decode_plain bit for bit."""
+    km, kv, q = _k2_inputs(shape, 9)
+    shape3 = _shape3(shape)
+    km3, kv3, q3 = (a.reshape(shape3) for a in (km, kv, q))
+    R = np.zeros(shape3, np.float32)
+
+    def point(i, j, k):
+        R[i, j, k] = (kv3[i, j, k] if km3[i, j, k]
+                      else _pred7_np(R, i, j, k) + q3[i, j, k])
+
+    _walk_tiles(shape3, point)
+    got = lorenzo_kernel.decode_plain(*(torch.from_numpy(a)
+                                        for a in (km, kv, q)))
+    np.testing.assert_array_equal(got.numpy().reshape(shape3).view(np.uint32),
+                                  R.view(np.uint32))
