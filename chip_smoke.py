@@ -19,10 +19,12 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      shared memory and in L2), a stream past 2^31 bits, a code of 1100
      bits, and a stream of the 512^3 stream's size whose chunks never
      self-synchronize, each with its K6 steps and decode time; K8/K9
-     (the MSST19 PW_REL recurrence, both directions, the decode also
-     rebuilding the encode's reconstruction) at the CPU tests' shapes,
-     256^3 and 1800x3600, a 1e-5 table past 4096 states, a signed field
-     with zeros and a ragged 2-D shape;
+     (the tiled MSST19 PW_REL recurrence, both directions, each called
+     twice, the decode also rebuilding the encode's reconstruction) at
+     the CPU tests' shapes, on ragged, sub-tile and single-row lattices
+     and one long on k, a 1e-5 table past 4096 states, a signed field
+     with zeros, and timed at 256^3, 1800x3600 and 512^3 (the plain
+     versions on the first planes there);
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
      1e-3 and PW_REL 1e-3 streams and reconstructions hash to the
      SHA-256 of the host oracle's (sz_tpu, engine="numpy"; recomputed on
@@ -647,8 +649,12 @@ def msst19_ops(shape, escapes: int, decode: bool) -> tuple:
 
 def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
     """K8 (rank 3) or K9 (rank 2), both directions, against the plain
-    versions on one field; the decode gets the escapes' stored values
-    and must also rebuild the encode's reconstruction."""
+    versions on one field; each kernel called twice, bit-equal; the
+    decode gets the escapes' stored values and must also rebuild the
+    encode's reconstruction.  Above PLAIN_MAX_POINTS the plain versions
+    run on the first planes only (no point depends on a later plane).
+    Timed: the kernels' mean time, the plain version's one call, the
+    bound."""
     import torch
     from sz_tpu_torch.gpu import msst19_kernel as mk
     iv, args = msst19_inputs(x, ratio, dev)
@@ -656,48 +662,64 @@ def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
     enc, dec = getattr(mk, pre + "_encode"), getattr(mk, pre + "_decode")
     enc_p = getattr(mk, pre + "_encode_plain")
     dec_p = getattr(mk, pre + "_decode_plain")
+    whole = int(np.prod(shape)) <= PLAIN_MAX_POINTS
+    sub = slice(None) if whole else slice(0, 2 * mk.TILE3[0] + 1)
     t_k, R_k = enc(*args)
-    t_p, R_p = enc_p(*args)
-    e_err = max(max_abs_err(t_k, t_p), max_abs_err(R_k, R_p))
+    t_2, R_2 = enc(*args)
+    e_again = bit_equal(t_k, t_2) and bit_equal(R_k, R_2)
+    del t_2, R_2
+    (t_p, R_p), enc_plain_ms = cuda_once(
+        lambda: enc_p(args[0][sub].contiguous(), *args[1:]))
+    e_err = max(max_abs_err(t_k[sub], t_p), max_abs_err(R_k[sub], R_p))
+    plain_on = list(t_p.shape)
+    del t_p, R_p
     mask = mk._mask_i32(args[-1])
     known = torch.where(t_k == 0, (args[0].view(torch.int32) & mask).view(
         torch.float32), torch.zeros_like(args[0]))
     pt = args[2]
-    o_k, o_p = dec(t_k, known, pt), dec_p(t_k, known, pt)
-    d_err = max_abs_err(o_k, o_p)
+    o_k = dec(t_k, known, pt)
+    d_again = bit_equal(o_k, dec(t_k, known, pt))
+    o_p, dec_plain_ms = cuda_once(lambda: dec_p(
+        t_k[sub].contiguous(), known[sub].contiguous(), pt))
+    d_err = max_abs_err(o_k[sub], o_p)
+    del o_p
     escapes = int((t_k == 0).sum())
     row = dict(case=name, shape=list(shape), ratio=ratio, intervals=iv,
                table_states=args[1].numel(), escapes=escapes,
-               encode_bit_equal=e_err == 0.0, decode_bit_equal=d_err == 0.0,
+               plain_on=plain_on, encode_bit_equal=e_err == 0.0,
+               encode_repeat_bit_equal=e_again,
+               decode_bit_equal=d_err == 0.0, decode_repeat_bit_equal=d_again,
                decode_rebuilds_encode=bit_equal(o_k.abs(), R_k))
     entries = {}
     if timed:
         runs = {  # each input read once, each output written once
-            pre + "_encode": (e_err, lambda: enc(*args),
-                              lambda: enc_p(*args),
+            pre + "_encode": (e_err, lambda: enc(*args), enc_plain_ms,
                               bound(nbytes(args[0], args[1], pt, t_k, R_k),
                                     *msst19_ops(shape, escapes, False))),
             pre + "_decode": (d_err, lambda: dec(t_k, known, pt),
-                              lambda: dec_p(t_k, known, pt),
+                              dec_plain_ms,
                               bound(nbytes(t_k, known, pt, o_k),
                                     *msst19_ops(shape, escapes, True))),
         }
-        for key, (err, kern, plain, (b_ms, b_by)) in runs.items():
-            ms, plain_ms = cuda_ms(kern, 3), cuda_ms(plain, 1)
+        for key, (err, kern, plain_ms, (b_ms, b_by)) in runs.items():
+            ms = cuda_ms(kern, 3)
+            plain_ms = plain_ms if whole else None
             row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
             entries["msst19_" + key] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, shape=list(shape))
     _log(f"kernel {kid} msst19 vs plain", **row)
-    if not (row["encode_bit_equal"] and row["decode_bit_equal"]
-            and row["decode_rebuilds_encode"]):
-        raise AssertionError(f"{kid} differs from its plain version on "
-                             f"{name}: {row}")
+    if not all(row[k] for k in (
+            "encode_bit_equal", "encode_repeat_bit_equal", "decode_bit_equal",
+            "decode_repeat_bit_equal", "decode_rebuilds_encode")):
+        raise AssertionError(f"{kid} differs from its plain version or "
+                             f"from itself on {name}: {row}")
     return row, entries
 
 
 def phase_msst19_cases(dev) -> tuple:
-    """Phase 2, K8/K9.  Returns (rows, timed record entries)."""
+    """Phase 2, K8/K9.  Returns (rows, timed record entries at the main
+    path's shapes, 256^3 and 1800x3600)."""
     import torch
     rows, entries = [], {}
     cases = [  # the CPU tests' test_kernel_forced_parity shapes
@@ -709,20 +731,37 @@ def phase_msst19_cases(dev) -> tuple:
         ("signed_with_zeros", (64, 64, 64), "signed", 3, 1e-3),
         ("ragged_2d", (777, 1031), "abs", 4, 1e-4),
         ("past_4096_states", (128, 128, 128), "abs", 5, 1e-5),
+        # what the tiles can get wrong: shapes no multiple of a tile, a
+        # lattice smaller than one tile, one tile wide on i and j but 129
+        # tiles long on k (the k-2 hand-off along the first row), a row
+        # and a single column in 2-D
+        ("ragged", (9, 17, 70), "signed", 15, 1e-3),
+        ("ragged", (33, 9, 65), "abs", 16, 1e-3),
+        ("sub_tile", (3, 5, 7), "signed", 17, 1e-3),
+        ("long_first_row", (2, 3, 4097), "abs", 18, 1e-3),
+        ("single_row_2d", (1, 5000), "abs", 19, 1e-3),
+        ("single_column_2d", (5000, 1), "abs", 20, 1e-3),
+        ("ragged_2d_small", (70, 130), "signed", 21, 1e-3),
         ("main_path_256", (256, 256, 256), "signed", 42, PW_REL),
         ("main_path_cesm_atm", (1800, 3600), "abs", 6, PW_REL),
+        # phase 4's shape (its field is |field| with zeros; the kernels
+        # see the zeros replaced either way)
+        ("full_size_512", (512, 512, 512), "abs", 42, PW_REL),
     ]
     for name, shape, kind, seed, ratio in cases:
         x = pwrel_field(kind, shape, seed)
         kid = "K8" if len(shape) == 3 else "K9"
-        row, ent = msst19_vs_plain(name, kid, shape, x, ratio, dev,
-                                   timed=name.startswith("main_path"))
+        row, ent = msst19_vs_plain(
+            name, kid, shape, x, ratio, dev,
+            timed=name.startswith(("main_path", "full_size")))
         if name == "signed_with_zeros" and not (x == 0).any():
             raise AssertionError("the signed case has no zeros")
         if name == "past_4096_states" and row["intervals"] <= 4096:
             raise AssertionError(f"1e-5 gave {row['intervals']} states")
         rows.append(row)
-        entries.update(ent)
+        if name.startswith("main_path"):
+            entries.update(ent)
+        del x
         torch.cuda.empty_cache()
     return rows, entries
 
@@ -1028,8 +1067,8 @@ DEVICE_NAMES = (
     ("fsm_emit_kernel", "fsm_emit"),
     ("wavefront3d_encode_kernel", "msst19_wavefront3d_encode"),
     ("wavefront3d_decode_kernel", "msst19_wavefront3d_decode"),
-    ("lines2d_kernel<false>", "msst19_lines2d_encode"),
-    ("lines2d_kernel<true>", "msst19_lines2d_decode"),
+    ("lines2d_encode_kernel", "msst19_lines2d_encode"),
+    ("lines2d_decode_kernel", "msst19_lines2d_decode"),
     ("Memcpy", "memcpy"), ("Memset", "memset"),
 )
 
@@ -1146,7 +1185,8 @@ def main() -> int:
     log = _build.library_path().with_suffix(".log")
     if log.exists():
         record["ptxas"] = [ln for ln in log.read_text().splitlines()
-                           if "registers" in ln or "Compiling entry" in ln]
+                           if "registers" in ln or "Compiling entry" in ln
+                           or "spill" in ln]
 
     # phase 2: each kernel against its plain version
     record["lorenzo_cases"], entries = phase_lorenzo(dev)

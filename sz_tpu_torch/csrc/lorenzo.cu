@@ -11,45 +11,16 @@
 // points one lower on any set of axes.  Out-of-lattice neighbours read
 // 0.0f, which is the reference's boundary rule.  Rank 2 is r1 = 1.
 //
-// Design: one persistent launch per call.  The lattice is cut into tiles
-// of bi x bj x bk points (TileShape: fixed at compile time, one shape for
-// r1 > 1 and one for r1 = 1), k (the contiguous axis) the long side.  Tile
-// (I, J, K) needs only (I-1, J, K), (I, J-1, K) and (I, J, K-1); their
-// own predecessors cover the edge and corner neighbours.  The wrapper
-// numbers the tiles by tile-diagonal I + J + K (`order`, made in Python
-// by lorenzo_kernel.tile_order), so every tile's predecessors have lower
-// numbers.  A block has bi * bj threads, one a k-row of the tile; it
-// claims the next number from a global counter and
-//   1. stages the tile's inputs in shared memory (they depend on no
-//      other tile, so this overlaps the wait);
-//   2. waits for each predecessor's done flag (acquire) and, as soon as
-//      one is set, reads the low face of R it completed through L2
-//      (__ldcg: a 128-byte line may hold points of a finished and of an
-//      unfinished tile);
-//   3. runs the point wavefront inside the tile: thread (li, lj) walks its
-//      k-row skewed by li + lj, one point a step, __syncthreads between
-//      steps, every neighbour read from shared memory;
-//   4. stores R on those of its three high faces that a later tile reads
-//      (none beyond the lattice's last tile on an axis: in 2-D, never
-//      the i-face, which is the whole tile), fences, and publishes its
-//      flag (release store);
-//   5. writes the rest of R, and t for K1, with coalesced stores.
-// A block waits only on tiles claimed earlier by blocks already running,
-// so the scheme cannot deadlock at any grid size.  The wrapper allocates
-// the flags and the counter (torch.zeros) on every call.
-//
-// Bound on this card: the dependency chain, not bytes.  A tile starts
-// when its predecessors are done, so the critical path is (tile-
-// diagonals) x (bi + bj + bk - 2 point steps + the flag hand-off, the
-// halo load and the publishing fence); a step is one point's dependent
-// chain (shared-memory reads, the 7-term sum, for K1 the quantizer, a
-// barrier), and the steps are most of the path.  Larger tiles mean fewer
-// tile-diagonals and more steps a tile; the two shapes were picked by a
-// sweep on the H100 (PERF.md).  On a lattice with many more
-// tiles than resident blocks (512^3) the bound is instead each tile's
-// busy time, most of it staging the inputs, over the resident blocks.
-// The shared-memory pitches put the 32 threads of a warp's step on 32
-// banks.
+// Design: one persistent launch per call on the tile machinery of
+// tiles.cuh (shared with K8/K9), with a one-deep k-halo: tiles of
+// LorenzoTile's shape, claimed in tile-diagonal order, each run as a
+// point wavefront in shared memory.  tiles.cuh's note has the order, the
+// memory order of the hand-off and what bounds it.  Here: the tile
+// shapes, picked by a sweep on the H100 (PERF.md), and the point rules.
+// For K1 a step's chain is the shared-memory reads, the 7-term sum, the
+// quantizer and a barrier; at 512^3 (32,768 tiles) the bound is each
+// tile's busy time, most of it staging the inputs, over the resident
+// blocks.
 //
 // Bit-exactness: every float op that reaches the stream is an explicit
 // round-to-nearest intrinsic in the op order of the JAX kernels
@@ -59,257 +30,21 @@
 
 #include <cuda_runtime.h>
 
+#include "tiles.cuh"
+
 namespace {
 
-// Threads a block at most: one a (i, j) column of the tile.
-constexpr int kMaxThreads = 256;
+using namespace tiles;
 
-// The smallest v >= lo with v = want (mod 32).
-constexpr int pitch(int lo, int want) {
-  return lo + ((want - lo) % 32 + 32) % 32;
-}
-
-// The tile of a lattice of rank kRank (3: r1 > 1; 2: r1 = 1), bi x bj x
-// bk points; lorenzo_kernel.TILE3 / TILE2 hold the same values for the
-// claim order (tests/test_torch_kernels.py compares them).  P and Q are
-// the shared-memory pitches of a k-row and of an i-plane of a tile with
-// its halo; P = 2 and Q = bj + 1 (mod 32) put thread li * bj + lj of each
-// step on bank (li * bj + lj) mod 32.
+// The tile (bi x bj x bk) of a lattice of rank kRank (3: r1 > 1; 2:
+// r1 = 1); lorenzo_kernel.TILE3 / TILE2 hold the same values for the
+// claim order (tests/test_torch_kernels.py compares them).
 template <int kRank>
-struct TileShape {
+struct LorenzoTile {
   static constexpr int bi = kRank == 3 ? 8 : 1;
   static constexpr int bj = kRank == 3 ? 16 : 64;
   static constexpr int bk = kRank == 3 ? 32 : 96;
-  static constexpr int threads = bi * bj;
-  static constexpr int P = pitch(bk + 1, 2);
-  static constexpr int Q = pitch((bj + 1) * P, bj + 1);
-  // entries of one shared-memory array: the tile with its halo
-  static constexpr int entries = (bi + 1) * Q;
-  static_assert(threads % 32 == 0 && threads <= kMaxThreads,
-                "a block is whole warps, at most kMaxThreads");
 };
-
-// Lattice geometry over the tile shape S.
-template <class S>
-struct Geo : S {
-  int r1, r2, r3;
-  int nti, ntj, ntk;  // tiles per axis
-  int ntiles;
-};
-
-struct Tile {
-  int id;               // flat tile index (I * ntj + J) * ntk + K
-  int ti, tj, tk;       // tile coordinates
-  int i0, j0, k0;       // first point
-  int ni, nj, nk;       // extent (ragged at the high faces)
-  bool si, sj, sk;      // a tile follows on axis i, j, k
-};
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// Claims the next tile; false when none is left.
-template <class G>
-__device__ __forceinline__ bool claim(const G& g, const int* order,
-                                      int* counter, Tile* t) {
-  __shared__ int claimed;
-  if (threadIdx.x == 0) claimed = atomicAdd(counter, 1);
-  __syncthreads();
-  const int n = claimed;
-  if (n >= g.ntiles) return false;
-  int id = order[n];
-  t->id = id;
-  t->tk = id % g.ntk;
-  t->tj = (id / g.ntk) % g.ntj;
-  t->ti = id / (g.ntk * g.ntj);
-  t->i0 = t->ti * G::bi;
-  t->j0 = t->tj * G::bj;
-  t->k0 = t->tk * G::bk;
-  t->ni = min(G::bi, g.r1 - t->i0);
-  t->nj = min(G::bj, g.r2 - t->j0);
-  t->nk = min(G::bk, g.r3 - t->k0);
-  t->si = t->ti + 1 < g.nti;
-  t->sj = t->tj + 1 < g.ntj;
-  t->sk = t->tk + 1 < g.ntk;
-  return true;
-}
-
-// True once every thread has seen the flag set; each thread's load is
-// an acquire, so each may then read what the flag's tile wrote.  A null
-// flag (no such predecessor) is done.
-__device__ __forceinline__ bool done(const int* flag) {
-  return __syncthreads_and(flag == nullptr || ld_acquire(flag) != 0);
-}
-
-// Shared-memory index of tile point (li, lj, lk); the halo is at -1.
-template <class G>
-__device__ __forceinline__ int sidx(const G&, int li, int lj, int lk) {
-  return (li + 1) * G::Q + (lj + 1) * G::P + lk + 1;
-}
-
-template <class G>
-__device__ __forceinline__ long long gidx(const G& g, int i, int j, int k) {
-  return ((long long)i * g.r2 + j) * g.r3 + k;
-}
-
-template <class G>
-__device__ __forceinline__ float halo_at(const G& g, const float* R, int i,
-                                         int j, int k) {
-  return (i < 0 || j < 0 || k < 0) ? 0.0f : __ldcg(R + gidx(g, i, j, k));
-}
-
-// This thread's points of an n0 x n1 x n2 box, blockDim.x at a time in
-// row-major order, as (a, b, c); next() advances without a division.
-struct BoxWalk {
-  int n0, n1, n2, a, b, c;
-  __device__ __forceinline__ BoxWalk(int m0, int m1, int m2)
-      : n0(m0), n1(m1), n2(m2) {
-    int e = threadIdx.x;
-    c = e % n2;
-    e /= n2;
-    b = e % n1;
-    a = e / n1;
-  }
-  __device__ __forceinline__ bool ok() const { return a < n0; }
-  __device__ __forceinline__ void next() {
-    c += blockDim.x;
-    while (c >= n2) {
-      c -= n2;
-      if (++b == n1) b = 0, ++a;
-    }
-  }
-};
-
-// Loads in flight per thread in the gathers below: each round issues
-// all its loads before the first store.
-constexpr int kBatch = 8;
-constexpr int kStageBatch = 16;
-
-// Copies one face of the tile between R and its shared copy Rs (kLoad:
-// R -> Rs, 0.0f outside the lattice; else Rs -> R).  The face's points
-// are an n1 x n2 grid; map(b, c, &li, &lj, &lk) places grid point (b, c)
-// in the tile.
-template <bool kLoad, class G, class Map>
-__device__ __forceinline__ void copy_face(const G& g, const Tile& t,
-                                          float* R, float* Rs, int n1,
-                                          int n2, Map map) {
-  BoxWalk w(1, n1, n2);
-  while (w.ok()) {
-    float v[kBatch];
-    int s[kBatch];
-    long long x[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      s[u] = -1;
-      if (w.ok()) {
-        int li, lj, lk;
-        map(w.b, w.c, &li, &lj, &lk);
-        s[u] = sidx(g, li, lj, lk);
-        if (kLoad) {
-          v[u] = halo_at(g, R, t.i0 + li, t.j0 + lj, t.k0 + lk);
-        } else {
-          x[u] = gidx(g, t.i0 + li, t.j0 + lj, t.k0 + lk);
-          v[u] = Rs[s[u]];
-        }
-        w.next();
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if (s[u] >= 0) {
-        if (kLoad)
-          Rs[s[u]] = v[u];
-        else
-          R[x[u]] = v[u];
-      }
-  }
-}
-
-// Waits for the tile's <= 3 predecessors and loads the low face of R
-// that each one completes as soon as it is done, so that only the last
-// one's face is loaded on the critical path.  Face li = -1 (lj, lk in
-// [-1, n)) is complete with tile (I-1, J, K), whose own predecessors hold
-// its edges; face lj = -1 (li >= 0, lk in [-1, nk)) with (I, J-1, K);
-// face lk = -1 (li, lj >= 0) with (I, J, K-1).  A face outside the
-// lattice reads 0.0f at once.
-template <class G>
-__device__ __forceinline__ void wait_and_load_halo(const G& g,
-                                                   const Tile& t,
-                                                   const int* flags,
-                                                   const float* R,
-                                                   float* Rs) {
-  float* r = const_cast<float*>(R);
-  const int* pred[3] = {t.ti > 0 ? flags + t.id - g.ntj * g.ntk : nullptr,
-                        t.tj > 0 ? flags + t.id - g.ntk : nullptr,
-                        t.tk > 0 ? flags + t.id - 1 : nullptr};
-  bool todo[3] = {true, true, true};
-  for (int left = 3; left > 0;) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      if (!todo[q] || !done(pred[q])) continue;
-      if (q == 0)
-        copy_face<true>(g, t, r, Rs, t.nj + 1, t.nk + 1,
-                        [](int b, int c, int* li, int* lj, int* lk) {
-                          *li = -1, *lj = b - 1, *lk = c - 1;
-                        });
-      else if (q == 1)
-        copy_face<true>(g, t, r, Rs, t.ni, t.nk + 1,
-                        [](int b, int c, int* li, int* lj, int* lk) {
-                          *li = b, *lj = -1, *lk = c - 1;
-                        });
-      else
-        copy_face<true>(g, t, r, Rs, t.ni, t.nj,
-                        [](int b, int c, int* li, int* lj, int* lk) {
-                          *li = b, *lj = c, *lk = -1;
-                        });
-      todo[q] = false;
-      --left;
-    }
-  }
-}
-
-// R on the tile's high faces that a later tile reads (the only points
-// other tiles read).
-template <class G>
-__device__ __forceinline__ void store_faces(const G& g, const Tile& t,
-                                            float* R, float* Rs) {
-  const int hi = t.ni - 1, hj = t.nj - 1, hk = t.nk - 1;
-  if (t.si)
-    copy_face<false>(g, t, R, Rs, t.nj, t.nk,
-                     [=](int b, int c, int* li, int* lj, int* lk) {
-                       *li = hi, *lj = b, *lk = c;
-                     });
-  if (t.sj)
-    copy_face<false>(g, t, R, Rs, t.ni, t.nk,
-                     [=](int b, int c, int* li, int* lj, int* lk) {
-                       *li = b, *lj = hj, *lk = c;
-                     });
-  if (t.sk)
-    copy_face<false>(g, t, R, Rs, t.ni, t.nj,
-                     [=](int b, int c, int* li, int* lj, int* lk) {
-                       *li = b, *lj = c, *lk = hk;
-                     });
-}
-
-// The tile's point w: its lattice and shared indices.
-template <class G>
-__device__ __forceinline__ void tile_point(const G& g, const Tile& t,
-                                           const BoxWalk& w, long long* x,
-                                           int* s) {
-  *x = gidx(g, t.i0 + w.a, t.j0 + w.b, t.k0 + w.c);
-  *s = sidx(g, w.a, w.b, w.c);
-}
 
 // (x,y,z-1)+(x,y-1,z), +(x-1,y,z), -(x,y-1,z-1), -(x-1,y,z-1),
 // -(x-1,y-1,z), +(x-1,y-1,z-1), all read from the tile's shared copy
@@ -343,11 +78,12 @@ __device__ __forceinline__ void quant(float cur, float pred, float rp,
   *rec_out = ok ? rec : cur;
 }
 
-// Per-block shared memory: kArrays 4-byte arrays (R with its halo, the
-// staged value X, and for K1 the type codes T) and the flags F, each
-// TileShape::entries entries.
+// The point rules (tiles.cuh): in shared memory R with its halo, the
+// staged value X, for K1 the type codes T, and the flags F.
 struct QuantArgs {
   static constexpr int kArrays = 3;
+  static constexpr int kFlagBytes = 1;
+  static constexpr bool kTypesOut = true;
   const float* data;
   const int* t_reg;
   const float* rec_reg;
@@ -361,18 +97,13 @@ struct QuantArgs {
 
 struct DecodeArgs {
   static constexpr int kArrays = 2;
+  static constexpr int kFlagBytes = 1;
+  static constexpr bool kTypesOut = false;
   const unsigned char* known_mask;
   const float* known;
   const float* q_lor;
   float* R;
 };
-
-__device__ __forceinline__ int* t_out_of(const QuantArgs& a) {
-  return a.t_out;
-}
-__device__ __forceinline__ int* t_out_of(const DecodeArgs&) {
-  return nullptr;
-}
 
 // Stages one tile's inputs: X = the regression value or the data (K1),
 // the known value or q (K2); F = the point's flags; T = t_reg (K1).
@@ -446,7 +177,8 @@ __device__ __forceinline__ void stage(const G& g, const Tile& t,
 // so the warp does not split.
 template <class G>
 __device__ __forceinline__ void point(const G&, const QuantArgs& a, int c,
-                                      float* Rs, const float* X, int* T,
+                                      int, int, int, float* Rs,
+                                      const float* X, int* T,
                                       const unsigned char* F) {
   const unsigned char f = F[c];
   const float x = X[c];
@@ -470,83 +202,13 @@ __device__ __forceinline__ void point(const G&, const QuantArgs& a, int c,
 // One point of K2: R = known_mask ? known : pred7(R) + q_lor.
 template <class G>
 __device__ __forceinline__ void point(const G&, const DecodeArgs&, int c,
-                                      float* Rs, const float* X, int*,
+                                      int, int, int, float* Rs,
+                                      const float* X, int*,
                                       const unsigned char* F) {
   const unsigned char f = F[c];
   const float x = X[c];
   const float r = __fadd_rn(pred7(Rs, c, G::P, G::Q), x);
   Rs[c] = f ? x : r;
-}
-
-// Coalesced write-back of the tile's R off the faces store_faces wrote,
-// and of t for K1, kBatch points a thread per round.
-template <class G>
-__device__ __forceinline__ void write_back(const G& g, const Tile& t,
-                                           float* R, int* t_out,
-                                           const float* Rs, const int* T) {
-  BoxWalk w(t.ni, t.nj, t.nk);
-  while (w.ok()) {
-    long long x[kBatch];
-    float r[kBatch];
-    int tv[kBatch];
-    bool rest[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      x[u] = -1;
-      if (w.ok()) {
-        int s;
-        tile_point(g, t, w, &x[u], &s);
-        rest[u] = !((t.si && w.a == t.ni - 1) || (t.sj && w.b == t.nj - 1) ||
-                    (t.sk && w.c == t.nk - 1));
-        r[u] = Rs[s];
-        if (t_out) tv[u] = T[s];
-        w.next();
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if (x[u] >= 0) {
-        if (rest[u]) R[x[u]] = r[u];
-        if (t_out) t_out[x[u]] = tv[u];
-      }
-  }
-}
-
-// The persistent loop, shared by K1 (QuantArgs) and K2 (DecodeArgs).
-template <class G, class Args>
-__device__ __forceinline__ void run_tiles(const G& g, const int* order,
-                                          int* flags, const Args& a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int m = G::entries;
-  float* Rs = (float*)smem;
-  float* X = Rs + m;
-  int* T = (int*)(X + m);
-  unsigned char* F = (unsigned char*)(Args::kArrays == 3 ? T + m : T);
-  int* counter = flags + g.ntiles;
-  const int lane = threadIdx.x;
-  const int li = lane / G::bj, lj = lane % G::bj;
-  Tile t;
-  while (claim(g, order, counter, &t)) {
-    stage(g, t, a, X, T, F);
-    wait_and_load_halo(g, t, flags, a.R, Rs);
-    __syncthreads();
-    // step s: thread (li, lj) computes lk = s - li - lj, at c0 + s
-    const bool active = li < t.ni && lj < t.nj;
-    const int steps = t.ni + t.nj + t.nk - 2;
-    const int c0 = sidx(g, li, lj, -li - lj);
-    for (int s = 0; s < steps; ++s) {
-      int lk = s - li - lj;
-      if (active && lk >= 0 && lk < t.nk) point(g, a, c0 + s, Rs, X, T, F);
-      __syncthreads();
-    }
-    // publish the faces later tiles read, then write the rest
-    store_faces(g, t, a.R, Rs);
-    __threadfence();
-    __syncthreads();
-    if (lane == 0) st_release(flags + t.id, 1);
-    write_back(g, t, a.R, t_out_of(a), Rs, T);
-    __syncthreads();
-  }
 }
 
 template <class G>
@@ -561,47 +223,14 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_decode_kernel(
   run_tiles(g, order, flags, a);
 }
 
-// One launch of `kernel` over the r1 x r2 x r3 lattice: G::threads-thread
-// blocks, as many as can be resident (never more than there are tiles).
-// ntiles must be the tile count of G's tile shape.
-template <class G, class Args>
-int launch(void (*kernel)(G, const int*, int*, Args), const Args& a, int r1,
-           int r2, int r3, const int* order, int* flags, int ntiles,
-           cudaStream_t st) {
-  G g;
-  g.r1 = r1, g.r2 = r2, g.r3 = r3;
-  g.nti = (r1 + G::bi - 1) / G::bi;
-  g.ntj = (r2 + G::bj - 1) / G::bj;
-  g.ntk = (r3 + G::bk - 1) / G::bk;
-  g.ntiles = ntiles;
-  if ((long long)g.nti * g.ntj * g.ntk != ntiles)
-    return (int)cudaErrorInvalidValue;
-  if (ntiles == 0) return 0;
-  size_t bytes = (size_t)G::entries * (4 * Args::kArrays + 1);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    G::threads, bytes);
-  if (e != cudaSuccess) return (int)e;
-  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > ntiles) blocks = ntiles;
-  kernel<<<(unsigned)blocks, G::threads, bytes, st>>>(g, order, flags, a);
-  return (int)cudaGetLastError();
-}
-
-using Geo3 = Geo<TileShape<3>>;
-using Geo2 = Geo<TileShape<2>>;
+using Geo3 = Geo<TileShape<LorenzoTile<3>, 1>>;
+using Geo2 = Geo<TileShape<LorenzoTile<2>, 1>>;
 
 }  // namespace
 
 // order: int32[ntiles], the flat tile index of each claim number, by
-// tile-diagonal, for TileShape<3> when r1 > 1 and TileShape<2> when
-// r1 = 1 (lorenzo_kernel.tile_order); flags: int32[ntiles + 1], zero
+// tile-diagonal, for LorenzoTile<3> when r1 > 1 and LorenzoTile<2> when
+// r1 = 1 (gpu/tiles.tile_order); flags: int32[ntiles + 1], zero
 // (the last is the claim counter).
 extern "C" int sz_wavefront_quantize(
     const float* data, const int* t_reg, const float* rec_reg,

@@ -3,7 +3,8 @@
 The CUDA sources expose a plain C interface; one ``nvcc`` per source,
 all started together, compiles them to objects, which link into one
 shared library under ``build/sz_tpu_torch/`` at the repository root,
-named by a hash of the sources and flags (an unchanged build is reused),
+named by a hash of the sources, the headers they include and the flags
+(an unchanged build is reused),
 and ``ctypes`` loads it.  Nothing here runs at import time: the first
 CUDA launch calls :func:`lib`.
 
@@ -53,11 +54,13 @@ SIGNATURES = {
     "sz_fsm_sync": (_P, _P, _LL, _I, _LL, _P, _P, _P),
     "sz_fsm_emit": (_P, _P, _I, _LL, _LL, _I, _I, _P, _P, _LL, _P, _P),
     "sz_msst19_wavefront3d_encode": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                                     _I, _I, _I, _P),
-    "sz_msst19_wavefront3d_decode": (_P, _P, _P, _I, _P, _I, _I, _I, _P),
-    "sz_msst19_lines2d_encode": (_P, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _P,
-                                 _P, _I, _I, _P),
-    "sz_msst19_lines2d_decode": (_P, _P, _P, _I, _P, _P, _I, _I, _P),
+                                     _I, _I, _I, _P, _P, _I, _P),
+    "sz_msst19_wavefront3d_decode": (_P, _P, _P, _I, _P, _I, _I, _I,
+                                     _P, _P, _I, _P),
+    "sz_msst19_lines2d_encode": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                 _I, _I, _P, _P, _I, _P),
+    "sz_msst19_lines2d_decode": (_P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
+                                 _P),
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)
@@ -65,7 +68,13 @@ build_seconds = 0.0
 
 
 def sources() -> list[pathlib.Path]:
+    """The compiled sources (``*.cu``)."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[pathlib.Path]:
+    """The headers the sources include (``*.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -85,7 +94,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for p in sources():
+    for p in sources() + headers():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

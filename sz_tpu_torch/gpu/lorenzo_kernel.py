@@ -6,10 +6,11 @@ that computes the lattice tile by tile in dependency order; replaces
 ``sz_tpu/tpu/pallas_kernels.py::plane_quantize`` and ``::strip_quantize``,
 ``sz_tpu/tpu/wf_quantize.py::wavefront_quantize`` and
 ``::wavefront_decode``, and the XLA plane scan of
-``sz_tpu/tpu/engine.py::_decode_fn``).  Bound on the H100 by the
-dependency chain across the tiles, not by bytes; the source note in
-``lorenzo.cu`` has the detail.  The tile grid and the order in which the
-kernel claims the tiles are made here (:func:`tile_order`), so the CPU
+``sz_tpu/tpu/engine.py::_decode_fn``), on the tile machinery of
+``csrc/tiles.cuh`` shared with K8/K9.  Bound on the H100 by the
+dependency chain across the tiles, not by bytes; the source notes in
+``tiles.cuh`` and ``lorenzo.cu`` have the detail.  The claim order is
+made in Python (:func:`sz_tpu_torch.gpu.tiles.tile_order`), so the CPU
 tests reach the geometry the kernel uses.
 
 Beside each kernel sits its plain torch version: the per-plane fixpoint
@@ -23,13 +24,12 @@ zero-valued neighbour terms change no value.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sz_tpu_torch.gpu import _build
+from sz_tpu_torch.gpu import _build, tiles
 from sz_tpu_torch.gpu.stages import quant, scalar
 
 F32 = torch.float32
@@ -122,7 +122,7 @@ def decode_plain(known_mask, known, q_lor):
 
 
 # the tile (bi, bj, bk) of a lattice with r1 > 1 and of one with r1 = 1,
-# as lorenzo.cu compiles them (TileShape<3>, TileShape<2>): one thread a
+# as lorenzo.cu compiles them (LorenzoTile<3>, LorenzoTile<2>): one thread a
 # k-row (bi * bj threads a block, a multiple of 32), k the contiguous
 # axis; picked on the H100 (PERF.md)
 TILE3 = (8, 16, 32)
@@ -132,38 +132,6 @@ TILE2 = (1, 64, 96)
 def tile_of(shape3):
     """The tile the kernel uses for a rank-3 lattice shape."""
     return TILE3 if shape3[0] > 1 else TILE2
-
-
-def tile_order(shape3, tile):
-    """The tiles of a rank-3 lattice in the order the kernel claims them.
-
-    Returns ``(grid, order, starts)``: ``grid`` the tiles per axis;
-    ``order[n]`` the flat index ``(I * grid[1] + J) * grid[2] + K`` of the
-    n-th tile, by tile-diagonal ``S = I + J + K``, then I, then J, so each
-    tile's predecessors (one lower on one axis) come before it;
-    ``starts[S]`` the first number of diagonal S (prefix counts of tiles
-    per diagonal; ``starts[-1]`` is the tile count)."""
-    grid = tuple(-(-int(r) // int(b)) for r, b in zip(shape3, tile))
-    S = np.indices(grid).sum(axis=0).reshape(-1)
-    order = np.argsort(S, kind="stable").astype(np.int32)
-    starts = np.zeros(max(sum(grid) - 1, 0), dtype=np.int64)
-    np.cumsum(np.bincount(S, minlength=starts.size - 1), out=starts[1:])
-    return grid, order, starts
-
-
-@functools.lru_cache(maxsize=32)
-def _order_on(shape3, tile, device):
-    """(order on ``device``, tile count): made once per lattice shape."""
-    _, order, _ = tile_order(shape3, tile)
-    return torch.from_numpy(order).to(device), int(order.size)
-
-
-def _tiled(shape3, device):
-    """The kernel's tile arguments for one call: the claim order, fresh
-    zero flags (the last is the claim counter) and the count."""
-    order, ntiles = _order_on(shape3, tile_of(shape3), device)
-    flags = torch.zeros(ntiles + 1, dtype=torch.int32, device=device)
-    return (_ptr(order), _ptr(flags), ntiles), flags
 
 
 def _ptr(t):
@@ -211,13 +179,13 @@ def wavefront_quantize(data, t_reg, rec_reg, reg_pts, mean_mask, rp, recip,
     shape3 = tuple(_as3d(data).shape)
     t = torch.empty(data.shape, dtype=torch.int32, device=data.device)
     R = torch.empty(data.shape, dtype=F32, device=data.device)
-    tiles, flags = _tiled(shape3, data.device)
+    targs, flags = tiles.tiled(shape3, tile_of(shape3), data.device)
     rc = _build.lib().sz_wavefront_quantize(
         _ptr(data), _ptr(t_reg), _ptr(rec_reg), _ptr(reg_pts),
         _ptr(mean_mask if use_mean else None), _ptr(t), _ptr(R),
         *shape3, float(np.float32(rp)), float(np.float32(recip)),
         float(np.float32(cap_szf)), float(np.float32(mean)), int(radius),
-        int(bool(use_mean)), *tiles,
+        int(bool(use_mean)), *targs,
         torch.cuda.current_stream(data.device).cuda_stream)
     _build.check(rc, "wavefront_quantize")
     wavefront_quantize.launches += 1
@@ -242,10 +210,10 @@ def wavefront_decode(known_mask, known, q_lor):
         raise TypeError("wavefront_decode: dtypes bool/f32/f32")
     shape3 = tuple(_as3d(known).shape)
     R = torch.empty(known.shape, dtype=F32, device=known.device)
-    tiles, flags = _tiled(shape3, known.device)
+    targs, flags = tiles.tiled(shape3, tile_of(shape3), known.device)
     rc = _build.lib().sz_wavefront_decode(
         _ptr(known_mask), _ptr(known), _ptr(q_lor), _ptr(R), *shape3,
-        *tiles, torch.cuda.current_stream(known.device).cuda_stream)
+        *targs, torch.cuda.current_stream(known.device).cuda_stream)
     _build.check(rc, "wavefront_decode")
     wavefront_decode.launches += 1
     return R

@@ -9,10 +9,14 @@ CUDA kernels in ``csrc/msst19.cu``.  K8 replaces T11,
 TPU forms computed the f64 chain in software and found the state with a
 stairstep search limited to 4096 boundary states; here the chain is
 native IEEE f64 and the state one indexed load of the cache table, so
-every table runs on the card (the 1e-4 and 1e-5 bounds included).  K8 is
-bound by its r1 + r2 + r3 - 2 dependent diagonal launches, K9 by its
-r2 + r3 - 1 dependent lines inside one block; neither by bytes or
-arithmetic.  ``msst19.cu``'s note has the detail.
+every table runs on the card (the 1e-4 and 1e-5 bounds included).  Each
+call is one persistent launch on the tile machinery of
+``csrc/tiles.cuh`` (shared with K1/K2), with a k-halo two deep for the
+first row's (k-2) neighbour; the claim order is made here
+(:func:`sz_tpu_torch.gpu.tiles.tiled`).  Bound by the dependency chain
+across the tiles (at 512^3 by the tiles' busy time over the resident
+blocks), not by bytes or arithmetic; ``msst19.cu``'s note has the
+detail.
 
 Beside each kernel sits its plain torch version: an anti-diagonal
 wavefront on tensors in the form of ``sz_tpu.core.pwr``'s
@@ -38,7 +42,7 @@ import ctypes
 
 import torch
 
-from sz_tpu_torch.gpu import _build
+from sz_tpu_torch.gpu import _build, tiles
 
 _F32, _F64, _I32, _I64 = torch.float32, torch.float64, torch.int32, torch.int64
 
@@ -177,6 +181,13 @@ def lines2d_decode_plain(types, known, pt):
 
 # --- wrappers -------------------------------------------------------------
 
+# the tiles (bi, bj, bk) of K8 (any r1) and K9 (r1 = 1), as msst19.cu
+# compiles them (Msst19Tile<3>, Msst19Tile<2>): one thread a k-row, k the
+# contiguous axis; K1/K2's shapes (lorenzo_kernel.TILE3 / TILE2)
+TILE3 = (8, 16, 32)
+TILE2 = (1, 64, 96)
+
+
 def _check(name: str, rank: int, lattice, *more):
     """Validate ((tensor, dtype), ...) of one lattice shape and the
     tables; returns the device type ('cpu' or 'cuda')."""
@@ -228,9 +239,10 @@ def wavefront3d_encode(data, table, pt, base: int, top: int, bits: int,
         return wavefront3d_encode_plain(data, table, pt, base, top, bits, ign)
     types = torch.empty(data.shape, dtype=_I32, device=data.device)
     R = torch.empty(data.shape, dtype=_F32, device=data.device)
+    targs, flags = tiles.tiled(data.shape, TILE3, data.device)
     rc = _build.lib().sz_msst19_wavefront3d_encode(
         _p(data), _p(table), _p(pt), pt.numel(), base, top, bits, ign,
-        _p(types), _p(R), *data.shape, _stream(data))
+        _p(types), _p(R), *data.shape, *targs, _stream(data))
     _build.check(rc, "wavefront3d_encode")
     wavefront3d_encode.launches += 1
     return types, R
@@ -244,9 +256,10 @@ def wavefront3d_decode(types, known, pt):
     if kind == "cpu":
         return wavefront3d_decode_plain(types, known, pt)
     out = torch.empty(types.shape, dtype=_F32, device=types.device)
+    targs, flags = tiles.tiled(types.shape, TILE3, types.device)
     rc = _build.lib().sz_msst19_wavefront3d_decode(
         _p(types), _p(known), _p(pt), pt.numel(), _p(out), *types.shape,
-        _stream(types))
+        *targs, _stream(types))
     _build.check(rc, "wavefront3d_decode")
     wavefront3d_decode.launches += 1
     return out
@@ -263,10 +276,10 @@ def lines2d_encode(data, table, pt, base: int, top: int, bits: int,
         return lines2d_encode_plain(data, table, pt, base, top, bits, ign)
     types = torch.empty(data.shape, dtype=_I32, device=data.device)
     R = torch.empty(data.shape, dtype=_F32, device=data.device)
-    lines = torch.empty(3 * data.shape[1], dtype=_F32, device=data.device)
+    targs, flags = tiles.tiled((1, *data.shape), TILE2, data.device)
     rc = _build.lib().sz_msst19_lines2d_encode(
-        _p(data), _p(table), table.numel(), _p(pt), pt.numel(), base, top,
-        bits, ign, _p(types), _p(R), _p(lines), *data.shape, _stream(data))
+        _p(data), _p(table), _p(pt), pt.numel(), base, top, bits, ign,
+        _p(types), _p(R), *data.shape, *targs, _stream(data))
     _build.check(rc, "lines2d_encode")
     lines2d_encode.launches += 1
     return types, R
@@ -280,10 +293,10 @@ def lines2d_decode(types, known, pt):
     if kind == "cpu":
         return lines2d_decode_plain(types, known, pt)
     out = torch.empty(types.shape, dtype=_F32, device=types.device)
-    lines = torch.empty(3 * types.shape[1], dtype=_F32, device=types.device)
+    targs, flags = tiles.tiled((1, *types.shape), TILE2, types.device)
     rc = _build.lib().sz_msst19_lines2d_decode(
-        _p(types), _p(known), _p(pt), pt.numel(), _p(out), _p(lines),
-        *types.shape, _stream(types))
+        _p(types), _p(known), _p(pt), pt.numel(), _p(out), *types.shape,
+        *targs, _stream(types))
     _build.check(rc, "lines2d_decode")
     lines2d_decode.launches += 1
     return out

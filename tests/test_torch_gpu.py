@@ -227,8 +227,18 @@ def _msst19_case(shape, ratio, signed, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,ratio,signed", [
     ((20, 33, 47), 1e-3, False), ((30, 26, 34), 1e-5, True),
-    ((150, 130), 1e-3, True), ((777, 1031), 1e-4, False)])
+    ((150, 130), 1e-3, True), ((777, 1031), 1e-4, False),
+    # no multiple of a tile, smaller than a tile, one tile wide on i and
+    # j but many long on k (the k-2 hand-off on the first row), r1 = 1,
+    # a single row and a single column in 2-D
+    ((9, 17, 70), 1e-3, True), ((3, 5, 7), 1e-3, False),
+    ((2, 3, 4097), 1e-3, False), ((1, 40, 300), 1e-3, True),
+    ((1, 5000), 1e-3, False), ((5000, 1), 1e-3, True),
+    ((70, 130), 1e-3, True)])
 def test_msst19_kernels_match_plain(cuda, shape, ratio, signed):
+    """K8/K9 bit-equal to their plain versions both ways, the decode
+    rebuilding the encode, and each second call bit-equal to the first
+    (the flags and the claim counter start from zero on every call)."""
     args = _msst19_case(shape, ratio, signed, cuda)
     rank3 = len(shape) == 3
     enc = (msst19_kernel.wavefront3d_encode if rank3
@@ -242,11 +252,14 @@ def test_msst19_kernels_match_plain(cuda, shape, ratio, signed):
     t_k, R_k = enc(*args)
     t_p, R_p = enc_p(*args)
     assert _bits_equal(t_k, t_p) and _bits_equal(R_k, R_p)
+    t_2, R_2 = enc(*args)
+    assert _bits_equal(t_2, t_k) and _bits_equal(R_2, R_k)
     mask = msst19_kernel._mask_i32(args[-1])
     known = torch.where(t_k == 0, (args[0].view(torch.int32) & mask).view(
         torch.float32), torch.zeros_like(args[0]))
     out = dec(t_k, known, args[2])
     assert _bits_equal(out, dec_p(t_k, known, args[2]))
+    assert _bits_equal(dec(t_k, known, args[2]), out)
     assert _bits_equal(out.abs(), R_k)
 
 

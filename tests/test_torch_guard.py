@@ -6,6 +6,7 @@ build keeps IEEE float semantics."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -246,6 +247,57 @@ def test_kernel_build_keeps_ieee_floats():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"lorenzo.cu", "hist.cu", "pack.cu",
                                       "fsm.cu", "msst19.cu"}
-    for p in srcs:
+    assert {p.name for p in _build.headers()} == {"tiles.cuh"}
+    for p in srcs + _build.headers():
         text = p.read_text()
         assert "fast_math" not in text and "fmad=true" not in text
+        assert "#pragma STDC FP_CONTRACT ON" not in text
+
+
+def test_kernel_digest_follows_headers(tmp_path, monkeypatch):
+    """The library's name hashes the headers too, so an edit to
+    tiles.cuh alone builds a new library instead of loading a stale one;
+    only the .cu files are compiled."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.sources() + _build.headers():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.suffix for p in _build.sources()] == [".cu"] * 5
+    before = _build.library_path()
+    header = csrc / "tiles.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _build.library_path()
+    assert after != before and after.parent == before.parent
+    header.write_text(header.read_text()[:-len("\n// edited\n")])
+    assert _build.library_path() == before
+
+
+def _global_kernels():
+    """Names of the __global__ functions the CUDA sources define."""
+    names = set()
+    for p in sorted((REPO / "sz_tpu_torch" / "csrc").glob("*.cu*")):
+        text = p.read_text()
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+            r"(\w+)\s*\(", text))
+    return names
+
+
+def test_profiler_names_cover_every_kernel():
+    """Every __global__ kernel of csrc/ matches an entry of chip_smoke.py's
+    DEVICE_NAMES (read from its text: the script is not imported), so a
+    renamed kernel's device time cannot fall into "torch" unseen."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    table = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and [t.id for t in node.targets] == ["DEVICE_NAMES"])
+    parts = [part.split("<")[0] for part, _ in table]
+    kernels = _global_kernels()
+    assert len(kernels) >= 11
+    missing = sorted(k for k in kernels if not any(p in k for p in parts))
+    assert not missing, missing
+    # and no entry names a kernel that no longer exists
+    stale = sorted(p for p in parts if p not in ("Memcpy", "Memset")
+                   and not any(p in k for k in kernels))
+    assert not stale, stale

@@ -26,7 +26,7 @@ from sz_tpu.tpu import pallas_kernels as jpl
 from sz_tpu.tpu import wf_quantize as jwf
 from sz_tpu.tpu.engine import _strict_jit
 
-from sz_tpu_torch.gpu import hist_kernel, lorenzo_kernel, pack_kernel
+from sz_tpu_torch.gpu import hist_kernel, lorenzo_kernel, pack_kernel, tiles
 
 RADIUS = 32
 RP, RECIP = np.float32(1e-3), np.float32(np.float32(1) / np.float32(1e-3))
@@ -230,14 +230,19 @@ def test_k4_plain_matches_huffman_encode_long_codes():
 
 def test_tiles_match_the_cuda_source():
     """TILE3 / TILE2, from which the wrapper makes the claim order, are
-    the tile shapes lorenzo.cu compiles (TileShape<3> / TileShape<2>)."""
-    src = (pathlib.Path(lorenzo_kernel.__file__).resolve().parent.parent
-           / "csrc" / "lorenzo.cu").read_text()
+    the tile shapes lorenzo.cu compiles (LorenzoTile<3> / <2>), which it
+    hands to tiles.cuh's TileShape with a one-deep k-halo."""
+    csrc = pathlib.Path(lorenzo_kernel.__file__).resolve().parent.parent / \
+        "csrc"
+    src = (csrc / "lorenzo.cu").read_text()
     dims = re.findall(
         r"static constexpr int (b[ijk]) = kRank == 3 \? (\d+) : (\d+);", src)
     assert [d[0] for d in dims] == ["bi", "bj", "bk"]
     assert tuple(int(d[1]) for d in dims) == lorenzo_kernel.TILE3
     assert tuple(int(d[2]) for d in dims) == lorenzo_kernel.TILE2
+    for rank in (3, 2):
+        assert f"Geo<TileShape<LorenzoTile<{rank}>, 1>>" in src
+    assert "struct TileShape {" in (csrc / "tiles.cuh").read_text()
 
 
 def _shape3(shape):
@@ -255,7 +260,7 @@ def test_tile_order_covers_and_respects_dependencies(shape):
     shape3 = _shape3(shape)
     tile = lorenzo_kernel.tile_of(shape3)
     assert tile[0] * tile[1] % 32 == 0
-    grid, order, starts = lorenzo_kernel.tile_order(shape3, tile)
+    grid, order, starts = tiles.tile_order(shape3, tile)
     ntiles = int(np.prod(grid))
     np.testing.assert_array_equal(np.sort(order), np.arange(ntiles))
     # the ragged tiles' extents add up to the lattice, and every point's
@@ -310,7 +315,7 @@ def _walk_tiles(shape3, point):
     a tile the step s = li + lj + lk, lanes (li, lj) in order; every
     in-lattice neighbour must be done before its point."""
     tile = lorenzo_kernel.tile_of(shape3)
-    grid, order, _ = lorenzo_kernel.tile_order(shape3, tile)
+    grid, order, _ = tiles.tile_order(shape3, tile)
     done = np.zeros(shape3, bool)
     offs = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)][1:]
     for flat in order:
