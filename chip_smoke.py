@@ -15,10 +15,11 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      called twice, and timed at the main path's shapes (256^3,
      100x500x500, 1800x3600, 512^3; at 512^3 the plain versions run on
      the first planes only); K3/K4 at their test shapes; K5-K7 (the
-     Huffman decode) on skewed streams, trees past 8192 nodes (table in
-     shared memory and in L2), a stream past 2^31 bits, a code of 1100
-     bits, and a stream of the 512^3 stream's size whose chunks never
-     self-synchronize, each with its K6 steps and decode time; K8/K9
+     Huffman decode) on skewed streams, trees of 20,000 and 80,000 nodes
+     (transition tables of 80 and 320 KB), a stream past 2^31 bits,
+     codes of 1100 and 40 bits, and a stream of the 512^3 stream's size
+     whose chunks never self-synchronize, each with its K6 steps and
+     decode time; K8/K9
      (the tiled MSST19 PW_REL recurrence, both directions, each called
      twice, the decode also rebuilding the encode's reconstruction) at
      the CPU tests' shapes, on ragged, sub-tile and single-row lattices
@@ -37,9 +38,11 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      decompress MB/s (warm, best of 3) with per-span times and counts,
      the kernel launches of one decompress, the device-to-host copy of
      537 MB, the decompress of bench.py's synth field (the earlier
-     records' input), and K5-K7 timed against their plain versions on
-     the main-path stream; then PW_REL 1e-3 at 512^3 (the point-wise
-     bound asserted) and at 1800x3600, MB/s with spans and launches.
+     records' input); then PW_REL 1e-3 at 512^3 (the point-wise
+     bound asserted) and at 1800x3600, MB/s with spans and launches;
+     then K5-K7 timed against their plain versions on the type streams
+     of 512^3 ABS, 512^3 PW_REL and 1800x3600 PW_REL (node count,
+     longest code and codeword-table bits of each).
 The last two lines are the kernel record and {"ok": true, "device": ...}.
 Without CUDA, or outside a checkout, it fails without a result.  It
 imports neither jax nor any module of sz_tpu.
@@ -441,20 +444,13 @@ def _zipf(rng, n, nstate, a):
     return rng.choice(nstate, size=n, p=p / p.sum()).astype(np.int32)
 
 
-def _on_card(t, enc, total_bits, dev):
-    """(trans, padded coded stream, total bits, longest code) on the card
-    for the tree of tables ``t`` (or an (L, R, C, T) tuple) and the coded
-    bytes ``enc`` (a uint8 tensor on the card)."""
-    import torch
+def _on_card(t, enc, dev):
+    """The coded stream (``fsm_kernel.upload``) on the card for the tree
+    of tables ``t`` (or an (L, R, C, T) tuple) and the coded bytes
+    ``enc`` (a uint8 tensor on the card)."""
     from sz_tpu_torch.gpu import fsm_kernel as fk
     L, R, C, T = (t.L, t.R, t.C, t.T) if hasattr(t, "L") else t
-    depth = fk.code_depth(L, R, T)
-    F = fk.chunk_bits(depth)
-    bits = torch.zeros(fk.nchunks_of(8 * enc.numel(), F) * (F // 8),
-                       dtype=torch.uint8, device=dev)
-    bits[:enc.numel()] = enc
-    trans = torch.from_numpy(fk.build_trans(L, R, C, T)).to(dev)
-    return trans, bits, total_bits, depth
+    return fk.upload((L, R, C, T, len(L)), enc, dev)
 
 
 def _packed_on_card(types, nstate, dev):
@@ -469,7 +465,7 @@ def _packed_on_card(types, nstate, dev):
                        u64_tensor(t.code_hi, dev), u64_tensor(t.code_lo, dev),
                        torch.from_numpy(t.code_len.astype(np.int32)).to(dev),
                        total)
-    return t, _on_card(t, enc, 8 * enc.numel(), dev)
+    return t, _on_card(t, enc, dev)
 
 
 def fsm_vs_plain(name, stream, n_sym, want=None, node_count=None) -> dict:
@@ -478,8 +474,9 @@ def fsm_vs_plain(name, stream, n_sym, want=None, node_count=None) -> dict:
     whole decode timed."""
     import torch
     from sz_tpu_torch.gpu import fsm_kernel as fk
-    trans, bits, total_bits, depth = stream
-    gk, nk = fk.fsm_sweep(bits, trans, total_bits, depth)
+    trans, bits, total_bits, depth = (stream.trans, stream.bits,
+                                      stream.total_bits, stream.depth)
+    gk, nk = fk.fsm_sweep(stream)
     gp, np_ = fk.fsm_sweep_plain(bits, trans, total_bits, depth)
     ok = {"K5": torch.equal(gk, gp) and torch.equal(nk, np_), "K6": True}
     steps, stride = 0, 1
@@ -495,7 +492,7 @@ def fsm_vs_plain(name, stream, n_sym, want=None, node_count=None) -> dict:
     total = int(nk[-1, 0])
     del gk, nk, gp, np_
     n = total if n_sym is None else n_sym
-    sk = fk.fsm_emit(bits, trans, total_bits, depth, entry, off, n)
+    sk = fk.fsm_emit(stream, entry, off, n)
     sp = fk.fsm_emit_plain(bits, trans, total_bits, depth, entry, off, n)
     ok["K7"] = torch.equal(sk, sp)
     ok["count"] = n <= total <= n + 7
@@ -504,11 +501,10 @@ def fsm_vs_plain(name, stream, n_sym, want=None, node_count=None) -> dict:
             sk, want if torch.is_tensor(want) else
             torch.from_numpy(want).to(sk.device))
     del sp
-    decode_ms = cuda_ms(lambda: fk.decode_bits(bits, trans, total_bits,
-                                               depth, n), 3)
+    decode_ms = cuda_ms(lambda: fk.decode_coded(stream, n, bits.device), 3)
     row = dict(case=name, node_count=node_count or trans.numel() // 2,
                longest_code=depth, chunk_bits=fk.chunk_bits(depth),
-               table_in_smem=4 * trans.numel() <= 232448,
+               lut_bits=stream.lut.numel().bit_length() - 1,
                total_bits=total_bits, chunks=int(entry.numel()),
                symbols=n, k6_steps=steps, decode_ms=decode_ms, **ok)
     _log("kernel K5-K7 vs plain", **row)
@@ -578,15 +574,15 @@ def phase_fsm_cases(dev) -> list:
     want = _fixed3_symbols(enc, (t.code_hi[:8] >> np.uint64(61)).astype(
         np.int64))
     rows.append(fsm_vs_plain("never_syncs_512^3_size",
-                             _on_card(t, enc, 8 * enc.numel(), dev), None,
-                             want, t.node_count))
+                             _on_card(t, enc, dev), None, want,
+                             t.node_count))
     del enc, want
     # past 2^31 bits: random bytes through a skewed tree (a complete
     # prefix code decodes any bit string)
     t = huffman.build_tables(_zipf(rng, 40000, 600, 1.5), 600)
     enc = _random_bytes((1 << 28) + (1 << 20), 7, dev)
     rows.append(fsm_vs_plain("above_2^31_bits",
-                             _on_card(t, enc, 8 * enc.numel(), dev), None,
+                             _on_card(t, enc, dev), None,
                              node_count=t.node_count))
     del enc
     # a code of 1100 bits: past the boundary bitmaps (F + D >= 1120) and
@@ -594,8 +590,14 @@ def phase_fsm_cases(dev) -> list:
     enc = _random_bytes(1 << 20, 9, dev)
     enc[5000:5000 + 140] = 255
     rows.append(fsm_vs_plain("code_of_1100_bits",
-                             _on_card(_caterpillar(1100), enc,
-                                      8 * enc.numel(), dev), None))
+                             _on_card(_caterpillar(1100), enc, dev),
+                             None))
+    # a code of 40 bits: K5's 64-slot ring (codes of 32 to 63 bits)
+    enc = _random_bytes(1 << 22, 11, dev)
+    enc[5000:5000 + 6] = 255
+    rows.append(fsm_vs_plain("code_of_40_bits",
+                             _on_card(_caterpillar(40), enc, dev),
+                             None))
     del enc
     torch.cuda.empty_cache()
     return rows
@@ -946,15 +948,16 @@ def phase_full_size(dev, record: dict, wrappers: dict,
     return blob
 
 
-def phase_full_size_pwrel(dev, record: dict, wrappers: dict) -> None:
+def phase_full_size_pwrel(dev, record: dict, wrappers: dict) -> dict:
     """PW_REL 1e-3 at 512^3 (|field|: NYX-like, positive with exact
     zeros; nothing cut) and at 1800x3600 (the CESM-ATM shape, K9): the
-    point-wise bound, MB/s warm best of 3, spans and launch counts."""
+    point-wise bound, MB/s warm best of 3, spans and launch counts.
+    Returns {name: (stream, shape)}."""
     import sz_tpu_torch
     from sz_tpu_torch import ErrorBoundMode, SZConfig
 
     cfg = SZConfig().with_bound(ErrorBoundMode.PW_REL, PW_REL)
-    rows = {}
+    rows, blobs = {}, {}
     for name, x in (("pwrel_512", np.abs(field((512, 512, 512), 42))),
                     ("pwrel_cesm_atm_1800x3600",
                      pwrel_field("abs", (1800, 3600), 6))):
@@ -986,32 +989,56 @@ def phase_full_size_pwrel(dev, record: dict, wrappers: dict) -> None:
                    decompress_counts=counts_d, launches=launches)
         _log(f"full size {name}", **row)
         rows[name] = row
+        blobs[name] = (blob, x.shape)
     record["full_pwrel"] = rows
+    return blobs
 
 
-def phase_fsm_timing(dev, blob: bytes, shape=(512, 512, 512)) -> dict:
-    """K5-K7 on the 512^3 main-path stream, each against its plain
-    version (K6: one step, stride 1; a decode makes ceil(log2 L))."""
-    import torch
+def type_stream(blob: bytes, shape, dev):
+    """(uploaded type stream, its tree's node count) of a compressed
+    float32 field: the regression codec's (ABS) or MSST19's (PW_REL)."""
     from sz_tpu_torch.config import DataType
     from sz_tpu_torch.core import regnd
+    from sz_tpu_torch.format import bytes_util as bu
+    from sz_tpu_torch.format import huffman
     from sz_tpu_torch.format import lossless as ll
     from sz_tpu_torch.format import metadata as md
+    from sz_tpu_torch.format import tdps as tdps_mod
     from sz_tpu_torch.gpu import fsm_kernel as fk
 
     n = int(np.prod(shape))
     inner = ll.decompress(blob, n * 4 + 64)
     hdr = md.parse_header(inner, DataType.FLOAT)
-    p = regnd.parse_body(
-        inner[hdr.body_offset + hdr.size_type:], shape, np.float32,
-        hdr.size_type,
-        lambda tree, enc, cnt: fk.decode(tree, enc, cnt, dev)[0].cpu().numpy())
-    c = fk.upload(p.tree, p.encoded, dev)
-    bits, trans, tb, depth = c.bits, c.trans, c.total_bits, c.depth
-    g, m = fk.fsm_sweep(bits, trans, tb, depth)
+    body = memoryview(inner)[hdr.body_offset + hdr.size_type:]
+    if hdr.pw_rel:
+        ta = tdps_mod.from_bytes(body, DataType.FLOAT, is_pwr=True,
+                                 msst19=True,
+                                 size_type=hdr.size_type).type_array
+        nc = bu.read_u32_be(ta, 0)
+        tsize = huffman.tree_bytes_size(nc)
+        tree = (*huffman.deserialize_tree(ta[8:8 + tsize], nc), nc)
+        enc = ta[8 + tsize:]
+    else:
+        p = regnd.parse_body(
+            bytes(body), shape, np.float32, hdr.size_type,
+            lambda tree, enc, cnt: fk.decode(tree, enc, cnt,
+                                             dev)[0].cpu().numpy())
+        tree, enc = p.tree, p.encoded
+    return fk.upload(tree, enc, dev), int(tree[4])
+
+
+def fsm_timing(name: str, coded, n: int, nodes: int) -> dict:
+    """K5-K7 on one full-size type stream, each against its plain
+    version (K6: one step, stride 1; a decode makes ceil(log2 L)), and
+    the decode timed.  Returns the kernel entries."""
+    from sz_tpu_torch.gpu import fsm_kernel as fk
+
+    bits, trans, lut = coded.bits, coded.trans, coded.lut
+    tb, depth = coded.total_bits, coded.depth
+    g, m = fk.fsm_sweep(coded)
     g1, m1 = fk.fsm_sync(g, m, 1)
     entry, off, _, steps = fk.compose(g, m)
-    syms = fk.fsm_emit(bits, trans, tb, depth, entry, off, n)
+    syms = fk.fsm_emit(coded, entry, off, n)
     errs = {
         "fsm_sweep": max(max_abs_err(a, b) for a, b in zip(
             (g, m), fk.fsm_sweep_plain(bits, trans, tb, depth))),
@@ -1022,38 +1049,52 @@ def phase_fsm_timing(dev, blob: bytes, shape=(512, 512, 512)) -> dict:
     }
     if any(errs.values()):
         raise AssertionError(f"K5-K7 differ from their plain versions on "
-                             f"the 512^3 stream: {errs}")
+                             f"the {name} stream: {errs}")
     runs = {
-        "fsm_sweep": (lambda: fk.fsm_sweep(bits, trans, tb, depth),
+        "fsm_sweep": (lambda: fk.fsm_sweep(coded),
                       lambda: fk.fsm_sweep_plain(bits, trans, tb, depth),
-                      # reads the stream and the table, writes the maps;
+                      # reads the stream and the tables, writes the maps;
                       # walks every coded bit at least once
-                      bound(nbytes(bits, trans, g, m), tb)),
+                      bound(nbytes(bits, trans, lut, g, m), tb)),
         "fsm_sync": (lambda: fk.fsm_sync(g, m, 1),
                      lambda: fk.fsm_sync_plain(g, m, 1),
                      # reads the maps once, writes them once
                      bound(nbytes(g, m, g1, m1))),
-        "fsm_emit": (lambda: fk.fsm_emit(bits, trans, tb, depth, entry, off,
-                                         n),
+        "fsm_emit": (lambda: fk.fsm_emit(coded, entry, off, n),
                      lambda: fk.fsm_emit_plain(bits, trans, tb, depth, entry,
                                                off, n),
-                     bound(nbytes(bits, trans, entry, off, syms), tb)),
+                     bound(nbytes(bits, trans, lut, entry, off, syms), tb)),
     }
     entries = {}
-    for name, (kern, plain, (b_ms, b_by)) in runs.items():
+    for kname, (kern, plain, (b_ms, b_by)) in runs.items():
         ms = cuda_ms(kern, 5)
         plain_ms = cuda_ms(plain, 1)
-        entries[name] = dict(max_abs_err=errs[name], ms=ms,
-                             plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             shape=list(g.shape) + [tb])
-    decode_ms = cuda_ms(lambda: fk.decode_bits(bits, trans, tb, depth, n), 3)
-    _log("kernel K5-K7 at 512^3", node_count=int(p.tree[4]), total_bits=tb,
-         chunks=int(g.shape[0]), longest_code=depth, k6_steps=steps,
+        entries[kname] = dict(max_abs_err=errs[kname], ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None,
+                              shape=list(g.shape) + [tb])
+    decode_ms = cuda_ms(lambda: fk.decode_coded(coded, n, bits.device), 3)
+    _log(f"kernel K5-K7 on the {name} stream", node_count=nodes,
+         total_bits=tb, chunks=int(g.shape[0]), longest_code=depth,
+         lut_bits=lut.numel().bit_length() - 1, k6_steps=steps,
          decode_ms=decode_ms,
          **{k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms")}
             for k, v in entries.items()})
     return entries
+
+
+def phase_fsm_timing(dev, streams: dict) -> dict:
+    """K5-K7 timed on each {name: (stream, shape)}; returns the first
+    stream's kernel entries (the main path's 512^3 ABS stream)."""
+    import torch
+    first = None
+    for name, (blob, shape) in streams.items():
+        coded, nodes = type_stream(blob, shape, dev)
+        entries = fsm_timing(name, coded, int(np.prod(shape)), nodes)
+        first = first or entries
+        del coded
+        torch.cuda.empty_cache()
+    return first
 
 
 # device kernel name (a part of it) -> the wrapper that launches it
@@ -1063,7 +1104,8 @@ DEVICE_NAMES = (
     ("histogram_kernel", "histogram"),
     ("pack_scan_tiles", "pack_bits"), ("scan_tile_sums", "pack_bits"),
     ("pack_place", "pack_bits"), ("byteswap_words", "pack_bits"),
-    ("fsm_sweep_kernel", "fsm_sweep"), ("fsm_sync_kernel", "fsm_sync"),
+    ("fsm_sweep_kernel", "fsm_sweep"), ("fsm_sweep_wide_kernel", "fsm_sweep"),
+    ("fsm_sync_kernel", "fsm_sync"),
     ("fsm_emit_kernel", "fsm_emit"),
     ("wavefront3d_encode_kernel", "msst19_wavefront3d_encode"),
     ("wavefront3d_decode_kernel", "msst19_wavefront3d_decode"),
@@ -1218,11 +1260,13 @@ def main() -> int:
     if idle:
         raise AssertionError(f"main path never launched {idle}")
 
-    # phase 4: full size, then K5-K7 timed on its stream, then PW_REL
-    blob = phase_full_size(dev, record, wrappers)
-    entries.update(phase_fsm_timing(dev, blob))
-    del blob
-    phase_full_size_pwrel(dev, record, wrappers)
+    # phase 4: full size, then PW_REL, then K5-K7 timed on their streams
+    streams = {"512^3 ABS": (phase_full_size(dev, record, wrappers),
+                             (512, 512, 512))}
+    for name, v in phase_full_size_pwrel(dev, record, wrappers).items():
+        streams[name] = v
+    entries.update(phase_fsm_timing(dev, streams))
+    del streams
 
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.") or m == "sz_tpu"

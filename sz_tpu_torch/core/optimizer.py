@@ -115,6 +115,14 @@ def _sample_walk_indices_2d(r1: int, r2: int,
     return np.array(idx, dtype=np.int64)
 
 
+def sample_count(shape, sample_distance: int) -> int:
+    """The points the second sampling walk visits on a rank-2/3 field:
+    ``_finish`` divides by it, and the C divides by it in double."""
+    walk = (_sample_walk_indices_3d if len(shape) == 3
+            else _sample_walk_indices_2d)
+    return len(walk(*(int(r) for r in shape), sample_distance))
+
+
 def _finish(cur, pred, mean, rp, sample_count, max_range_radius,
             pred_threshold, T):
     """Common histogram + selection logic shared by 2D/3D."""

@@ -2,13 +2,22 @@
 // stream on Hopper (sm_90a).
 //
 // Replaces sz_tpu/tpu/fsm_kernel.py's three Pallas kernels (kernel A
-// _fsm_call, kernel B _fsm_call_b, kernel C _compact_call).  The coded
-// stream is cut into chunks of F bits (F = 1024, one 128-byte line, or
-// the next multiple of 1024 at or above the longest code D), one thread
-// per chunk.  A thread walks the Huffman tree bit by bit through the
-// transition table trans[2*s + b] (bit 31 set: a leaf, symbol in the low
-// 31 bits, the walk returns to the root; else the child node).  Bits at
-// or past total_bits emit nothing.
+// _fsm_call, :137; kernel B _fsm_call_b, :172; kernel C _compact_call,
+// :298).  The coded stream is cut into chunks of F bits (F = 1024, one
+// 128-byte line, or the next multiple of 1024 at or above the longest
+// code D), one thread per chunk.  Bits at or past total_bits emit
+// nothing.
+//
+// Walks step a codeword at a time (codeword() below): the next k bits
+// from the root index the codeword table lut (fsm_kernel.build_lut; k =
+// min(12, D), in shared memory): bit 31 set, a code of len = bits 26..30
+// and its symbol in bits 0..25; else the internal node (bits 0..25) reached after
+// len bits, from which the walk goes on bit by bit through the transition
+// table trans[2*s + b] (bit 31 set: a leaf, symbol in the low 31 bits;
+// else the child node), read through L1/L2 with __ldg, so that shared
+// memory, and with it occupancy, does not follow the tree's size.  Bits
+// come from a 64-bit window of two big-endian words, cut with a funnel
+// shift.
 //
 // A walk that starts at a codeword boundary (at the root) ends its chunk
 // at the first boundary at or past F; that boundary lies in [F, F + D),
@@ -17,10 +26,8 @@
 //   K5: for each offset j < D, walk from the root at j to the end of the
 //       chunk: g[c][j] = the next chunk's first boundary offset, n[c][j]
 //       = the symbols emitted.  Walks from different offsets meet at a
-//       common boundary and coincide from there (self-synchronization),
-//       so a later walk joins an earlier one where they meet (below).
-//       A code that never self-synchronizes (a fixed-length code) keeps
-//       D distinct walks: D * F steps a chunk, no more.
+//       common boundary and coincide from there (self-synchronization):
+//       each distinct boundary of the chunk is decoded once (below).
 //   K6: one doubling step of the prefix composition of the chunk maps:
 //       g'[c] = g[c] o g[c - step], n'[c] = n[c - step] + n[c] o g[c -
 //       step].  ceil(log2 L) launches make g[c][0] the first boundary of
@@ -31,62 +38,85 @@
 //       symbol as int32 at the chunk's int64 offset; symbols at or past
 //       n_sym (the byte padding's junk) are dropped.
 //
-// Bound on this card: the latency of the dependent table lookups, one
-// per coded bit walked (each step needs the previous step's state), not
-// bytes: the stream is read once per pass and the symbols written once.
-// The design answers with parallelism: one independent walk per 1024
-// bits keeps ~10^5 walks in flight at 512^3, and the table sits in
-// dynamic shared memory when its 4 * ntrans bytes fit in 227 KB (else
-// it is read through L2 with __ldg; no node cap).  Bit offsets are int64
-// (streams pass 2^31 bits).
+// Bound on this card: the latency of the dependent chain of a walk (a
+// table lookup in shared memory a codeword, the window's word loads, and
+// for codes past k bits one load of trans a bit through L1/L2) and the
+// instructions a step, not bytes: the stream is read about once and the
+// maps and symbols written once.  The design answers with fewer links
+// (a codeword a lookup, not a bit; K5 decodes each distinct boundary of
+// a chunk once, however many walks reach it), loads issued a word ahead,
+// and parallelism (one chunk a thread, ~10^6 at 512^3, the block size
+// chosen for the most threads an SM).  K5 stages its maps and K7 its
+// symbols in shared memory and stores them in whole lines.  Bit offsets
+// are int64 (streams pass 2^31 bits).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kSweepThreads = 256;  // K5: 4 blocks of <= 64 registers an SM
-constexpr int kMaxSmem = 232448;
-constexpr int kSlots = 8;           // K5: walks a thread advances together
+constexpr int kWideThreads = 256;   // K5 for D > 63
+constexpr int kEmitThreads = 256;
+constexpr int kWindowDepth = 63;  // K5's windowed sweep: D <= 63
+constexpr int kStage = 32;        // K7: symbols a lane stages a round
+constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory
+constexpr int kSmemPerSm = 233472;
+constexpr int kPayload = (1 << 26) - 1;
 
-__device__ __forceinline__ uint32_t be_word(const uint32_t* __restrict__ w,
-                                            long long i) {
-  return __byte_perm(__ldg(w + i), 0, 0x0123);
-}
-
-// Loads the table into shared memory (kSmem) and returns the table to
-// read.  Every thread of the block calls it before any returns.
-template <bool kSmem>
-__device__ __forceinline__ const int* table(const int* __restrict__ g,
-                                            int ntrans, int* sh) {
-  if constexpr (kSmem) {
-    for (int i = threadIdx.x; i < ntrans; i += blockDim.x) sh[i] = g[i];
-    __syncthreads();
-    return sh;
-  } else {
-    return g;
-  }
-}
-
-// The bits of one chunk, from its first word w0, read word by word.
-struct Bits {
+// The bits of one chunk from its first word: at(q) is the 32 bits from
+// chunk bit q on, the first in bit 31.  Words at or past the stream's
+// padded end read as 0.  Three words are kept: the two the cut reads and
+// the next, loaded when the walk enters a word and first read when it
+// leaves it, so that a walk moving forward waits on no load after its
+// first.
+struct Window {
   const uint32_t* __restrict__ words;
-  long long w0;
-  int wi = -1;
-  uint32_t word = 0;
-  __device__ __forceinline__ int at(int q) {
-    if ((q >> 5) != wi) {
-      wi = q >> 5;
-      word = be_word(words, w0 + wi);
+  long long left;  // words from the chunk's first to the stream's end
+  int wi = -2;
+  uint32_t a = 0, b = 0, n = 0;  // words wi, wi + 1, wi + 2
+  __device__ __forceinline__ uint32_t word(int i) const {
+    return i < left ? __byte_perm(__ldg(words + i), 0, 0x0123) : 0u;
+  }
+  __device__ __forceinline__ uint32_t at(int q) {
+    int i = q >> 5;
+    if (i != wi) {
+      if (i == wi + 1) {
+        a = b;
+        b = n;
+      } else {
+        a = word(i);
+        b = word(i + 1);
+      }
+      n = word(i + 2);
+      wi = i;
     }
-    return (word >> (31 - (q & 31))) & 1u;
+    return __funnelshift_l(b, a, q & 31);
   }
 };
 
-template <bool kSmem>
-__device__ __forceinline__ int step(const int* t, int s, int bit) {
-  return kSmem ? t[2 * s + bit] : __ldg(t + 2 * s + bit);
+// One codeword from the root at chunk bit q < lim: the bit after it, or
+// -1 when it does not end at or before lim (the walk stops at lim);
+// *sym = its symbol.
+__device__ __forceinline__ int codeword(Window& in, const int* lut, int k,
+                                        const int* __restrict__ trans,
+                                        int q, int lim, int* sym) {
+  int e = lut[in.at(q) >> (32 - k)];
+  int len = (e >> 26) & 31;
+  if (e < 0) {
+    *sym = e & kPayload;
+    return q + len <= lim ? q + len : -1;
+  }
+  int s = e & kPayload;
+  for (q += len; q < lim; ) {
+    int v = __ldg(trans + 2 * s + (in.at(q) >> 31));
+    ++q;
+    if (v < 0) {
+      *sym = v & 0x7fffffff;
+      return q;
+    }
+    s = v;
+  }
+  return -1;
 }
 
 // Where a chunk's walks stop: the stream's end, or F + D (never reached
@@ -97,150 +127,213 @@ __device__ __forceinline__ int walk_limit(long long c, int F, int D,
   return left <= 0 ? 0 : (left < F + D ? (int)left : F + D);
 }
 
-// K5 advances a chunk's walks together, position by position, in
-// kSlots register slots: walk j starts at position j (it joins a walk
-// that is at the root there, or takes a free slot), and walks at the
-// root at the same position are one walk from there on, so the
-// later-started ones join the earliest.  (Walks in one state at one
-// position were at the root together where that codeword began, so
-// checking the root finds every meeting.)  A joined walk's outputs are
-// stored as its target (g = -1 - target) and its count less the
-// target's at the join; a last pass in walk order (targets start first)
-// resolves them.  Slot 0 holds the pass's first walk, which never joins
-// another, so once the others have joined a thread advances slot 0
-// alone, and all threads of a warp read the same position: F + D steps
-// a chunk plus the joining walks' steps.  A walk that finds every slot
-// busy waits for another pass over the chunk (a code with more than
-// kSlots phases that never meet, e.g. a fixed-length code of 9 or more
-// bits, takes ceil(phases / kSlots) passes).
-template <bool kSmem>
-__global__ void __launch_bounds__(kSweepThreads, 4)
-    fsm_sweep_kernel(const uint32_t* __restrict__ words,
-                     const int* __restrict__ trans, int ntrans,
+// Copies the codeword table into shared memory; every thread of the
+// block calls it before any leaves.
+__device__ __forceinline__ void load_lut(const int* __restrict__ lut, int k,
+                                         int* sh) {
+  for (int i = threadIdx.x; i < 1 << k; i += blockDim.x) sh[i] = __ldg(lut + i);
+  __syncthreads();
+}
+
+// K5's ring of kW slots: a slot holds id | count << kId, and a mask bit
+// a position; for D < 32 (F = 1024) 16 bits and 32 bits hold them.
+template <int kW> struct Ring {
+  using Slot = int;
+  using Mask = uint64_t;
+  static constexpr int kId = 6;
+};
+template <> struct Ring<32> {
+  using Slot = uint16_t;
+  using Mask = uint32_t;
+  static constexpr int kId = 5;
+};
+__device__ __forceinline__ int lowest(uint32_t m) { return __ffs((int)m) - 1; }
+__device__ __forceinline__ int lowest(uint64_t m) {
+  return __ffsll((long long)m) - 1;
+}
+
+// K5, D <= 63 (every tree of the main path).  A chunk's walks advance in
+// bit order: the walk at the lowest position steps one codeword, and a
+// walk that lands where another one stands merges with it, the later
+// started into the earlier.  Each distinct boundary reachable from the D
+// offsets is thus decoded once.  The walks stand within D + 1 bits of
+// the lowest (the one that stepped was lowest and a codeword is at most
+// D bits), so a mask `live` of kW bits holds their positions relative
+// to `cur`, and a ring of kW slots in shared memory, indexed by
+// position, holds each one's first offset (its id) and count (Ring).
+// The offsets j < D start as walks at position j.  A merged walk's
+// result is kept as (the walk it joined, its count less that walk's
+// there); a last pass in offset order (targets start first) resolves
+// them.  Results (n << 7 | g, or rel << 7 | 64 | target while
+// unresolved) sit in shared memory, [j][thread], and the block stores
+// its maps as whole lines.  The block size is the one of 128, 256 and
+// 512 threads that keeps the most threads on an SM within its shared
+// memory.  A code that never self-synchronizes keeps its D phases apart:
+// D full walks, no more.
+template <int kW>
+__global__ void __launch_bounds__(512)
+    fsm_sweep_kernel(const uint32_t* __restrict__ words, long long nwords,
+                     const int* __restrict__ trans,
+                     const int* __restrict__ lut_g, int k,
                      long long total_bits, long long nchunks, int F, int D,
                      int* __restrict__ g_out, long long* __restrict__ n_out) {
+  using Slot = typename Ring<kW>::Slot;
+  using Mask = typename Ring<kW>::Mask;
+  constexpr int kId = Ring<kW>::kId;
+  constexpr Mask kOne = 1;
   extern __shared__ int sh[];
-  const int* t = table<kSmem>(trans, ntrans, sh);
-  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nchunks) return;
-  int lim = walk_limit(c, F, D, total_bits);
-  int qend = F < lim ? F : lim;          // no walk ends before this
-  Bits in{words, c * (F >> 5)};
-  int* go = g_out + c * D;
-  long long* no = n_out + c * D;
-  for (int base = 0; base < D; base += 64) {
-    int nb = D - base < 64 ? D - base : 64;
-    uint64_t pending = nb == 64 ? ~0ull : (1ull << nb) - 1;
-    for (int j = base; j < base + nb; ++j) {
-      if (j >= lim) {                    // starts at the stream's end
-        go[j] = 0;
-        no[j] = 0;
-        pending &= ~(1ull << (j - base));
+  load_lut(lut_g, k, sh);
+  const int T = blockDim.x, t = threadIdx.x;
+  Slot* slots = (Slot*)(sh + (1 << k));
+  int* rs = (int*)(slots + kW * T);   // rs[j * T + thread]
+  Slot* slot = slots + t;
+  int* res = rs + t;
+  long long c0 = (long long)blockIdx.x * T;
+  long long c = c0 + t;
+  if (c < nchunks) {
+    int lim = walk_limit(c, F, D, total_bits);
+    int qend = F < lim ? F : lim;  // no walk ends before this
+    Window in{words + c * (F >> 5), nwords - c * (F >> 5)};
+    Mask live = 0;
+    for (int j = 0; j < D; ++j) {
+      if (j < lim) {
+        slot[j * T] = (Slot)j;
+        live |= kOne << j;
+      } else {
+        res[j * T] = 0;              // starts at the stream's end
       }
     }
-    while (pending) {
-      int gs[kSlots], gid[kSlots], gn[kSlots];
-      bool live[kSlots];
-#pragma unroll
-      for (int m = 0; m < kSlots; ++m) live[m] = false;
-      int nlive = 0;
-      uint64_t todo = pending;
-      int q = base + __ffsll((long long)todo) - 1;
-      while (true) {
-        int jr = q - base;
-        if (jr < 64 && ((todo >> jr) & 1)) {   // walk q starts
-          int join = -1, free = -1;
-#pragma unroll
-          for (int m = kSlots - 1; m >= 0; --m) {
-            if (live[m] && gs[m] == 0) join = m;
-            if (!live[m]) free = m;
+    int cur = 0, sym;
+    while (live && cur < qend) {     // bit 0 of live: the walk at cur
+      int sv = slot[(cur & (kW - 1)) * T];
+      int id = sv & (kW - 1), cnt = sv >> kId;
+      int q = codeword(in, sh, k, trans, cur, lim, &sym);
+      live &= ~kOne;
+      if (q < 0) {                   // its code passes the stream's end
+        res[id * T] = (lim > F ? lim - F : 0) | cnt << 7;
+      } else {
+        ++cnt;
+        int d = q - cur;
+        Slot* qs = slot + (q & (kW - 1)) * T;
+        if ((live >> d) & 1) {       // a walk stands there: merge
+          int ov = *qs, oid = ov & (kW - 1), ocnt = ov >> kId;
+          if (oid < id) {
+            res[id * T] = (int)((unsigned)(cnt - ocnt) << 7) | 64 | oid;
+          } else {
+            res[oid * T] = (int)((unsigned)(ocnt - cnt) << 7) | 64 | id;
+            *qs = (Slot)(id | cnt << kId);
           }
-          todo &= ~(1ull << jr);
-          if (join >= 0 || free >= 0) pending &= ~(1ull << jr);
-#pragma unroll
-          for (int m = 0; m < kSlots; ++m) {
-            if (m == join) {
-              go[q] = -1 - gid[m];
-              no[q] = -gn[m];
-            } else if (join < 0 && m == free) {
-              live[m] = true;
-              gs[m] = gn[m] = 0;
-              gid[m] = q;
-              ++nlive;
-            }
-          }
+        } else {
+          live |= kOne << d;
+          *qs = (Slot)(id | cnt << kId);
         }
-        if (q >= qend) {                 // walks that end here
-#pragma unroll
-          for (int m = 0; m < kSlots; ++m) {
-            if (live[m] && ((gs[m] == 0 && q >= F) || q >= lim)) {
-              go[gid[m]] = q >= F ? q - F : 0;
-              no[gid[m]] = gn[m];
-              live[m] = false;
-              --nlive;
-            }
-          }
-        }
-        if (nlive == 0) {
-          if (!todo) break;
-          q = base + __ffsll((long long)todo) - 1;
-          continue;
-        }
-        int bit = in.at(q);
-        ++q;
-        if (nlive == 1 && live[0]) {     // the usual case: slot 0 alone
-          int v = step<kSmem>(t, gs[0], bit);
-          gn[0] += v < 0;
-          gs[0] = v < 0 ? 0 : v;
-          continue;
-        }
-#pragma unroll
-        for (int m = 0; m < kSlots; ++m) {
-          if (live[m]) {
-            int v = step<kSmem>(t, gs[m], bit);
-            gn[m] += v < 0;
-            gs[m] = v < 0 ? 0 : v;
-          }
-        }
-        // walks at the root together: the later-started join the earliest
-        int r = -1, rgid = 0, rgn = 0;
-#pragma unroll
-        for (int m = 0; m < kSlots; ++m) {
-          if (live[m] && gs[m] == 0) {
-            if (r < 0) {
-              r = m;
-              rgid = gid[m];
-              rgn = gn[m];
-            } else {
-              if (gid[m] < rgid) {
-                go[rgid] = -1 - gid[m];
-                no[rgid] = (long long)rgn - gn[m];
-                rgid = gid[m];
-                rgn = gn[m];
-              } else {
-                go[gid[m]] = -1 - rgid;
-                no[gid[m]] = (long long)gn[m] - rgn;
-              }
-              live[m] = false;
-              --nlive;
-            }
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < kSlots; ++m) {
-          if (m == r) {
-            gid[m] = rgid;
-            gn[m] = rgn;
-          }
-        }
+      }
+      if (live) {
+        int s = lowest(live);
+        live >>= s;
+        cur += s;
+      }
+    }
+    for (; live; live &= live - 1) {   // walks that end where they stand
+      int p = cur + lowest(live);
+      int sv = slot[(p & (kW - 1)) * T];
+      res[(sv & (kW - 1)) * T] = (p > F ? p - F : 0) | (sv >> kId) << 7;
+    }
+    for (int j = 0; j < D; ++j) {      // targets start before joiners
+      int r = res[j * T];
+      if (r & 64) {
+        int rt = res[(r & 63) * T];
+        res[j * T] = (int)((unsigned)((r >> 7) + (rt >> 7)) << 7) | (rt & 63);
       }
     }
   }
-  for (int j = 0; j < D; ++j) {          // targets start before joiners
-    int gj = go[j];
-    if (gj < 0) {
-      go[j] = go[-1 - gj];
-      no[j] += no[-1 - gj];
+  __syncthreads();
+  // the block's rows [c0, c0 + T) are contiguous in both maps
+  long long rows = nchunks - c0 < T ? nchunks - c0 : T;
+  for (int i = t; i < rows * D; i += T) {
+    int cc = i / D, j = i - cc * D;
+    int r = rs[j * T + cc];
+    g_out[c0 * D + i] = r & 63;
+    n_out[c0 * D + i] = r >> 7;
+  }
+}
+
+// K5, D > 63 (deep trees only).  Walk W0 from offset 0 marks its
+// boundaries in a bitmap (bit p: W0 at the root at p) with prefix counts
+// by word, in global scratch (2 * nw words a chunk).  Each later offset
+// walks until it reaches one of W0's boundaries and takes W0's end and
+// the rest of W0's count from there (a rank in the bitmap); a code that
+// never self-synchronizes walks D full times, no more.
+__global__ void __launch_bounds__(kWideThreads, 4)
+    fsm_sweep_wide_kernel(const uint32_t* __restrict__ words,
+                          long long nwords, const int* __restrict__ trans,
+                          const int* __restrict__ lut_g, int k,
+                          long long total_bits, long long nchunks, int F,
+                          int D, int* __restrict__ g_out,
+                          long long* __restrict__ n_out,
+                          uint32_t* __restrict__ scratch) {
+  extern __shared__ int sh[];
+  load_lut(lut_g, k, sh);
+  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= nchunks) return;
+  int lim = walk_limit(c, F, D, total_bits);
+  int qend = F < lim ? F : lim;
+  int nw = (F + D) / 32 + 1;
+  uint32_t* bm = scratch + c * 2 * nw;
+  uint32_t* pre = bm + nw;
+  int* go = g_out + c * D;
+  long long* no = n_out + c * D;
+  Window in{words + c * (F >> 5), nwords - c * (F >> 5)};
+  int p = 0, n0 = 0, sym;
+  bool cut = false;                    // W0's last code passes lim
+  for (int w = 0; w < nw; ++w) bm[w] = 0;
+  while (p < qend) {
+    int q = codeword(in, sh, k, trans, p, lim, &sym);
+    if (q < 0) {
+      cut = true;
+      break;
+    }
+    ++n0;
+    p = q;
+    bm[p >> 5] |= 1u << (p & 31);
+  }
+  int g0 = cut ? (lim > F ? lim - F : 0) : (p > F ? p - F : 0);
+  uint32_t run = 0;
+  for (int w = 0; w < nw; ++w) {
+    pre[w] = run;
+    run += __popc(bm[w]);
+  }
+  for (int j = 0; j < D; ++j) {
+    if (j >= lim) {
+      go[j] = 0;
+      no[j] = 0;
+      continue;
+    }
+    int own = 0;
+    p = j;
+    while (true) {
+      uint32_t wd = bm[p >> 5];
+      if ((wd >> (p & 31)) & 1 || p == 0) {   // on W0's chain
+        int rank = p == 0 ? 0
+                          : (int)pre[p >> 5] +
+                                __popc(wd & (0xffffffffu >> (31 - (p & 31))));
+        go[j] = g0;
+        no[j] = own + n0 - rank;
+        break;
+      }
+      if (p >= qend) {
+        go[j] = p > F ? p - F : 0;
+        no[j] = own;
+        break;
+      }
+      int q = codeword(in, sh, k, trans, p, lim, &sym);
+      if (q < 0) {
+        go[j] = lim > F ? lim - F : 0;
+        no[j] = own;
+        break;
+      }
+      ++own;
+      p = q;
     }
   }
 }
@@ -263,61 +356,107 @@ __global__ void fsm_sync_kernel(const int* __restrict__ g,
   n_out[i] = n[prev] + n[k];
 }
 
-template <bool kSmem>
-__global__ void fsm_emit_kernel(const uint32_t* __restrict__ words,
-                                const int* __restrict__ trans, int ntrans,
-                                long long total_bits, long long nchunks,
-                                int F, int D, const int* __restrict__ entry,
-                                const long long* __restrict__ offsets,
-                                long long n_sym, int* __restrict__ out) {
+// K7.  Each lane walks its chunk from its true first boundary, a
+// codeword a step, and stages up to kStage symbols a round in its row of
+// the warp's buffer ([lane][kStage + 1]: lanes at one slot hit distinct
+// banks); then the warp stores each lane's row in turn, 32 lanes on
+// consecutive int32s, so a store touches one or two 128-byte lines
+// rather than 32.
+__global__ void __launch_bounds__(kEmitThreads)
+    fsm_emit_kernel(const uint32_t* __restrict__ words, long long nwords,
+                    const int* __restrict__ trans,
+                    const int* __restrict__ lut_g, int k,
+                    long long total_bits, long long nchunks, int F, int D,
+                    const int* __restrict__ entry,
+                    const long long* __restrict__ offsets, long long n_sym,
+                    int* __restrict__ out) {
   extern __shared__ int sh[];
-  const int* t = table<kSmem>(trans, ntrans, sh);
+  load_lut(lut_g, k, sh);
+  const int lane = threadIdx.x & 31;
+  int* buf = sh + (1 << k) + (threadIdx.x >> 5) * 32 * (kStage + 1);
   long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nchunks) return;
-  int lim = walk_limit(c, F, D, total_bits);
-  Bits in{words, c * (F >> 5)};
-  long long o = offsets[c];
-  int s = 0;
-  for (int q = entry[c]; q < lim && (s != 0 || q < F); ++q) {
-    int v = step<kSmem>(t, s, in.at(q));
-    if (v < 0) {
-      if (o < n_sym) out[o] = v & 0x7fffffff;
-      ++o;
-      s = 0;
-    } else {
-      s = v;
+  int q = 0, qend = 0, lim = 0;
+  long long o = 0;
+  if (c < nchunks) {
+    lim = walk_limit(c, F, D, total_bits);
+    qend = F < lim ? F : lim;
+    q = entry[c];
+    o = offsets[c];
+  }
+  Window in{words + (c < nchunks ? c : 0) * (F >> 5),
+            nwords - (c < nchunks ? c : 0) * (F >> 5)};
+  while (__any_sync(0xffffffffu, q < qend)) {
+    int m = 0, sym;
+    while (m < kStage && q < qend) {
+      int q2 = codeword(in, sh, k, trans, q, lim, &sym);
+      if (q2 < 0) {                  // passes the stream's end: no symbol
+        q = qend;
+        break;
+      }
+      buf[lane * (kStage + 1) + m++] = sym;
+      q = q2;
     }
+    __syncwarp();
+    for (unsigned has = __ballot_sync(0xffffffffu, m > 0); has;
+         has &= has - 1) {
+      int l = __ffs(has) - 1;
+      int ml = __shfl_sync(0xffffffffu, m, l);
+      long long ol = __shfl_sync(0xffffffffu, o, l) + lane;
+      if (lane < ml && ol < n_sym) out[ol] = buf[l * (kStage + 1) + lane];
+    }
+    o += m;
+    __syncwarp();
   }
 }
 
-// Launches kernel<true> with the table in shared memory when it fits,
-// else kernel<false>, one thread a chunk.
+// Launches a kernel with `smem` bytes of dynamic shared memory, one
+// thread a chunk.
 template <class K, class... Args>
-int launch(K smem_kernel, K global_kernel, int ntrans, int threads,
-           long long nchunks, void* stream, Args... args) {
-  cudaStream_t st = (cudaStream_t)stream;
-  size_t bytes = (size_t)ntrans * sizeof(int);
+int launch(K kernel, size_t smem, int threads, long long nchunks,
+           void* stream, Args... args) {
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   unsigned blocks = (unsigned)((nchunks + threads - 1) / threads);
-  if (bytes <= (size_t)kMaxSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    smem_kernel<<<blocks, threads, bytes, st>>>(args...);
-  } else {
-    global_kernel<<<blocks, threads, 0, st>>>(args...);
-  }
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int sz_fsm_sweep(const void* bits, const int* trans, int ntrans,
-                            long long total_bits, long long nchunks, int F,
-                            int D, int* g, long long* n, void* stream) {
-  return launch(fsm_sweep_kernel<true>, fsm_sweep_kernel<false>, ntrans,
-                kSweepThreads, nchunks, stream, (const uint32_t*)bits, trans,
-                ntrans, total_bits, nchunks, F, D, g, n);
+extern "C" int sz_fsm_sweep(const void* bits, const int* trans,
+                            const int* lut, int k, long long total_bits,
+                            long long nchunks, int F, int D, int* g,
+                            long long* n, void* scratch, void* stream) {
+  const uint32_t* w = (const uint32_t*)bits;
+  long long nwords = nchunks * (F >> 5);
+  size_t lut_bytes = sizeof(int) << k;
+  if (D > kWindowDepth) {
+    return launch(fsm_sweep_wide_kernel, lut_bytes, kWideThreads, nchunks,
+                  stream, w, nwords, trans, lut, k, total_bits, nchunks, F,
+                  D, g, n, (uint32_t*)scratch);
+  }
+  size_t per_thread = D < 32 ? 2 * 32 + 4 * D : 4 * (64 + D);
+  int threads = 0;
+  long long resident = 0;
+  for (int T = 128; T <= 512; T *= 2) {   // most threads an SM
+    size_t smem = lut_bytes + per_thread * T;
+    long long blocks = (long long)(kSmemPerSm / (smem + 1024));
+    if (2048 / T < blocks) blocks = 2048 / T;
+    if (smem <= (size_t)kMaxSmem && blocks * T > resident) {
+      resident = blocks * T;
+      threads = T;
+    }
+  }
+  if (!threads) return (int)cudaErrorInvalidValue;
+  size_t smem = lut_bytes + per_thread * threads;
+  if (D < 32) {
+    return launch(fsm_sweep_kernel<32>, smem, threads, nchunks, stream, w,
+                  nwords, trans, lut, k, total_bits, nchunks, F, D, g, n);
+  }
+  return launch(fsm_sweep_kernel<64>, smem, threads, nchunks, stream, w,
+                nwords, trans, lut, k, total_bits, nchunks, F, D, g, n);
 }
 
 extern "C" int sz_fsm_sync(const int* g, const long long* n,
@@ -330,12 +469,14 @@ extern "C" int sz_fsm_sync(const int* g, const long long* n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sz_fsm_emit(const void* bits, const int* trans, int ntrans,
-                           long long total_bits, long long nchunks, int F,
-                           int D, const int* entry, const long long* offsets,
-                           long long n_sym, int* out, void* stream) {
-  return launch(fsm_emit_kernel<true>, fsm_emit_kernel<false>, ntrans,
-                kThreads, nchunks, stream, (const uint32_t*)bits, trans,
-                ntrans, total_bits, nchunks, F, D, entry, offsets, n_sym,
-                out);
+extern "C" int sz_fsm_emit(const void* bits, const int* trans,
+                           const int* lut, int k, long long total_bits,
+                           long long nchunks, int F, int D, const int* entry,
+                           const long long* offsets, long long n_sym,
+                           int* out, void* stream) {
+  size_t smem = (sizeof(int) << k) +
+                sizeof(int) * 32 * (kStage + 1) * (kEmitThreads / 32);
+  return launch(fsm_emit_kernel, smem, kEmitThreads, nchunks, stream,
+                (const uint32_t*)bits, nchunks * (F >> 5), trans, lut, k,
+                total_bits, nchunks, F, D, entry, offsets, n_sym, out);
 }

@@ -47,6 +47,10 @@ def compress(data: np.ndarray, real_precision, *, max_range_radius: int,
     g = geo.geom_small(shape, bs)
     dbs = g["dbs"]
 
+    if opt_quant_mode == 1 and opt.sample_count(shape, sample_distance) == 0:
+        raise NotImplementedError(
+            f"the empty optimizer sample walk of a {shape} field (the C "
+            f"divides by its zero count) is not ported yet (ROADMAP 3.1)")
     data = np.ascontiguousarray(data, dtype=T)
     flat = data.reshape(-1)
     with _tr.trace("upload"):

@@ -14,9 +14,9 @@ composition of small maps:
 
 - K5 walks every chunk from the root at each offset j < D: ``g[c, j]``
   is where the walk's last codeword ends inside chunk c + 1 and
-  ``n[c, j]`` the symbols it emitted.  The kernel advances a chunk's
-  walks together; walks from different offsets meet at a common
-  boundary (Huffman codes self-synchronize) and go on as one;
+  ``n[c, j]`` the symbols it emitted.  Walks from different offsets meet
+  at a common boundary (Huffman codes self-synchronize) and go on as
+  one, so the kernel decodes each distinct boundary of a chunk once;
 - K6 is one doubling step of the prefix composition of the maps; after
   ceil(log2 L) steps ``g[c, 0]`` is chunk c + 1's first boundary and
   ``n[c, 0]`` the symbols of chunks 0..c.  The step count depends only
@@ -27,13 +27,20 @@ composition of small maps:
   its symbols as int32 at its int64 offset, dropping those past
   ``n_sym`` (the byte padding's junk).
 
+K5 and K7 step a codeword at a time through ``build_lut``'s table of the
+next k = min(12, D) bits from the root (a code of at most k bits
+resolves in one lookup; a longer one goes on bit by bit through the
+transition table from the node the entry names).  ``upload`` builds the
+table on the host once per stream, beside the transition table, and the
+kernels take both from the ``Coded`` stream it returns.
+
 What the TPU needed and Hopper does not: the TPU form kept 4 bytes of
 records per coded bit, a 2048-bit sync window with a host fallback, a
 merge-tree compaction, an 8192-node table window and a segment pipeline
 past 2^30 bits.  Here there are no records (K7 re-walks instead), no
 window (the composition is exact for every stream), no node cap (the
-table sits in shared memory when it fits in 227 KB, else it is read
-through L2), and bit offsets are int64.
+codeword table sits in shared memory, the transition table is read
+through L1/L2), and bit offsets are int64.
 
 The transition table is ``trans[2*s + b]`` (int32): the child of
 internal node ``s`` on bit ``b``; a leaf child is stored as
@@ -41,8 +48,9 @@ internal node ``s`` on bit ``b``; a leaf child is stored as
 past ``total_bits`` emit nothing.
 
 Beside each kernel sits its plain torch version, vectorized over chunks
-(and offsets) and looping over bit positions.  The wrappers take it only
-for CPU tensors; for CUDA tensors they launch the kernel or raise.
+(and offsets) and looping over bit positions: the bit-by-bit semantics
+the codeword steps are held to.  The wrappers take it only for CPU
+tensors; for CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -57,6 +65,9 @@ from sz_tpu_torch.gpu import _build
 
 F_BITS = 1024                  # bits per chunk = one 128-byte line
 LEAF = 0x80000000
+LUT_BITS = 12                  # bits a codeword-table lookup reads
+LUT_PAYLOAD = 1 << 26          # symbols and nodes an entry can name
+WINDOW_DEPTH = 63              # K5's windowed sweep takes codes this long
 _I32, _I64 = torch.int32, torch.int64
 
 
@@ -99,6 +110,33 @@ def code_depth(L, R, T) -> int:
     return depth
 
 
+def build_lut(trans: np.ndarray, depth: int) -> np.ndarray:
+    """The (2^k,) int32 codeword table of a transition table, k =
+    min(``LUT_BITS``, ``depth``): entry x belongs to the k bits x (first
+    bit highest) read from the root.  A code of at most k bits is
+    ``LEAF | length << 26 | symbol``; else the entry is ``k << 26 |
+    node``, the internal node reached after the k bits, from which a walk
+    goes on bit by bit.  A symbol or node of 2^26 or more gets entry 0
+    (node 0 after 0 bits: the whole code is walked bit by bit)."""
+    k = min(LUT_BITS, depth)
+    t = np.asarray(trans, np.int32).astype(np.int64)
+    x = np.arange(1 << k, dtype=np.int64)
+    s = np.zeros_like(x)
+    out = np.zeros_like(x)
+    done = np.zeros(x.shape, bool)
+    for i in range(k):
+        v = t[2 * s + ((x >> (k - 1 - i)) & 1)]
+        leaf = (v < 0) & ~done
+        sym = v & 0x7FFFFFFF
+        out[leaf] = np.where(sym < LUT_PAYLOAD,
+                             LEAF | (i + 1) << 26 | sym, 0)[leaf]
+        done |= leaf
+        s = np.where(done, 0, v)
+    node = ~done
+    out[node] = np.where(s < LUT_PAYLOAD, k << 26 | s, 0)[node]
+    return out.astype(np.uint32).view(np.int32)
+
+
 def chunk_bits(depth: int) -> int:
     """Chunk length for codes of at most ``depth`` bits (F >= depth)."""
     return F_BITS * max(-(-depth // F_BITS), 1)
@@ -109,8 +147,14 @@ def nchunks_of(total_bits: int, f_bits: int = F_BITS) -> int:
 
 
 def pad_stream(encoded, device, f_bits: int = F_BITS) -> torch.Tensor:
-    """The coded bytes on ``device``, zero-padded to whole chunks."""
+    """The coded bytes (``bytes``, or a 1-D uint8 tensor on ``device``)
+    on ``device``, zero-padded to whole chunks."""
     n = len(encoded)
+    if torch.is_tensor(encoded):
+        buf = torch.zeros(nchunks_of(8 * n, f_bits) * (f_bits // 8),
+                          dtype=torch.uint8, device=device)
+        buf[:n] = encoded
+        return buf
     buf = np.empty(nchunks_of(8 * n, f_bits) * (f_bits // 8), np.uint8)
     buf[:n] = np.frombuffer(encoded, np.uint8)
     buf[n:] = 0
@@ -183,9 +227,42 @@ def fsm_emit_plain(bits, trans, total_bits: int, depth: int, entry,
 
 # --- wrappers -------------------------------------------------------------
 
-def _check(name: str, bits, trans, total_bits: int, depth: int,
-           *per_chunk):
-    """Validate the common inputs; returns the chunk count."""
+class Coded(NamedTuple):
+    """A coded stream on its device, as ``upload`` makes it and the
+    kernels take it: the transition and codeword tables, the padded
+    bytes and the longest code, or, for a tree whose root is a leaf, that
+    leaf's symbol alone."""
+    trans: torch.Tensor | None
+    lut: torch.Tensor | None
+    bits: torch.Tensor | None
+    total_bits: int
+    depth: int
+    leaf_symbol: int
+
+
+def upload(tree, encoded, device) -> Coded:
+    """Validate the serialized ``tree`` = (L, R, C, T, node_count), build
+    its tables and move them and the coded bytes (``bytes``, or a uint8
+    tensor on ``device``) to ``device``."""
+    L, R, C, T, _ = tree
+    if T[0]:
+        return Coded(None, None, None, 0, 0, int(C[0]))
+    trans = build_trans(L, R, C, T)
+    depth = code_depth(L, R, T)
+    return Coded(torch.from_numpy(trans).to(device),
+                 torch.from_numpy(build_lut(trans, depth)).to(device),
+                 pad_stream(encoded, device, chunk_bits(depth)),
+                 8 * len(encoded), depth, 0)
+
+
+def _check(name: str, coded: Coded, *per_chunk):
+    """Validate a coded stream and the per-chunk inputs; returns the
+    chunk count."""
+    bits, trans, lut = coded.bits, coded.trans, coded.lut
+    total_bits, depth = coded.total_bits, coded.depth
+    if trans is None:
+        raise ValueError(f"{name}: a tree whose root is a leaf codes no "
+                         f"bits")
     if not 1 <= depth <= 1 << 17:
         raise ValueError(f"{name}: depth (longest code) outside 1..2^17")
     f_bytes = chunk_bits(depth) // 8
@@ -196,6 +273,10 @@ def _check(name: str, bits, trans, total_bits: int, depth: int,
     if trans.dtype != _I32 or trans.dim() != 1 or trans.numel() % 2:
         raise ValueError(f"{name}: trans must be a 1-D int32 table of "
                          f"2 * node_count entries")
+    k = min(LUT_BITS, depth)
+    if lut is None or lut.dtype != _I32 or lut.shape != (1 << k,):
+        raise ValueError(f"{name}: the codeword table must be build_lut's: "
+                         f"1-D int32 of 2^{k} entries")
     if not 0 <= total_bits <= 8 * bits.numel():
         raise ValueError(f"{name}: total_bits outside the stream")
     L = bits.numel() // f_bytes
@@ -203,7 +284,7 @@ def _check(name: str, bits, trans, total_bits: int, depth: int,
         if t.dtype != dt or t.shape != (L,):
             raise ValueError(f"{name}: per-chunk inputs must have shape "
                              f"({L},) and dtype {dt}")
-    _same_device(name, bits, trans, *(t for t, _ in per_chunk))
+    _same_device(name, bits, trans, lut, *(t for t, _ in per_chunk))
     return L
 
 
@@ -216,25 +297,33 @@ def _same_device(name: str, first, *rest) -> None:
 
 
 def _ptrs(*ts):
-    return [ctypes.c_void_p(t.data_ptr()) for t in ts]
+    return [ctypes.c_void_p(None if t is None else t.data_ptr())
+            for t in ts]
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fsm_sweep(bits, trans, total_bits: int, depth: int):
-    """K5: each chunk's map from the D = ``depth`` offsets of its first
-    boundary.  Returns (g int32 (L, D), n int64 (L, D))."""
-    L = _check("fsm_sweep", bits, trans, total_bits, depth)
+def fsm_sweep(coded: Coded):
+    """K5: each chunk's map from the D = ``coded.depth`` offsets of its
+    first boundary.  Returns (g int32 (L, D), n int64 (L, D))."""
+    L = _check("fsm_sweep", coded)
+    bits, trans, lut = (t.contiguous() for t in
+                        (coded.bits, coded.trans, coded.lut))
+    depth, total_bits = coded.depth, coded.total_bits
     if bits.device.type == "cpu":
         return fsm_sweep_plain(bits, trans, total_bits, depth)
-    bits, trans = bits.contiguous(), trans.contiguous()
     g = torch.empty((L, depth), dtype=_I32, device=bits.device)
     n = torch.empty((L, depth), dtype=_I64, device=bits.device)
+    F = chunk_bits(depth)
+    # codes past the window: a boundary bitmap and its prefix counts a
+    # chunk, F + D + 1 bits each
+    scratch = None if depth <= WINDOW_DEPTH else torch.empty(
+        L * 2 * ((F + depth) // 32 + 1), dtype=_I32, device=bits.device)
     rc = _build.lib().sz_fsm_sweep(
-        *_ptrs(bits, trans), trans.numel(), total_bits, L,
-        chunk_bits(depth), depth, *_ptrs(g, n), _stream(bits))
+        *_ptrs(bits, trans, lut), min(LUT_BITS, depth), total_bits, L, F,
+        depth, *_ptrs(g, n, scratch), _stream(bits))
     _build.check(rc, "fsm_sweep")
     fsm_sweep.launches += 1
     return g, n
@@ -263,23 +352,24 @@ def fsm_sync(g, n, stride: int):
     return g2, n2
 
 
-def fsm_emit(bits, trans, total_bits: int, depth: int, entry, offsets,
-             n_sym: int):
+def fsm_emit(coded: Coded, entry, offsets, n_sym: int):
     """K7: each chunk's symbols from its first boundary ``entry``,
     written as int32 at its int64 ``offsets``; symbols at or past
     ``n_sym`` are dropped."""
-    L = _check("fsm_emit", bits, trans, total_bits, depth, (entry, _I32),
-               (offsets, _I64))
+    L = _check("fsm_emit", coded, (entry, _I32), (offsets, _I64))
     if n_sym < 0:
         raise ValueError("fsm_emit: n_sym must be >= 0")
+    bits, trans, lut = (t.contiguous() for t in
+                        (coded.bits, coded.trans, coded.lut))
+    depth, total_bits = coded.depth, coded.total_bits
     if bits.device.type == "cpu":
         return fsm_emit_plain(bits, trans, total_bits, depth, entry,
                               offsets, n_sym)
-    args = [t.contiguous() for t in (bits, trans, entry, offsets)]
+    entry, offsets = entry.contiguous(), offsets.contiguous()
     out = torch.empty(n_sym, dtype=_I32, device=bits.device)
     rc = _build.lib().sz_fsm_emit(
-        *_ptrs(args[0], args[1]), trans.numel(), total_bits, L,
-        chunk_bits(depth), depth, *_ptrs(args[2], args[3]), n_sym,
+        *_ptrs(bits, trans, lut), min(LUT_BITS, depth), total_bits, L,
+        chunk_bits(depth), depth, *_ptrs(entry, offsets), n_sym,
         *_ptrs(out), _stream(bits))
     _build.check(rc, "fsm_emit")
     fsm_emit.launches += 1
@@ -303,58 +393,25 @@ def compose(g, n):
     return entry, offsets, int(n[-1, 0]), steps
 
 
-def decode_bits(bits, trans, total_bits: int, depth: int, n_sym: int):
-    """Decode ``n_sym`` symbols from a padded coded stream on its device
-    (K5, K6 steps, K7) with codes of at most ``depth`` bits.  Returns
-    (int32 symbols, K6 steps).  Raises ValueError when the stream emits
-    a count outside [n_sym, n_sym + 7] (each junk symbol of the byte
-    padding takes at least one of its at most 7 bits): the stream is
-    corrupt."""
-    g, n = fsm_sweep(bits, trans, total_bits, depth)
-    entry, offsets, total, steps = compose(g, n)
-    del g, n
-    if not n_sym <= total <= n_sym + 7:
-        raise ValueError(f"corrupt Huffman stream: {total} symbols coded, "
-                         f"{n_sym} expected")
-    return (fsm_emit(bits, trans, total_bits, depth, entry, offsets, n_sym),
-            steps)
-
-
-class Coded(NamedTuple):
-    """A coded stream on its device, ready for ``decode_coded``: the
-    table, the padded bytes and the longest code, or, for a tree whose
-    root is a leaf, that leaf's symbol alone."""
-    trans: torch.Tensor | None
-    bits: torch.Tensor | None
-    total_bits: int
-    depth: int
-    leaf_symbol: int
-
-
-def upload(tree, encoded, device) -> Coded:
-    """Validate the serialized ``tree`` = (L, R, C, T, node_count) and
-    move it and the coded bytes to ``device``."""
-    L, R, C, T, _ = tree
-    if T[0]:
-        return Coded(None, None, 0, 0, int(C[0]))
-    trans = build_trans(L, R, C, T)
-    depth = code_depth(L, R, T)
-    return Coded(torch.from_numpy(trans).to(device),
-                 pad_stream(encoded, device, chunk_bits(depth)),
-                 8 * len(encoded), depth, 0)
-
-
 def decode_coded(coded: Coded, n_sym: int, device):
-    """``n_sym`` int32 symbols of an uploaded stream.  Returns (symbols,
-    K6 steps).  A tree whose root is a leaf codes a constant stream with
-    no bits (Huffman.c:310)."""
+    """``n_sym`` int32 symbols of an uploaded stream (K5, K6 steps, K7).
+    Returns (symbols, K6 steps).  A tree whose root is a leaf codes a
+    constant stream with no bits (Huffman.c:310).  Raises ValueError when
+    the stream emits a count outside [n_sym, n_sym + 7] (each junk symbol
+    of the byte padding takes at least one of its at most 7 bits): the
+    stream is corrupt."""
     if n_sym == 0:
         return torch.zeros(0, dtype=_I32, device=device), 0
     if coded.trans is None:
         return torch.full((n_sym,), coded.leaf_symbol, dtype=_I32,
                           device=device), 0
-    return decode_bits(coded.bits, coded.trans, coded.total_bits,
-                       coded.depth, n_sym)
+    g, n = fsm_sweep(coded)
+    entry, offsets, total, steps = compose(g, n)
+    del g, n
+    if not n_sym <= total <= n_sym + 7:
+        raise ValueError(f"corrupt Huffman stream: {total} symbols coded, "
+                         f"{n_sym} expected")
+    return fsm_emit(coded, entry, offsets, n_sym), steps
 
 
 def decode(tree, encoded, n_sym: int, device):

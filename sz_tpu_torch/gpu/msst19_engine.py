@@ -148,12 +148,14 @@ def decompress(tdps: TDPS, shape, *, device, as_tensor: bool = False):
         raise ValueError("the MSST19 engine takes rank-2 or rank-3 fields")
     n = int(np.prod(shape))
     intervals = int(tdps.intervals)
-    with _tr.trace("huffman_device"):
+    with _tr.trace("stream_upload"):
         ta = tdps.type_array
         node_count = bu.read_u32_be(ta, 0)
         tsize = huffman.tree_bytes_size(node_count)
         tree = huffman.deserialize_tree(ta[8:8 + tsize], node_count)
         coded = fsm_kernel.upload((*tree, node_count), ta[8 + tsize:], dev)
+        devmod.sync(dev)
+    with _tr.trace("huffman_device"):
         types, steps = fsm_kernel.decode_coded(coded, n, dev)
         del coded
         counts = torch.stack([(types == 0).sum(),

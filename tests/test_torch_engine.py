@@ -188,3 +188,37 @@ def test_from_numpy_state_round_trips():
     np.testing.assert_array_equal(back["code_hi"], tables.code_hi)
     np.testing.assert_array_equal(back["code_lo"], tables.code_lo)
     np.testing.assert_array_equal(back["code_len"], tables.code_len)
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 3), (4, 4, 4), (5, 5, 5),
+                                   (2, 2, 10), (5, 5), (6, 6)])
+def test_empty_optimizer_sample_walk_raises(shape):
+    """ROADMAP 3.1: fields past MIN_NUM_OF_ELEMENTS whose optimizer
+    sample walk is empty.  The port refuses them before any device work;
+    sz_tpu still divides by the zero count (a later fix there shows
+    here)."""
+    x = _wave(shape, 71)
+    with pytest.raises(NotImplementedError,
+                       match=r"empty optimizer sample walk.*ROADMAP 3\.1\)"):
+        sz_tpu_torch.compress(x, _ABS3, device="cpu")
+    with pytest.raises(ZeroDivisionError):
+        sz_tpu.compress(x, SZConfig(engine="numpy").with_bound(
+            ErrorBoundMode.ABS, 1e-3))
+
+
+@pytest.mark.parametrize("shape", [(6, 6, 6), (7, 7, 7), (3, 50)])
+def test_smallest_sampled_fields_match_sz_tpu(shape):
+    """The smallest shapes whose sample walk is not empty still compress
+    byte-equal to sz_tpu and decode bit-equal."""
+    x = _wave(shape, 73)
+    want = sz_tpu.compress(x, SZConfig(engine="numpy").with_bound(
+        ErrorBoundMode.ABS, 1e-3))
+    got = sz_tpu_torch.compress(x, _ABS3, device="cpu")
+    assert got == want
+    out = sz_tpu_torch.decompress(got, shape, np.float32, device="cpu")
+    np.testing.assert_array_equal(
+        out.view(np.uint32),
+        sz_tpu.decompress(want, shape, np.float32).view(np.uint32))
+
+
+_ABS3 = tcfg.SZConfig().with_bound(tcfg.ErrorBoundMode.ABS, 1e-3)

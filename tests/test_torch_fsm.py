@@ -1,6 +1,6 @@
 """The device Huffman decode (K5 fsm_sweep, K6 fsm_sync, K7 fsm_emit) on
 the CPU: the plain versions against a serial tree walk, and
-``decode_bits`` against the Pallas decode of sz_tpu
+``decode_coded`` against the Pallas decode of sz_tpu
 (``fsm_kernel.decode_bits_device`` in interpret mode) and against the
 symbols that were encoded.  Tolerance: exact (equal symbols, offsets and
 counts).
@@ -116,20 +116,18 @@ def _serial_walk(u8, L, R, C, T, start, stop_at, total):
     return q, syms
 
 
-def _random_bits_case(tree, depth, nbytes, seed):
+def _random_bits_case(tree, nbytes, seed):
     rng = np.random.default_rng(seed)
     raw = rng.integers(0, 256, nbytes).astype(np.uint8).tobytes()
-    F = fk.chunk_bits(depth)
-    return (raw, fk.pad_stream(raw, "cpu", F),
-            torch.from_numpy(fk.build_trans(*tree)), F)
+    return raw, fk.upload((*tree, len(tree[0])), raw, "cpu")
 
 
 @pytest.mark.parametrize("tree_kind", ["zipf", "caterpillar_130"])
 def test_plain_versions_match_a_serial_walk(tree_kind):
     """K5's map of every chunk and offset, the composed offsets of K6 and
     K7's symbols, on random bits (a complete prefix code decodes any bit
-    string), against the serial walk.  The 130-bit code takes the kernel
-    path without boundary bitmaps (F + D >= 1120)."""
+    string), against the serial walk.  The 130-bit code takes K5's path
+    for codes past 63 bits (W0's boundary bitmap)."""
     if tree_kind == "zipf":
         t = huffman.build_tables(_zipf_stream(37, 3000, 200, 1.2), 200)
         tree = (t.L, t.R, t.C, t.T)
@@ -137,10 +135,12 @@ def test_plain_versions_match_a_serial_walk(tree_kind):
     else:
         tree, depth = _caterpillar(130), 130
     nbytes = 5 * fk.F_BITS // 8 - 37              # last chunk ragged
-    raw, bits, trans, F = _random_bits_case(tree, depth, nbytes, 37)
+    raw, coded = _random_bits_case(tree, nbytes, 37)
+    assert coded.depth == depth
     u8, total = np.frombuffer(raw, np.uint8), 8 * nbytes
-    g, n = fk.fsm_sweep(bits, trans, total, depth)
-    nchunks = bits.numel() * 8 // F
+    F = fk.chunk_bits(depth)
+    g, n = fk.fsm_sweep(coded)
+    nchunks = coded.bits.numel() * 8 // F
     assert g.shape == n.shape == (nchunks, depth)
     for c in range(nchunks):
         for j in range(depth):
@@ -158,8 +158,7 @@ def test_plain_versions_match_a_serial_walk(tree_kind):
         assert (int(entry[c]), int(offsets[c])) == (q - c * F, k)
         q2, syms = _serial_walk(u8, *tree, q, (c + 1) * F, total)
         q, k = q2, k + len(syms)
-    out = fk.fsm_emit(bits, trans, total, depth, entry, offsets,
-                      len(ref) - 3)
+    out = fk.fsm_emit(coded, entry, offsets, len(ref) - 3)
     np.testing.assert_array_equal(out.numpy(), ref[:-3])
 
 
@@ -229,9 +228,7 @@ def test_chunks_that_never_sync():
     assert set(t.code_len[:8].tolist()) == {3} and fk.F_BITS % 3
     got, steps = _decode(t, enc, len(types))
     np.testing.assert_array_equal(got, types)
-    bits = fk.pad_stream(enc, "cpu")
-    g, _ = fk.fsm_sweep(bits, torch.from_numpy(
-        fk.build_trans(t.L, t.R, t.C, t.T)), 8 * len(enc), 3)
+    g, _ = fk.fsm_sweep(fk.upload(_tree(t), enc, "cpu"))
     assert all(len(set(row.tolist())) == 3 for row in g[:-1])
     assert steps == int(np.ceil(np.log2(g.shape[0]))) == 5
 

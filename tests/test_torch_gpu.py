@@ -135,7 +135,7 @@ def _fsm_case(name):
     if name == "never_syncs":
         types = rng.integers(0, 8, 16000).astype(np.int32)
         return types, 8
-    if name == "fixed_9_bits":      # 9 phases that never meet: 8 slots
+    if name == "fixed_9_bits":      # 9 phases that never meet
         return rng.integers(0, 512, 16000).astype(np.int32), 512
     nstate, a, n = {"skewed": (600, 1.5, 40000),
                     "tree_18k_nodes_smem": (10000, 0.8, 400000),
@@ -154,7 +154,7 @@ def test_fsm_kernels_match_plain(cuda, name):
     enc = huffman.encode(t, types)
     tree = (t.L, t.R, t.C, t.T, t.node_count)
     c = fsm_kernel.upload(tree, enc, cuda)
-    k = fsm_kernel.fsm_sweep(c.bits, c.trans, c.total_bits, c.depth)
+    k = fsm_kernel.fsm_sweep(c)
     p = fsm_kernel.fsm_sweep_plain(c.bits, c.trans, c.total_bits, c.depth)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     for stride in (1, 2, 64):
@@ -169,11 +169,12 @@ def test_fsm_kernels_match_plain(cuda, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth", [130, 1100])
+@pytest.mark.parametrize("depth", [40, 130, 1100])
 def test_fsm_deep_codes_match_plain(cuda, depth):
-    """Codes past the boundary-bitmap path (F + D >= 1120) and past one
-    1024-bit chunk (F = 2048): random bits through a caterpillar tree
-    whose code k is k ones and a zero."""
+    """Codes past K5's 32-slot ring (40 bits), past its windowed sweep
+    (130 bits: W0's boundary bitmap) and past one 1024-bit chunk (1100
+    bits, F = 2048): random bits through a caterpillar tree whose code k
+    is k ones and a zero."""
     nc = 2 * depth + 1
     L, R = np.zeros(nc, np.uint32), np.zeros(nc, np.uint32)
     C, T = np.zeros(nc, np.uint32), np.zeros(nc, np.uint8)
@@ -187,15 +188,34 @@ def test_fsm_deep_codes_match_plain(cuda, depth):
     raw[1000:1000 + depth // 8 + 2] = 0xFF      # one code past 1024 bits
     c = fsm_kernel.upload((L, R, C, T, nc), raw.tobytes(), cuda)
     assert c.depth == depth
-    k = fsm_kernel.fsm_sweep(c.bits, c.trans, c.total_bits, c.depth)
+    k = fsm_kernel.fsm_sweep(c)
     p = fsm_kernel.fsm_sweep_plain(c.bits, c.trans, c.total_bits, c.depth)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     entry, off, total, _ = fsm_kernel.compose(*k)
-    got = fsm_kernel.fsm_emit(c.bits, c.trans, c.total_bits, c.depth,
-                              entry, off, total)
+    got = fsm_kernel.fsm_emit(c, entry, off, total)
     want = fsm_kernel.fsm_emit_plain(c.bits, c.trans, c.total_bits,
                                      c.depth, entry, off, total)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_fsm_tables_match_plain(cuda):
+    """Symbols of 2^27 and up: codeword-table entries that fall back to a
+    bit walk from the root."""
+    types, nstate = _fsm_case("tree_18k_nodes_smem")
+    t = huffman.build_tables(types, nstate)
+    enc = huffman.encode(t, types)
+    C = (t.C.astype(np.int64) + (t.T != 0) * (1 << 27)).astype(np.uint32)
+    c = fsm_kernel.upload((t.L, t.R, C, t.T, t.node_count), enc, cuda)
+    k = fsm_kernel.fsm_sweep(c)
+    p = fsm_kernel.fsm_sweep_plain(c.bits, c.trans, c.total_bits, c.depth)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    entry, off, total, _ = fsm_kernel.compose(*k)
+    got = fsm_kernel.fsm_emit(c, entry, off, len(types))
+    want = fsm_kernel.fsm_emit_plain(c.bits, c.trans, c.total_bits,
+                                     c.depth, entry, off, len(types))
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(), types + (1 << 27))
 
 
 @pytest.mark.gpu

@@ -109,12 +109,14 @@ _PW = SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)
         ErrorBoundMode.ABS, 1e-3), "1.4"),
     (_X3, SZConfig(random_access=True).with_bound(ErrorBoundMode.ABS, 1e-3),
      "1.6"),
+    (_X3.reshape(2, 5, 11, 12), SZConfig(random_access=True).with_bound(
+        ErrorBoundMode.ABS, 1e-3), "1.4"),
     (_X3.reshape(-1), _ABS, "1.4"),
     ((_X3 * 100).astype(np.int32), _ABS, "1.10"),
     (_X3.reshape(-1), _PW, "1.4"),
     (_X3.astype(np.float64), _PW, "1.3"),
 ], ids=["f64", "pw_rel", "pw_rel_1e-6", "classic", "random_access",
-        "1d", "int", "pw_rel_1d", "pw_rel_f64"])
+        "random_access_4d", "1d", "int", "pw_rel_1d", "pw_rel_f64"])
 def test_out_of_slice_raises(data, cfg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
         sz_tpu_torch.compress(data, cfg, device="cpu")
@@ -151,6 +153,16 @@ def _msst19_meta():
     return m, t, tab, pt
 
 
+def _fsm_coded(device):
+    """One byte coded through the codes 0, 10 and 11 (depth 2), on
+    ``device``."""
+    tree = (np.array([1, 0, 3, 0, 0], np.uint32),
+            np.array([2, 0, 4, 0, 0], np.uint32),
+            np.array([0, 5, 0, 6, 7], np.uint32),
+            np.array([0, 1, 0, 1, 1], np.uint8), 5)
+    return fsm_kernel.upload(tree, b"\x5a", device)
+
+
 def test_wrappers_take_no_fallback_off_cpu():
     """The plain versions run only for CPU tensors; any other device is
     an error, never a silent detour."""
@@ -166,17 +178,14 @@ def test_wrappers_take_no_fallback_off_cpu():
         hist_kernel.histogram(s)
     with pytest.raises(ValueError, match="unsupported device"):
         pack_kernel.pack_bits(s, s, s, s, 8)
-    bits = torch.empty(fsm_kernel.F_BITS // 8, dtype=torch.uint8,
-                       device="meta")
-    trans = torch.empty(6, dtype=torch.int32, device="meta")
+    coded = _fsm_coded("meta")
     one = torch.empty(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        fsm_kernel.fsm_sweep(bits, trans, 8, 2)
+        fsm_kernel.fsm_sweep(coded)
     with pytest.raises(ValueError, match="unsupported device"):
         fsm_kernel.fsm_sync(one[:, None], one[:, None].to(torch.int64), 1)
     with pytest.raises(ValueError, match="unsupported device"):
-        fsm_kernel.fsm_emit(bits, trans, 8, 2, one,
-                            one.to(torch.int64), 4)
+        fsm_kernel.fsm_emit(coded, one, one.to(torch.int64), 4)
     m, t, tab, pt = _msst19_meta()
     with pytest.raises(ValueError, match="unsupported device"):
         msst19_kernel.wavefront3d_encode(m, tab, pt, 1023, 1023, 4, 13)
@@ -207,21 +216,22 @@ def test_wrappers_check_shapes():
         pack_kernel.pack_bits(s, code, code, torch.zeros(9, dtype=torch.int32),
                               0)
     bits = torch.zeros(2 * fsm_kernel.F_BITS // 8, dtype=torch.uint8)
-    trans = torch.zeros(6, dtype=torch.int32)
+    coded = _fsm_coded("cpu")._replace(bits=bits)
     two = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="whole"):
-        fsm_kernel.fsm_sweep(bits[:100], trans, 8, 2)
+        fsm_kernel.fsm_sweep(coded._replace(bits=bits[:100]))
     with pytest.raises(ValueError, match="whole"):      # F = 2048 bits
-        fsm_kernel.fsm_sweep(bits[:128], trans, 8, fsm_kernel.F_BITS + 1)
+        fsm_kernel.fsm_sweep(coded._replace(bits=bits[:128],
+                                            depth=fsm_kernel.F_BITS + 1))
     with pytest.raises(ValueError, match="outside the stream"):
-        fsm_kernel.fsm_sweep(bits, trans, 8 * bits.numel() + 1, 2)
+        fsm_kernel.fsm_sweep(coded._replace(total_bits=8 * bits.numel() + 1))
     with pytest.raises(ValueError, match="depth"):
-        fsm_kernel.fsm_sweep(bits, trans, 8, 0)
+        fsm_kernel.fsm_sweep(coded._replace(depth=0))
     with pytest.raises(ValueError, match="shape"):
         fsm_kernel.fsm_sync(two[:, None], torch.zeros((2, 2),
                                                       dtype=torch.int64), 1)
     with pytest.raises(ValueError, match="dtype"):
-        fsm_kernel.fsm_emit(bits, trans, 8, 2, two, two, 4)
+        fsm_kernel.fsm_emit(coded, two, two, 4)
     t3 = torch.zeros((4, 5, 6), dtype=torch.int32)
     tab = torch.zeros(16, dtype=torch.int16)
     pt = torch.ones(8, dtype=torch.float64)
