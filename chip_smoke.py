@@ -14,7 +14,11 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      ragged, sub-tile, single-row, all- and no-regression lattices, each
      called twice, and timed at the main path's shapes (256^3,
      100x500x500, 1800x3600, 512^3; at 512^3 the plain versions run on
-     the first planes only); K3/K4 at their test shapes; K5-K7 (the
+     the first planes only); K3/K4 timed at their 2^24-symbol test
+     shapes, and on their edge cases (pack_cases, hist_cases: tile and
+     run sizes, codes of 1 to 128 bits, holes, symbols past the table or
+     the bins, a wrong window hint, heavy symbol 0; each also from an
+     unaligned start) and a 2^27-symbol single-bin stream; K5-K7 (the
      Huffman decode) on skewed streams, trees of 20,000 and 80,000 nodes
      (transition tables of 80 and 320 KB), a stream past 2^31 bits,
      codes of 1100 and 40 bits, and a stream of the 512^3 stream's size
@@ -42,7 +46,10 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      bound asserted) and at 1800x3600, MB/s with spans and launches;
      then K5-K7 timed against their plain versions on the type streams
      of 512^3 ABS, 512^3 PW_REL and 1800x3600 PW_REL (node count,
-     longest code and codeword-table bits of each).
+     longest code and codeword-table bits of each); K3 and K4 timed
+     against their plain versions on the same fields' main-path inputs
+     (the type lattice; the stream with its real tables), caught from
+     the first compress of each field above.
 The last two lines are the kernel record and {"ok": true, "device": ...}.
 Without CUDA, or outside a checkout, it fails without a result.  It
 imports neither jax nor any module of sz_tpu.
@@ -376,9 +383,167 @@ def phase_lorenzo(dev) -> tuple:
     return rows, entries
 
 
+# K3/K4 edge cases, shared with tests/test_torch_pack_tiles.py (the CPU
+# model of the kernels' decomposition) and tests/test_torch_gpu.py
+
+def edge_code_table():
+    """(code_hi, code_lo, code_len) of 10 symbols with codes of 1, 31, 32,
+    33, 64, 65, 128, 7, 3 and 12 bits, random bits MSB-aligned (a pack
+    needs no prefix code)."""
+    rng = np.random.default_rng(17)
+    lens = np.array([1, 31, 32, 33, 64, 65, 128, 7, 3, 12], np.int32)
+    hi, lo = (rng.integers(0, 2 ** 64, len(lens), dtype=np.uint64,
+                           endpoint=False) for _ in range(2))
+
+    def keep(v, k):   # the top k of 64 bits
+        k = np.clip(k, 0, 64).astype(np.uint64)
+        mask = np.where(k == 0, np.uint64(0), ~np.uint64(0) << (
+            np.uint64(64) - np.maximum(k, np.uint64(1))))
+        return v & mask
+
+    return keep(hi, lens), keep(lo, lens - 64), lens
+
+
+# the names of pack_cases() and hist_cases(), in order: the tests
+# parametrize on them without building the cases at import
+PACK_CASE_NAMES = (
+    "empty", "one_symbol_128_bits", "all_holes", "hot_word_1_bit",
+    "every_code_length", "past_the_table", "zipf_41_tiles", "mixed_7",
+    "mixed_9", "mixed_2047", "mixed_2048", "mixed_2049")
+HIST_CASE_NAMES = (
+    "clustered", "cluster_wrong_hint", "hint_below_the_bins", "heavy_zero",
+    "single_bin", "outermost_bins_low_hint", "outermost_bins_high_hint",
+    "hint_past_the_bins", "empty", "one", "seven")
+
+
+def code_bits(sym: np.ndarray, code_len: np.ndarray) -> int:
+    """The bits a table codes symbols into (holes and symbols past the
+    table take none): K4's total_bits."""
+    valid = (sym >= 0) & (sym < len(code_len))
+    return int(np.where(valid, code_len[np.where(valid, sym, 0)], 0)
+               .astype(np.int64).sum())
+
+
+def at_offset(sym: np.ndarray, shift: int, dev):
+    """sym on the card, starting `shift` int32s into its buffer (shift
+    1-3: unaligned for 16-byte loads)."""
+    import torch
+    buf = torch.from_numpy(np.concatenate([np.zeros(shift, np.int32), sym]))
+    return buf.to(dev)[shift:]
+
+
+def pack_cases() -> list:
+    """(name, int32 symbols, (code_hi, code_lo, code_len)) of K4's edge
+    cases: the tile and run sizes of csrc/pack.cu, every code length the
+    table width allows, holes and symbols past the table, the hottest
+    word, and a real Huffman table over 41 tiles and a partial one."""
+    from sz_tpu_torch.format import huffman
+    from sz_tpu_torch.gpu import pack_kernel as pk
+    rng = np.random.default_rng(19)
+    edge = edge_code_table()
+    nst = len(edge[2])
+
+    def mixed(n):   # holes, every code, symbols past the table
+        return rng.integers(-1, nst + 3, n).astype(np.int32)
+
+    zipf = _zipf(rng, 41 * pk.TILE + 3, 300, 1.3)
+    t = huffman.build_tables(zipf, 300)
+    zipf[rng.random(len(zipf)) < 0.05] = -1
+    real = (t.code_hi, t.code_lo, t.code_len.astype(np.int32))
+    cases = [
+        ("empty", np.zeros(0, np.int32), edge),
+        ("one_symbol_128_bits", np.array([6], np.int32), edge),
+        ("all_holes", np.full(3000, -1, np.int32), edge),
+        ("hot_word_1_bit", np.zeros(5 * pk.TILE + 17, np.int32), edge),
+        ("every_code_length", np.tile(np.arange(nst, dtype=np.int32),
+                                      3 * pk.TILE // nst + 1), edge),
+        ("past_the_table", np.where(rng.random(5000) < 0.01, 3, nst + 7)
+         .astype(np.int32), edge),
+        ("zipf_41_tiles", zipf, real),
+    ]
+    for n in (pk.RUN - 1, pk.RUN + 1, pk.TILE - 1, pk.TILE, pk.TILE + 1):
+        cases.append((f"mixed_{n}", mixed(n), edge))
+    return cases
+
+
+def hist_cases() -> list:
+    """(name, int32 symbols, quantizer radius) of K3's edge cases: a
+    clustered stream with outliers and the right hint, or one below the
+    bins, and without them and a hint whose window holds no symbol, heavy
+    symbol 0,
+    one bin, holes and symbols past the bins, the outermost bins, and
+    lengths that are no multiple of the 16-byte vector."""
+    rng = np.random.default_rng(23)
+    n = 100_003
+    cluster = np.clip(rng.normal(32768, 30, n), -1, 70000).astype(np.int32)
+    clustered = cluster.copy()
+    clustered[rng.integers(0, n, n // 64)] = rng.integers(0, 65536, n // 64)
+    heavy_zero = clustered.copy()
+    heavy_zero[rng.random(n) < 0.6] = 0
+    ends = rng.choice(np.array([0, 1, 2, 65534, 65535, 65536, -5],
+                               np.int32), 9999)
+    return [
+        ("clustered", clustered, 32768),
+        ("cluster_wrong_hint", cluster, 5),
+        ("hint_below_the_bins", clustered, -3),
+        ("heavy_zero", heavy_zero, 32768),
+        ("single_bin", np.full(n, 512, np.int32), 512),
+        ("outermost_bins_low_hint", ends, 1),
+        ("outermost_bins_high_hint", ends, 65535),
+        ("hint_past_the_bins", ends, 1 << 20),
+        ("empty", np.zeros(0, np.int32), 32768),
+        ("one", np.array([7], np.int32), 7),
+        ("seven", np.arange(7, dtype=np.int32), 3),
+    ]
+
+
+def phase_pack_hist_cases(dev) -> list:
+    """Phase 2, K3/K4 edge cases on the card, each also from the second,
+    third and fourth int32 of its buffer (unaligned 16-byte loads), and
+    K3 on a 2^27-symbol single-bin stream: bit-equal to the plain
+    versions."""
+    import torch
+    from sz_tpu_torch.gpu import hist_kernel as hk
+    from sz_tpu_torch.gpu import pack_kernel as pk
+    rows = []
+    for name, sym, radius in hist_cases():
+        ok = True
+        for shift in range(4):
+            s = at_offset(sym, shift, dev)
+            ok &= torch.equal(hk.histogram(s, radius),
+                              hk.histogram_plain(s))
+        rows.append(dict(kernel="K3", case=name, n=len(sym), radius=radius,
+                         bit_equal=ok))
+    s = torch.full((1 << 27,), 32768, dtype=torch.int32, device=dev)
+    h, ms = cuda_once(lambda: hk.histogram(s, 32768))
+    rows.append(dict(kernel="K3", case="single_bin_2^27", n=s.numel(),
+                     bit_equal=torch.equal(h, hk.histogram_plain(s)),
+                     ms=ms))
+    del s, h
+    for name, sym, (hi, lo, ln) in pack_cases():
+        total = code_bits(sym, ln)
+        tab = (u64_tensor(hi, dev), u64_tensor(lo, dev),
+               torch.from_numpy(ln).to(dev))
+        ok = True
+        for shift in range(4):
+            s = at_offset(sym, shift, dev)
+            ok &= torch.equal(pk.pack_bits(s, *tab, total),
+                              pk.pack_bits_plain(s, *tab, total))
+        rows.append(dict(kernel="K4", case=name, n=len(sym),
+                         total_bits=total, bit_equal=ok))
+    for row in rows:
+        _log("kernel K3/K4 edge case", **row)
+    bad = [r["case"] for r in rows if not r["bit_equal"]]
+    if bad:
+        raise AssertionError(f"K3/K4 differ from their plain versions: "
+                             f"{bad}")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(dev) -> dict:
-    """Phase 2, K3 and K4: kernel vs plain version on the card.  Returns
-    the per-kernel record entries."""
+    """Phase 2, K3 and K4 at their 2^24-symbol test shapes: kernel vs
+    plain version on the card.  Returns the per-kernel record entries."""
     import torch
     from sz_tpu_torch.gpu import hist_kernel as hk
     from sz_tpu_torch.gpu import pack_kernel as pk
@@ -390,26 +555,7 @@ def phase_kernels(dev) -> dict:
     sym[rng.integers(0, n, n // 64)] = rng.integers(0, 65536, n // 64)
     sym[rng.random(n) < 0.02] = -1
     sym_d = torch.from_numpy(sym).to(dev)
-    h_k, h_p = hk.histogram(sym_d), hk.histogram_plain(sym_d)
-    err, ok = max_abs_err(h_k, h_p), torch.equal(h_k, h_p)
-    ms = cuda_ms(lambda: hk.histogram(sym_d), 10)
-    plain_ms = cuda_ms(lambda: hk.histogram_plain(sym_d), 10)
-    # the library yardstick: torch.bincount on the in-range symbols
-    # (bincount refuses the negative holes, so they are dropped first)
-    valid = sym_d[sym_d >= 0]
-    if not torch.equal(torch.bincount(valid, minlength=hk.NBINS).to(
-            torch.int32), h_k):
-        raise AssertionError("torch.bincount disagrees with K3")
-    library_ms = cuda_ms(lambda: torch.bincount(valid, minlength=hk.NBINS),
-                         10)
-    b_ms, b_by = bound(nbytes(sym_d, h_k))
-    _log("kernel K3 histogram", n=n, bit_equal=ok, max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms)
-    if not ok:
-        raise AssertionError("K3 differs from its plain version")
-    entries["histogram"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                library_ms=library_ms, shape=[n])
+    entries["histogram"] = hist_timing("2^24", sym_d, 32768)
 
     tables = fib_tables()
     assert int(tables.code_len.max()) > 64
@@ -419,22 +565,113 @@ def phase_kernels(dev) -> dict:
     s_d = torch.from_numpy(s).to(dev)
     hi, lo = u64_tensor(tables.code_hi, dev), u64_tensor(tables.code_lo, dev)
     ln = torch.from_numpy(tables.code_len.astype(np.int32)).to(dev)
-    b_k = pk.pack_bits(s_d, hi, lo, ln, total_bits)
-    b_p = pk.pack_bits_plain(s_d, hi, lo, ln, total_bits)
+    entries["pack_bits"] = pack_timing("2^24 Fibonacci table",
+                                       (s_d, hi, lo, ln, total_bits), 10)
+    return entries
+
+
+def hist_timing(name: str, sym, radius: int) -> dict:
+    """K3 on one symbol stream with the quantizer radius as its window
+    hint, against its plain version and torch.bincount; raises unless all
+    three agree."""
+    import torch
+    from sz_tpu_torch.gpu import hist_kernel as hk
+    h_k = hk.histogram(sym, radius)
+    h_p = hk.histogram_plain(sym)
+    err, ok = max_abs_err(h_k, h_p), torch.equal(h_k, h_p)
+    ms = cuda_ms(lambda: hk.histogram(sym, radius), 10)
+    plain_ms = cuda_ms(lambda: hk.histogram_plain(sym), 3)
+    # the library yardstick: torch.bincount on the in-range symbols
+    # (bincount refuses the negative holes, so they are dropped first)
+    valid = sym[(sym >= 0) & (sym < hk.NBINS)]
+    if not torch.equal(torch.bincount(valid, minlength=hk.NBINS).to(
+            torch.int32), h_k):
+        raise AssertionError(f"torch.bincount disagrees with K3 ({name})")
+    library_ms = cuda_ms(lambda: torch.bincount(valid, minlength=hk.NBINS),
+                         3)
+    del valid
+    b_ms, b_by = bound(nbytes(sym, h_k))
+    # where the symbols fell: the most frequent bin, symbol 0, the rest
+    h = h_p.double()
+    top = int(h.argmax())
+    _log(f"kernel K3 histogram, {name}", n=sym.numel(), bit_equal=ok,
+         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         bound_ms=b_ms, hint=radius, top_bin=top,
+         top_bin_share=float(h[top] / max(h.sum(), 1)),
+         zero_share=float(h[0] / max(h.sum(), 1)))
+    if not ok:
+        raise AssertionError(f"K3 differs from its plain version ({name})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms,
+                shape=[sym.numel()])
+
+
+def pack_timing(name: str, args: tuple, plain_reps: int = 1) -> dict:
+    """K4 on (symbols, code_hi, code_lo, code_len, total_bits) against
+    its plain version; raises unless they agree."""
+    import torch
+    from sz_tpu_torch.gpu import pack_kernel as pk
+    sym, hi, lo, ln, total_bits = args
+    b_k = pk.pack_bits(*args)
+    b_p = pk.pack_bits_plain(*args)
     err, ok = max_abs_err(b_k, b_p), torch.equal(b_k, b_p)
-    ms = cuda_ms(lambda: pk.pack_bits(s_d, hi, lo, ln, total_bits), 10)
-    plain_ms = cuda_ms(lambda: pk.pack_bits_plain(s_d, hi, lo, ln,
-                                                  total_bits), 3)
-    b_ms, b_by = bound(nbytes(s_d, hi, lo, ln, b_k))
-    _log("kernel K4 pack_bits", n=n, total_bits=total_bits,
-         max_code_bits=int(tables.code_len.max()), bit_equal=ok,
+    ms = cuda_ms(lambda: pk.pack_bits(*args), 10)
+    plain_ms = cuda_ms(lambda: pk.pack_bits_plain(*args), plain_reps)
+    del b_p
+    b_ms, b_by = bound(nbytes(sym, hi, lo, ln, b_k))
+    _log(f"kernel K4 pack_bits, {name}", n=sym.numel(),
+         total_bits=total_bits, bits_per_symbol=total_bits / max(
+             sym.numel(), 1), max_code_bits=int(ln.max()), bit_equal=ok,
          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
     if not ok:
-        raise AssertionError("K4 differs from its plain version")
-    entries["pack_bits"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                library_ms=None, shape=[n])
-    return entries
+        raise AssertionError(f"K4 differs from its plain version ({name})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, shape=[sym.numel()])
+
+
+def largest_calls(fn):
+    """(fn(), {"histogram": args, "pack_bits": args}): run fn() (one
+    compress) and keep the arguments of K3's and K4's call on the most
+    symbols, as the main path passed them.  A profile hook sees the
+    wrappers' calls, so nothing is replaced."""
+    from sz_tpu_torch.gpu import hist_kernel as hk
+    from sz_tpu_torch.gpu import pack_kernel as pk
+    codes = {hk.histogram.__code__: "histogram",
+             pk.pack_bits.__code__: "pack_bits"}
+    got = {}
+
+    def hook(frame, event, arg):
+        name = codes.get(frame.f_code) if event == "call" else None
+        if name:
+            c = frame.f_code
+            args = tuple(frame.f_locals[v]
+                         for v in c.co_varnames[:c.co_argcount])
+            if name not in got or args[0].numel() > got[name][0].numel():
+                got[name] = args
+
+    old = sys.getprofile()
+    sys.setprofile(hook)
+    try:
+        out = fn()
+    finally:
+        sys.setprofile(old)
+    return out, got
+
+
+def pack_hist_timing(calls: dict) -> dict:
+    """Phase 4, K3 and K4 timed on the main path's own inputs: {stream:
+    largest_calls' arguments of its compress}, emptied as it goes.
+    Returns the first stream's entries (512^3 ABS)."""
+    import torch
+    first = None
+    for name in list(calls):
+        got = calls.pop(name)
+        entries = {"histogram": hist_timing(name, *got["histogram"]),
+                   "pack_bits": pack_timing(name, got["pack_bits"])}
+        first = first or entries
+        del got
+        torch.cuda.empty_cache()
+    return first
 
 
 # --- phase 2: K5-K7 -------------------------------------------------------
@@ -889,8 +1126,9 @@ def synth(n: int) -> np.ndarray:
 
 
 def phase_full_size(dev, record: dict, wrappers: dict,
-                    shape=(512, 512, 512)) -> bytes:
-    """512^3 float32 (NYX scale, 537 MB).  Returns its stream."""
+                    shape=(512, 512, 512)) -> tuple:
+    """512^3 float32 (NYX scale, 537 MB).  Returns its stream and the
+    arguments of the largest K3 and K4 calls of its compress."""
     import torch
     import sz_tpu_torch
     from sz_tpu_torch import ErrorBoundMode, SZConfig
@@ -898,7 +1136,8 @@ def phase_full_size(dev, record: dict, wrappers: dict,
     cfg = SZConfig().with_bound(ErrorBoundMode.ABS, ABS)
     x = field(shape, 42)
     mb = x.nbytes / 1e6
-    blob = sz_tpu_torch.compress(x, cfg, device=dev)
+    blob, calls = largest_calls(
+        lambda: sz_tpu_torch.compress(x, cfg, device=dev))
     out = sz_tpu_torch.decompress(blob, x.shape, np.float32, device=dev)
     err = float(np.abs(out.astype(np.float64) - x).max())
     if err > ABS:
@@ -945,24 +1184,26 @@ def phase_full_size(dev, record: dict, wrappers: dict,
                decompress_spans_s=spans_s)
     _log("full size 512^3 synth", **row)
     record["synth_512"] = row
-    return blob
+    return blob, calls
 
 
 def phase_full_size_pwrel(dev, record: dict, wrappers: dict) -> dict:
     """PW_REL 1e-3 at 512^3 (|field|: NYX-like, positive with exact
     zeros; nothing cut) and at 1800x3600 (the CESM-ATM shape, K9): the
     point-wise bound, MB/s warm best of 3, spans and launch counts.
-    Returns {name: (stream, shape)}."""
+    Returns {name: (stream, shape)} and {name: the arguments of the
+    largest K3 and K4 calls of its compress}."""
     import sz_tpu_torch
     from sz_tpu_torch import ErrorBoundMode, SZConfig
 
     cfg = SZConfig().with_bound(ErrorBoundMode.PW_REL, PW_REL)
-    rows, blobs = {}, {}
+    rows, blobs, calls = {}, {}, {}
     for name, x in (("pwrel_512", np.abs(field((512, 512, 512), 42))),
                     ("pwrel_cesm_atm_1800x3600",
                      pwrel_field("abs", (1800, 3600), 6))):
         mb = x.nbytes / 1e6
-        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        blob, calls[name] = largest_calls(
+            lambda: sz_tpu_torch.compress(x, cfg, device=dev))
         out = sz_tpu_torch.decompress(blob, x.shape, np.float32, device=dev)
         err = pointwise_err(x, out)
         del out
@@ -991,7 +1232,7 @@ def phase_full_size_pwrel(dev, record: dict, wrappers: dict) -> dict:
         rows[name] = row
         blobs[name] = (blob, x.shape)
     record["full_pwrel"] = rows
-    return blobs
+    return blobs, calls
 
 
 def type_stream(blob: bytes, shape, dev):
@@ -1101,9 +1342,8 @@ def phase_fsm_timing(dev, streams: dict) -> dict:
 DEVICE_NAMES = (
     ("wavefront_quantize_kernel", "wavefront_quantize"),
     ("wavefront_decode_kernel", "wavefront_decode"),
-    ("histogram_kernel", "histogram"),
-    ("pack_scan_tiles", "pack_bits"), ("scan_tile_sums", "pack_bits"),
-    ("pack_place", "pack_bits"), ("byteswap_words", "pack_bits"),
+    ("histogram_window_kernel", "histogram"),
+    ("pack_lookback_kernel", "pack_bits"),
     ("fsm_sweep_kernel", "fsm_sweep"), ("fsm_sweep_wide_kernel", "fsm_sweep"),
     ("fsm_sync_kernel", "fsm_sync"),
     ("fsm_emit_kernel", "fsm_emit"),
@@ -1192,8 +1432,8 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
     dev = torch.device("cuda", 0)
+    sys.path.insert(0, str(REPO))
     record = {}
 
     # phase 1: environment
@@ -1233,6 +1473,7 @@ def main() -> int:
     # phase 2: each kernel against its plain version
     record["lorenzo_cases"], entries = phase_lorenzo(dev)
     entries.update(phase_kernels(dev))
+    record["pack_hist_cases"] = phase_pack_hist_cases(dev)
     record["fsm_cases"] = phase_fsm_cases(dev)
     record["msst19_cases"], msst19_entries = phase_msst19_cases(dev)
     entries.update(msst19_entries)
@@ -1261,12 +1502,15 @@ def main() -> int:
         raise AssertionError(f"main path never launched {idle}")
 
     # phase 4: full size, then PW_REL, then K5-K7 timed on their streams
-    streams = {"512^3 ABS": (phase_full_size(dev, record, wrappers),
-                             (512, 512, 512))}
-    for name, v in phase_full_size_pwrel(dev, record, wrappers).items():
-        streams[name] = v
+    blob, calls = phase_full_size(dev, record, wrappers)
+    streams, pw_calls = phase_full_size_pwrel(dev, record, wrappers)
+    streams = {"512^3 ABS": (blob, (512, 512, 512)), **streams}
+    calls = {"512^3 ABS": calls, **pw_calls}
+    del blob, pw_calls
     entries.update(phase_fsm_timing(dev, streams))
     del streams
+    # K3/K4 on the main path's own inputs replace phase 2's 2^24 entries
+    entries.update(pack_hist_timing(calls))
 
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.") or m == "sz_tpu"

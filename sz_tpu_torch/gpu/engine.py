@@ -92,7 +92,8 @@ def compress(data: np.ndarray, real_precision, *, max_range_radius: int,
     with _tr.trace("quantize"):
         t_lat = quantize(x, st, use_mean, bs)
         tp = geo.corner_stream(t_lat, dbs)
-        hist = hist_kernel.histogram(t_lat.reshape(-1)).cpu().numpy()
+        hist = hist_kernel.histogram(t_lat.reshape(-1),
+                                     int(intervals) // 2).cpu().numpy()
         del t_lat
     n_esc = int(hist[0])
     with _tr.trace("escapes"):

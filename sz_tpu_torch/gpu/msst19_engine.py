@@ -85,7 +85,8 @@ def compress(work: np.ndarray, pw_ratio: float, fmax, near_zero, *,
                              cache.bits, max(32 - rl, 0))
         del _rec
         types = types.reshape(-1)
-        hist = hist_kernel.histogram(types).cpu().numpy()
+        hist = hist_kernel.histogram(types,
+                                     int(intervals) // 2).cpu().numpy()
     n_esc = int(hist[0])
     with _tr.trace("escapes"):
         esc_vals = (x.reshape(-1)[types == 0].cpu().numpy() if n_esc

@@ -1,13 +1,16 @@
 """K4 ``pack_bits``: MSB-first Huffman bit-pack of the stream-ordered
 type codes, byte-equal to ``sz_tpu.format.huffman.encode``.
 
-CUDA kernels in ``csrc/pack.cu`` (replaces
-``sz_tpu/tpu/pack_kernel.py::pack2_bits`` and ``::pack_bits``): a tiled
-exclusive scan of the code lengths into int64 bit offsets, then an
-order-free ``atomicOr`` placement of each code (up to 128 bits) and a
-byte swap to big-endian.  Bound on the H100 by bytes moved; see the note
-in ``pack.cu``.  Unlike the TPU kernels it needs no symbol window and no
-code-length cap, so one route serves every Huffman table.
+CUDA kernel in ``csrc/pack.cu`` (replaces
+``sz_tpu/tpu/pack_kernel.py::pack2_bits`` and ``::pack_bits``): one
+launch that reads each symbol once.  A block packs a tile of ``TILE``
+symbols (``THREADS`` runs of ``RUN``) into shared memory, finds the
+tile's int64 bit offset by a single-pass chained scan with decoupled
+look-back, and stores each output word once, big-endian.  Bound on the
+H100 by bytes at best, in practice by a tile's latency; see the note in
+``pack.cu``.  Unlike the TPU
+kernels it needs no symbol window and no code-length cap below the
+table's 128 bits, so one route serves every Huffman table.
 
 Tables: ``code_hi``/``code_lo`` are ``HuffmanTables``' uint64 halves of
 the MSB-aligned code, carried as int64 bit patterns (torch's unsigned
@@ -24,7 +27,10 @@ import torch
 
 from sz_tpu_torch.gpu import _build
 
-_TILE = 1024
+# the tile of csrc/pack.cu (kThreads, kRun)
+THREADS = 256
+RUN = 8
+TILE = THREADS * RUN
 _M32 = 0xFFFFFFFF
 
 
@@ -66,7 +72,9 @@ def pack_bits(sym, code_hi, code_lo, code_len,
     """K4: pack int32 symbols (negative = hole, emits nothing) with the
     given 128-bit code table into ``ceil(total_bits / 8)`` big-endian
     bytes (uint8).  ``total_bits`` = sum of the symbols' code lengths,
-    known on the host from the histogram."""
+    known on the host from the histogram.  Code lengths must lie in
+    [0, 128], as a ``HuffmanTables``' do: the kernel's output for any
+    other length is undefined and is not the plain version's."""
     if not code_hi.numel() == code_lo.numel() == code_len.numel():
         raise ValueError("pack_bits: code_hi, code_lo and code_len must "
                          "cover the same symbols")
@@ -85,15 +93,17 @@ def pack_bits(sym, code_hi, code_lo, code_len,
     nbytes, nwords = _nbytes_words(total_bits)
     n = sym.numel()
     dev = sym.device
-    offs = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-    tiles = torch.empty(max(-(-n // _TILE), 1), dtype=torch.int64,
-                        device=dev)
-    words = torch.empty(max(nwords, 1) * 4, dtype=torch.uint8, device=dev)
+    words = torch.empty(nwords * 4, dtype=torch.uint8, device=dev)
+    if n == 0 or nwords == 0:
+        return words
+    # a 16-byte descriptor a tile, then the tile counter (zeroed by C)
+    desc = torch.empty((-(-n // TILE) + 1, 2), dtype=torch.int64,
+                       device=dev)
     p = ctypes.c_void_p
     rc = _build.lib().sz_pack_bits(
         p(sym.data_ptr()), n, p(code_hi.data_ptr()), p(code_lo.data_ptr()),
-        p(code_len.data_ptr()), code_len.numel(), p(offs.data_ptr()),
-        p(tiles.data_ptr()), p(words.data_ptr()), nwords,
+        p(code_len.data_ptr()), code_len.numel(), p(desc.data_ptr()),
+        p(words.data_ptr()), nwords,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "pack_bits")
     pack_bits.launches += 1

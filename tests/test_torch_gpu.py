@@ -26,6 +26,8 @@ from sz_tpu_torch.gpu import (engine, fsm_kernel, hist_kernel,
                               lorenzo_kernel, msst19_engine, msst19_kernel,
                               pack_kernel)
 
+from _chip_smoke import SMOKE
+
 RADIUS, MEAN = 32, np.float32(0.25)
 RP = np.float32(1e-3)
 SCALARS = (RP, np.float32(np.float32(1) / RP), np.float32(2 * RADIUS - 2),
@@ -115,6 +117,48 @@ def test_hist_and_pack_kernels_match_plain(cuda):
     assert torch.equal(got, pack_kernel.pack_bits_plain(*args, total))
     keep = s[s >= 0]
     assert got.cpu().numpy().tobytes() == huffman.encode(tables, keep)
+
+
+# the K3/K4 edge cases of chip_smoke.py (tests/test_torch_pack_tiles.py
+# holds a CPU model of each kernel to the same cases)
+PACK_CASES = SMOKE.PACK_CASE_NAMES
+HIST_CASES = SMOKE.HIST_CASE_NAMES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+@pytest.mark.parametrize("name", HIST_CASES)
+def test_hist_kernel_edge_cases(cuda, name, shift):
+    _, sym, radius = next(c for c in SMOKE.hist_cases() if c[0] == name)
+    s = SMOKE.at_offset(sym, shift, cuda)
+    got = hist_kernel.histogram(s, radius)
+    assert torch.equal(got, hist_kernel.histogram_plain(s))
+    assert torch.equal(hist_kernel.histogram(s, radius), got)
+
+
+@pytest.mark.gpu
+def test_hist_kernel_single_bin_2e27(cuda):
+    """2^27 symbols on one bin (the register bin, or a window bin)."""
+    s = torch.full((1 << 27,), 40000, dtype=torch.int32, device=cuda)
+    for radius in (40000, 39000, 5):
+        got = hist_kernel.histogram(s, radius)
+        assert int(got[40000]) == 1 << 27 and int(got.sum()) == 1 << 27
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+@pytest.mark.parametrize("name", PACK_CASES)
+def test_pack_kernel_edge_cases(cuda, name, shift):
+    _, sym, (hi, lo, ln) = next(c for c in SMOKE.pack_cases()
+                                if c[0] == name)
+    total = SMOKE.code_bits(sym, ln)
+    args = (SMOKE.at_offset(sym, shift, cuda),
+            torch.from_numpy(hi.view(np.int64)).to(cuda),
+            torch.from_numpy(lo.view(np.int64)).to(cuda),
+            torch.from_numpy(ln).to(cuda))
+    got = pack_kernel.pack_bits(*args, total)
+    assert torch.equal(got, pack_kernel.pack_bits_plain(*args, total))
+    assert torch.equal(pack_kernel.pack_bits(*args, total), got)
 
 
 @pytest.mark.gpu

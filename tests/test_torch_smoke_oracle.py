@@ -5,27 +5,13 @@ The fields use exact float32 arithmetic only, so they are the same bits
 on any machine.  Tolerance: exact (equal hashes).
 """
 
-import importlib.util
-import pathlib
-
 import numpy as np
 import pytest
 
 import sz_tpu
 from sz_tpu.config import ErrorBoundMode, SZConfig
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-SMOKE = _chip_smoke()
+from _chip_smoke import SMOKE
 
 
 @pytest.mark.parametrize("name", sorted(SMOKE.ORACLE))

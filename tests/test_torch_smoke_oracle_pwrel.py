@@ -15,7 +15,7 @@ import sz_tpu
 from sz_tpu.config import ErrorBoundMode, SZConfig
 from sz_tpu.core import pwr
 
-from tests.test_torch_smoke_oracle import SMOKE
+from _chip_smoke import SMOKE
 
 
 @pytest.mark.parametrize("name", sorted(SMOKE.ORACLE_PWREL))
