@@ -10,11 +10,13 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
   1. environment: versions, card name and power limit, the kernel build
      (one nvcc per source, in parallel) and the host runtime build (cc);
   2. each Hopper kernel bit-equal to its plain torch version on the
-     card, with both times: K1/K2 (the tiled Lorenzo recurrence) on
-     ragged, sub-tile, single-row, all- and no-regression lattices, each
-     called twice, and timed at the main path's shapes (256^3,
-     100x500x500, 1800x3600, 512^3; at 512^3 the plain versions run on
-     the first planes only); K3/K4 timed at their 2^24-symbol test
+     card, with both times: K1/K2 (the tiled Lorenzo recurrence) and
+     their float64 forms K1d/K2d on ragged, sub-tile, single-row, all-
+     and no-regression lattices, each called twice, and timed at the main
+     path's shapes (K1/K2: 256^3, 100x500x500, 1800x3600, 512^3; K1d/K2d:
+     256^3, 1800x3600, 512^3; at 512^3 the plain versions run on the first
+     planes only), with each tile's shared memory and ptxas registers;
+     K3/K4 timed at their 2^24-symbol test
      shapes, and on their edge cases (pack_cases, hist_cases: tile and
      run sizes, codes of 1 to 128 bits, holes, symbols past the table or
      the bins, a wrong window hint, heavy symbol 0; each also from an
@@ -31,20 +33,29 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      with zeros, and timed at 256^3, 1800x3600 and 512^3 (the plain
      versions on the first planes there);
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
-     1e-3 and PW_REL 1e-3 streams and reconstructions hash to the
-     SHA-256 of the host oracle's (sz_tpu, engine="numpy"; recomputed on
-     the CPU by tests/test_torch_smoke_oracle.py and
-     tests/test_torch_smoke_oracle_pwrel.py), and the reference golden
-     streams decode bit-equal; the launch counters of K1-K9 must all
+     1e-3 (float32 and float64) and PW_REL 1e-3 streams and
+     reconstructions hash to the SHA-256 of the host oracle's (sz_tpu,
+     engine="numpy"; recomputed on the CPU by
+     tests/test_torch_smoke_oracle.py, tests/test_torch_smoke_oracle_f64.py
+     and tests/test_torch_smoke_oracle_pwrel.py), the reference golden
+     streams (float32 and float64) decode bit-equal, synth_f64_64.dat
+     compresses to its golden's inner stream, and a compress from a CUDA
+     tensor (float32, float64, non-contiguous, 4-D) gives the host
+     array's bytes; the launch counters of K1-K9 and K1d/K2d must all
      rise; run under torch.profiler: each kernel's device time summed
-     over the phase, and the device's idle share;
+     over the phase, and the device's idle share; then, under its own
+     profile, the host<->device copies of a compress from a 256^3 tensor
+     (no copy of the field up; down, besides the packed stream, under
+     5 % of the field);
   4. 512^3 float32 (NYX scale): the ABS error bound holds, compress and
      decompress MB/s (warm, best of 3) with per-span times and counts,
-     the kernel launches of one decompress, the device-to-host copy of
-     537 MB, the decompress of bench.py's synth field (the earlier
-     records' input); then PW_REL 1e-3 at 512^3 (the point-wise
+     the compress from a CUDA tensor of the same field, the kernel
+     launches of one decompress, the device-to-host copy of 537 MB, the
+     decompress of bench.py's synth field (the earlier records' input);
+     then PW_REL 1e-3 at 512^3 (the point-wise
      bound asserted) and at 1800x3600, MB/s with spans and launches;
-     then K5-K7 timed against their plain versions on the type streams
+     512^3 float64 (1.07 GB; K1d/K2d): the bound, MB/s, spans and
+     launches; then K5-K7 timed against their plain versions on the type streams
      of 512^3 ABS, 512^3 PW_REL and 1800x3600 PW_REL (node count,
      longest code and codeword-table bits of each); K3 and K4 timed
      against their plain versions on the same fields' main-path inputs
@@ -124,6 +135,31 @@ ORACLE = {
 }
 
 
+def field64(shape, seed: int) -> np.ndarray:
+    """The float64 input: ``field`` plus noise at 2^-40 a step, below what
+    float32 holds.  The sum of two multiples of 2^-40 under 2^3 in
+    magnitude needs 43 bits of significand, so it is exact in float64:
+    the same bits on every machine."""
+    rng = np.random.default_rng(seed + 1000)
+    fine = (rng.integers(-2 ** 20, 2 ** 20 + 1, shape).astype(np.float64)
+            * 2.0 ** -40)
+    return field(shape, seed).astype(np.float64) + fine
+
+
+# name -> (shape, seed, SHA-256 of the oracle's stream, of its decode):
+# field64 under ABS 1e-3
+ORACLE_F64 = {
+    "field64_256": (
+        (256, 256, 256), 42,
+        "f5f1015c95b81d67e33ed05d41550e7a9babcb1d8ae2853458689c43ae540666",
+        "0a8ef9c10622feb32fda2184ae958c5679188edaea17e9de3b4fe3503092eeef"),
+    "field64_cesm_atm_1800x3600": (
+        (1800, 3600), 6,
+        "0c5d86b89848633ed17770e28e0de5e040ff5cb54d62d7575cf15a558ceebd5b",
+        "1a4185fc85c6b0d86c4be43e9941c0728901dea5379229328b19e67d4a467d0a"),
+}
+
+
 def pwrel_field(kind: str, shape, seed: int) -> np.ndarray:
     """The PW_REL inputs, still exact float32 arithmetic: ``field`` as
     it is (signed, with its exact zeros: the sign bitmap and the zero
@@ -199,48 +235,55 @@ def bound(moved_bytes: int, ops: int = 0, ops64: int = 0) -> tuple:
 # --- phase 2: K1-K4 -------------------------------------------------------
 
 RADIUS = 32
-RP = np.float32(1e-3)
-RECIP = np.float32(np.float32(1) / RP)
-CAP_SZF = np.float32(2 * RADIUS - 2)
-MEAN = np.float32(0.25)
 
 
-def k1_inputs(shape, seed, dev, regression: str = "mixed"):
-    """K1's inputs: a field with 10 % of its points at the mean, and
-    regression points on 30 % of the points ("mixed"), on all or on
-    none."""
+def k1_scalars(T=np.float32) -> tuple:
+    """(rp, recip, cap_szf, radius, mean) of the K1/K1d cases, in T."""
+    rp = T(1e-3)
+    return rp, T(T(1) / rp), T(2 * RADIUS - 2), RADIUS, T(0.25)
+
+
+
+def k1_inputs(shape, seed, dev, regression: str = "mixed", T=np.float32):
+    """K1's (K1d's, T = float64) inputs: a field with 10 % of its points
+    at the mean, and regression points on 30 % of the points ("mixed"),
+    on all or on none."""
     import torch
+    rp, _, _, _, mean = k1_scalars(T)
     rng = np.random.default_rng(seed)
     n = int(np.prod(shape))
-    data = (np.sin(np.linspace(0, 12, n, dtype=np.float32))
-            + 0.02 * rng.standard_normal(n)).astype(np.float32).reshape(shape)
-    data[rng.random(shape) < 0.1] = MEAN
+    data = (np.sin(np.linspace(0, 12, n, dtype=T))
+            + 0.02 * rng.standard_normal(n)).astype(T).reshape(shape)
+    data[rng.random(shape) < 0.1] = mean
     reg = rng.random(shape) < 0.3
     if regression != "mixed":
         reg = np.full(shape, regression == "all")
     # regression points: codes >= 1 (an escaped one would carry rec = data)
     t_reg = rng.integers(1, 2 * RADIUS, shape).astype(np.int32)
-    rec_reg = (data + rng.uniform(-1e-3, 1e-3, shape)).astype(np.float32)
-    mean_mask = (~reg) & (np.abs(data - MEAN) <= RP)
+    rec_reg = (data + rng.uniform(-1e-3, 1e-3, shape)).astype(T)
+    mean_mask = (~reg) & (np.abs(data - mean) <= rp)
     return [torch.from_numpy(a).to(dev)
             for a in (data, t_reg, rec_reg, reg, mean_mask)]
 
 
 def k2_inputs(k1_args, t, use_mean: bool):
-    """K2's inputs as a decoder derives them from K1's type lattice t
-    (stages.decode_inputs): then K2 must rebuild K1's R bit for bit."""
+    """K2's (K2d's) inputs as a decoder derives them from K1's type
+    lattice t (stages.decode_inputs): then K2 must rebuild K1's R bit for
+    bit."""
     import torch
     data, _, rec_reg, reg, _ = k1_args
+    rp, _, _, _, mean = k1_scalars(
+        np.float64 if data.dtype == torch.float64 else np.float32)
     esc = t == 0
     t_adj = t
     known_mask = esc | reg
     if use_mean:
         t_adj = torch.where((~reg) & (t < RADIUS), t + 1, t)
         known_mask = known_mask | ((~reg) & (t == RADIUS))
-    q_lor = (2 * (t_adj - RADIUS)).to(torch.float32) * torch.tensor(
-        RP, device=t.device)
+    q_lor = (2 * (t_adj - RADIUS)).to(data.dtype) * torch.tensor(
+        rp, device=t.device)
     known = torch.where(esc, data, torch.where(reg, rec_reg, torch.tensor(
-        MEAN, device=t.device)))
+        mean, device=t.device)))
     return known_mask, known, q_lor
 
 
@@ -293,6 +336,8 @@ LORENZO_EXACT = [
 # the shapes the ABS main path runs K1/K2 at (phases 3 and 4), timed
 LORENZO_TIMED = [(256, 256, 256), (100, 500, 500), (1800, 3600),
                  (512, 512, 512)]
+# and K1d/K2d, on the float64 main path's shapes
+LORENZO_TIMED_F64 = [(256, 256, 256), (1800, 3600), (512, 512, 512)]
 # above this many points the plain versions (minutes at 512^3) run only
 # on the lattice's first planes: no point depends on a later plane, so
 # the kernel's first planes must equal the plain version's on those
@@ -301,14 +346,18 @@ LORENZO_TIMED = [(256, 256, 256), (100, 500, 500), (1800, 3600),
 PLAIN_MAX_POINTS = 1 << 26
 
 
-def lorenzo_case(dev, shape, use_mean, regression, timed) -> dict:
-    """K1 and K2 against their plain versions on one lattice: K2 on the
-    inputs a decoder derives from K1's output, so it must also rebuild
-    K1's R; each kernel called twice, bit-equal.  Timed: the kernels'
-    mean time, the plain version's one call, the bound."""
+def lorenzo_case(dev, shape, use_mean, regression, timed,
+                 T=np.float32) -> dict:
+    """K1 and K2 (K1d and K2d where T is float64) against their plain
+    versions on one lattice: K2 on the inputs a decoder derives from K1's
+    output, so it must also rebuild K1's R; each kernel called twice,
+    bit-equal.  Timed: the kernels' mean time, the plain version's one
+    call, the bound."""
     from sz_tpu_torch.gpu import lorenzo_kernel as lk
-    scal = (RP, RECIP, CAP_SZF, RADIUS, MEAN)
-    args = k1_inputs(shape, 1, dev, regression)
+    wide = T is np.float64
+    k1_name, k2_name = (("K1d", "K2d") if wide else ("K1", "K2"))
+    scal = k1_scalars(T)
+    args = k1_inputs(shape, 1, dev, regression, T)
     if not use_mean:
         args[4] = None
     n = int(np.prod(shape))
@@ -327,17 +376,19 @@ def lorenzo_case(dev, shape, use_mean, regression, timed) -> dict:
     (t_p, R_p), plain_ms = cuda_once(lambda: lk.quantize_plain(
         *part, *scal, use_mean=use_mean))
     err = max(max_abs_err(t_k[sub], t_p), max_abs_err(R_k[sub], R_p))
-    row = dict(shape=list(shape), use_mean=use_mean, regression=regression,
+    row = dict(kernels=f"{k1_name}/{k2_name}", dtype=np.dtype(T).name,
+               shape=list(shape), use_mean=use_mean, regression=regression,
                plain_on=list(t_p.shape), K1_bit_equal=err == 0.0,
                K1_repeat_bit_equal=again, K1_max_abs_err=err)
     entries = {}
+    sfx = "_f64" if wide else ""
     if timed:
         ms = cuda_ms(k1, 5 if whole else 3)
         # K1 reads its five inputs and writes t and R
         b_ms, b_by = bound(nbytes(*args, t_k, R_k))
         row["K1"] = dict(ms=ms, plain_ms=plain_ms if whole else None,
                          bound_ms=b_ms)
-        entries["wavefront_quantize"] = dict(
+        entries["wavefront_quantize" + sfx] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms if whole else None,
             bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=list(shape))
     del t_p, R_p, part
@@ -356,30 +407,63 @@ def lorenzo_case(dev, shape, use_mean, regression, timed) -> dict:
         b_ms, b_by = bound(nbytes(*dec, D_k))
         row["K2"] = dict(ms=ms, plain_ms=plain_ms if whole else None,
                          bound_ms=b_ms)
-        entries["wavefront_decode"] = dict(
+        entries["wavefront_decode" + sfx] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms if whole else None,
             bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=list(shape))
-    _log("kernel K1/K2 vs plain", **row)
+    _log(f"kernel {k1_name}/{k2_name} vs plain", **row)
     if not all(row[k] for k in ("K1_bit_equal", "K1_repeat_bit_equal",
                                 "K2_bit_equal", "K2_repeat_bit_equal",
                                 "K2_rebuilds_K1_R")):
-        raise AssertionError(f"K1/K2 differ from their plain versions or "
-                             f"from each other: {row}")
+        raise AssertionError(f"{k1_name}/{k2_name} differ from their plain "
+                             f"versions or from each other: {row}")
     return row, entries
 
 
+def lorenzo_tiles(ptxas: list) -> list:
+    """K1/K2 and K1d/K2d on each tile shape: ptxas's registers and
+    spills of the instantiation (its mangled name holds
+    LorenzoTileILi<rank>E and f or d)."""
+    from sz_tpu_torch.gpu import lorenzo_kernel as lk
+    rows = []
+    for kernel in ("wavefront_quantize", "wavefront_decode"):
+        for v, t3, t2 in (("f", lk.TILE3, lk.TILE2),
+                          ("d", lk.TILE3_F64, lk.TILE2_F64)):
+            name = kernel + ("_f64" if v == "d" else "") + "_kernel"
+            for rank, tile in ((3, t3), (2, t2)):
+                tag = f"{len(name)}{name}I"
+                key = f"LorenzoTileILi{rank}E{v}"
+                regs = spill = None
+                for i, ln in enumerate(ptxas):
+                    if tag in ln and key in ln:
+                        for nxt in ptxas[i + 1:i + 3]:
+                            if "registers" in nxt:
+                                regs = int(nxt.split("Used ")[1].split()[0])
+                            if "spill" in nxt:
+                                spill = nxt.strip()
+                rows.append(dict(kernel=name, rank=rank, tile=list(tile),
+                                 threads=tile[0] * tile[1],
+                                 registers=regs, spill=spill))
+    for row in rows:
+        _log("K1/K2 tiles", **row)
+    return rows
+
+
 def phase_lorenzo(dev) -> tuple:
-    """Phase 2, K1/K2.  Returns (rows, record entries at 256^3)."""
+    """Phase 2, K1/K2 and K1d/K2d.  Returns (rows, record entries at
+    256^3)."""
     import torch
     rows, entries = [], {}
-    for shape, use_mean, regression in LORENZO_EXACT:
-        rows.append(lorenzo_case(dev, shape, use_mean, regression, False)[0])
-    for shape in LORENZO_TIMED:
-        row, ent = lorenzo_case(dev, shape, True, "mixed", True)
-        rows.append(row)
-        if shape == (256, 256, 256):
-            entries = ent
-        torch.cuda.empty_cache()
+    for T, timed_shapes in ((np.float32, LORENZO_TIMED),
+                            (np.float64, LORENZO_TIMED_F64)):
+        for shape, use_mean, regression in LORENZO_EXACT:
+            rows.append(lorenzo_case(dev, shape, use_mean, regression, False,
+                                     T)[0])
+        for shape in timed_shapes:
+            row, ent = lorenzo_case(dev, shape, True, "mixed", True, T)
+            rows.append(row)
+            if shape == (256, 256, 256):
+                entries.update(ent)
+            torch.cuda.empty_cache()
     return rows, entries
 
 
@@ -1072,7 +1156,110 @@ def phase_main_path(dev, record: dict) -> None:
                               want.view(np.uint32)):
             raise AssertionError(f"golden {name} decodes differently")
         _log("main path", case=f"golden_{name}", decode_bit_equal=True)
+    main_path_f64(dev, rows)
+    main_path_tensor_input(dev, rows)
     record["main_path"] = rows
+
+
+# the float64 goldens (the reference binary's streams) and their shapes
+GOLDEN_F64 = (("f64_3d64_abs1e-3", (64, 64, 64)), ("f64_3d_abs1e-4", (128, 8, 8)),
+              ("f64_2d_abs1e-4", (128, 64)), ("f64_4d_rel1e-3", (128, 8, 8, 8)))
+
+
+def main_path_f64(dev, rows: list) -> None:
+    """Phase 3, float64 (K1d/K2d): the ORACLE_F64 fields' streams and
+    decodes hash to the oracle's, the float64 goldens decode bit-equal,
+    and synth_f64_64.dat compresses to its golden's inner stream."""
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+    from sz_tpu_torch.format import lossless as ll
+
+    cfg = SZConfig().with_bound(ErrorBoundMode.ABS, ABS)
+    for name, (shape, seed, want_stream, want_recon) in ORACLE_F64.items():
+        x = field64(shape, seed)
+        t0 = time.perf_counter()
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        t1 = time.perf_counter()
+        out = sz_tpu_torch.decompress(blob, x.shape, np.float64, device=dev)
+        t2 = time.perf_counter()
+        if sha256(blob) != want_stream:
+            raise AssertionError(f"{name}: stream differs from the oracle")
+        if out.dtype != np.float64 or sha256(out.tobytes()) != want_recon:
+            raise AssertionError(f"{name}: decode differs from the oracle")
+        err = float(np.abs(out - x).max())
+        if err > ABS:
+            raise AssertionError(f"{name}: error {err} above the bound")
+        row = dict(case=name, dtype="float64", shape=list(shape),
+                   stream_sha256_equal=True, decode_sha256_equal=True,
+                   ratio=x.nbytes / len(blob), max_abs_err=err,
+                   port_compress_s=t1 - t0, port_decompress_s=t2 - t1)
+        _log("main path", **row)
+        rows.append(row)
+    golden = REPO / "tests" / "golden"
+    for name, shape in GOLDEN_F64:
+        want = np.fromfile(golden / f"{name}.out", dtype="<f8")
+        got = sz_tpu_torch.decompress((golden / f"{name}.sz").read_bytes(),
+                                      shape, np.float64, device=dev)
+        if not np.array_equal(got.reshape(-1).view(np.uint64),
+                              want.view(np.uint64)):
+            raise AssertionError(f"golden {name} decodes differently")
+        _log("main path", case=f"golden_{name}", decode_bit_equal=True)
+    x = np.fromfile(golden / "synth_f64_64.dat", dtype="<f8").reshape(
+        64, 64, 64)
+    cap = 2 * x.nbytes + 64
+    want = ll.decompress((golden / "f64_3d64_abs1e-3.sz").read_bytes(), cap)
+    if ll.decompress(sz_tpu_torch.compress(x, cfg, device=dev), cap) != want:
+        raise AssertionError("synth_f64_64 differs from the golden's inner "
+                             "stream")
+    _log("main path", case="golden_f64_3d64_abs1e-3_compress",
+         inner_stream_equal=True)
+
+
+def main_path_tensor_input(dev, rows: list) -> None:
+    """Phase 3, CUDA-tensor input: compress of a tensor on the card gives
+    the bytes of the host array's (the oracle's) for the 256^3 float32
+    and float64 fields, and for a non-contiguous and a 4-D view;
+    decompress(..., as_tensor=True) of float64 stays on the card."""
+    import torch
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+
+    cfg = SZConfig().with_bound(ErrorBoundMode.ABS, ABS)
+    for name, x, want_stream, want_recon in (
+            ("field_256", field((256, 256, 256), 42), ORACLE["field_256"][2],
+             ORACLE["field_256"][3]),
+            ("field64_256", field64((256, 256, 256), 42),
+             ORACLE_F64["field64_256"][2], ORACLE_F64["field64_256"][3])):
+        xt = torch.from_numpy(x).to(dev)
+        blob = sz_tpu_torch.compress(xt, cfg, device=dev)
+        if sha256(blob) != want_stream:
+            raise AssertionError(f"{name}: a tensor's stream differs from the "
+                                 f"host array's")
+        out = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=dev,
+                                      as_tensor=True)
+        if out.device != xt.device or out.dtype != xt.dtype or \
+                sha256(out.cpu().numpy().tobytes()) != want_recon:
+            raise AssertionError(f"{name}: as_tensor decode differs")
+        row = dict(case=f"{name}_tensor_input", dtype=x.dtype.name,
+                   stream_sha256_equal=True, decode_sha256_equal=True,
+                   as_tensor_on=str(out.device))
+        _log("main path", **row)
+        rows.append(row)
+        del xt, out
+    golden = REPO / "tests" / "golden"
+    x = np.fromfile(golden / "synth_f64_64.dat", dtype="<f8").reshape(
+        64, 64, 64)
+    for name, view, host in (
+            ("transposed", lambda t: t.permute(2, 0, 1),
+             np.ascontiguousarray(x.transpose(2, 0, 1))),
+            ("4d", lambda t: t.reshape(4, 16, 64, 64), x.reshape(4, 16, 64, 64))):
+        xt = view(torch.from_numpy(x).to(dev))
+        if sz_tpu_torch.compress(xt, cfg, device=dev) != \
+                sz_tpu_torch.compress(host, cfg, device=dev):
+            raise AssertionError(f"synth_f64_64 {name}: a tensor's stream "
+                                 f"differs from the host array's")
+        _log("main path", case=f"synth_f64_64_{name}_tensor_input",
+             contiguous=xt.is_contiguous(), stream_equal=True)
 
 
 def pointwise_err(x: np.ndarray, out: np.ndarray) -> float:
@@ -1089,6 +1276,114 @@ def pointwise_err(x: np.ndarray, out: np.ndarray) -> float:
     if not (x < 0).any() and (out[~nz] != 0).any():
         raise AssertionError("a zero decoded to a non-zero value")
     return err
+
+
+def copies_of(fn) -> tuple:
+    """(fn(), {"DtoH": [bytes], "HtoD": [bytes]}): fn() under
+    torch.profiler, and the bytes of each host<->device copy its trace
+    holds (the trace's gpu_memcpy events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    path = REPO / "build" / "copies_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    copies = {"DtoH": [], "HtoD": []}
+    for ev in events:
+        if ev.get("cat") != "gpu_memcpy":
+            continue
+        for way, sizes in copies.items():
+            if way in ev.get("name", ""):
+                sizes.append(int(ev.get("args", {}).get("bytes", -1)))
+    return out, copies
+
+
+def stream_parts(blob: bytes, shape, T) -> tuple:
+    """(bytes of the packed type stream, bytes of its escape values, bytes
+    of the rest of the body) of a regression stream: what the compress
+    downloads of each, as K4 and the escape gather leave it."""
+    from sz_tpu_torch.config import MIN_NUM_OF_ELEMENTS, data_type
+    from sz_tpu_torch.core import regnd
+    from sz_tpu_torch.format import lossless, metadata
+    dt, esize = data_type(T), np.dtype(T).itemsize
+    n = int(np.prod(shape))
+    assert n > MIN_NUM_OF_ELEMENTS
+    inner = lossless.decompress(blob, expected_size=n * esize + 4
+                                + metadata.meta_length(dt) + 8)
+    hdr = metadata.parse_header(inner, dt)
+    body = inner[hdr.body_offset + hdr.size_type:]
+    parsed = regnd.parse_body(body, shape, T, hdr.size_type,
+                              lambda tree, coded, count: np.zeros(count,
+                                                                  np.int32))
+    packed, escapes = len(parsed.encoded), parsed.unpred.size * esize
+    return packed, escapes, len(body) - packed - escapes
+
+
+def phase_device_input_copies(dev, record: dict) -> None:
+    """The copies of a compress from a tensor on the card, 256^3 float32
+    and float64 (warm).  No host-to-device copy of the field (the largest
+    is under 5 % of its bytes).  The largest copy down is the packed type
+    stream (the stream's own count, K4's words rounding it up by at most
+    3 bytes); the rest down is under 5 % of the field and within the
+    vectors the path must download: the coefficient sums, the optimizer's
+    samples, the block selection, the histogram, the escapes, and the
+    coefficient streams and scalars (the body less its type stream and
+    escapes, plus 4 KiB)."""
+    import torch
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+    from sz_tpu_torch.gpu import geometry, hist_kernel, stages
+
+    cfg = SZConfig().with_bound(ErrorBoundMode.ABS, ABS)
+    rows = []
+    for name, x in (("field_256", field((256, 256, 256), 42)),
+                    ("field64_256", field64((256, 256, 256), 42))):
+        xt = torch.from_numpy(x).to(dev)
+        blob = sz_tpu_torch.compress(xt, cfg, device=dev)
+        again, copies = copies_of(
+            lambda: sz_tpu_torch.compress(xt, cfg, device=dev))
+        down, up = sorted(copies["DtoH"]), sorted(copies["HtoD"])
+        if again != blob or not down or min(down + up) < 0:
+            raise AssertionError(f"{name}: no byte counts in the trace, or "
+                                 f"the second compress differs")
+        packed, escapes, rest_of_body = stream_parts(blob, x.shape,
+                                                     x.dtype.type)
+        sums = stages.coeff_sums(xt, 6)
+        samples = stages.optimizer_samples(xt, cfg.sample_distance)[0]
+        vectors = dict(
+            coeff_sums=sums.numel() * sums.element_size(),
+            samples=samples.numel() * samples.element_size(),
+            selection=geometry.geom_small(x.shape, 6)["nblocks"],
+            histogram=hist_kernel.NBINS * 4, escapes=escapes,
+            coefficient_streams_and_scalars=rest_of_body + 4096)
+        del sums, samples
+        row = dict(case=name, field_bytes=x.nbytes, stream_bytes=len(blob),
+                   packed_type_stream=packed,
+                   d2h_copies=len(down), d2h_bytes=sum(down),
+                   d2h_largest=down[-1],
+                   d2h_besides_largest=sum(down[:-1]),
+                   d2h_besides_largest_share=sum(down[:-1]) / x.nbytes,
+                   d2h_known_vectors=sum(vectors.values()), **vectors,
+                   h2d_copies=len(up), h2d_bytes=sum(up),
+                   h2d_largest=up[-1] if up else 0)
+        _log("device input copies", **row)
+        if not packed <= down[-1] <= packed + 3:
+            raise AssertionError(f"{name}: the largest copy down is not the "
+                                 f"packed type stream: {row}")
+        if row["d2h_besides_largest"] > row["d2h_known_vectors"] or \
+                row["d2h_besides_largest_share"] >= 0.05 or \
+                row["h2d_largest"] >= 0.05 * x.nbytes:
+            raise AssertionError(f"{name}: the field crossed the link: "
+                                 f"{row}")
+        rows.append(row)
+        del xt
+    record["device_input_copies"] = rows
 
 
 # --- phase 4: full size ---------------------------------------------------
@@ -1166,6 +1461,17 @@ def phase_full_size(dev, record: dict, wrappers: dict,
                compress_spans_s=spans_c, decompress_spans_s=spans_d,
                decompress_counts=counts_d, launches_per_decompress=launches,
                d2h_537MB_s=d2h)
+    # the same field compressed from a tensor on the card
+    xt = torch.from_numpy(x).to(dev)
+    if sz_tpu_torch.compress(xt, cfg, device=dev) != blob:
+        raise AssertionError("512^3: a tensor's stream differs from the host "
+                             "array's")
+    tt, spans_t, _ = _best_of(
+        lambda: sz_tpu_torch.compress(xt, cfg, device=dev), 3)
+    del xt
+    row.update(device_input_compress_MBps=mb / tt,
+               device_input_compress_s=tt,
+               device_input_compress_spans_s=spans_t)
     _log("full size 512^3", **row)
     record["full_512"] = row
     # bench.py's synth field: the same decompress on the earlier input
@@ -1185,6 +1491,47 @@ def phase_full_size(dev, record: dict, wrappers: dict,
     _log("full size 512^3 synth", **row)
     record["synth_512"] = row
     return blob, calls
+
+
+def phase_full_size_f64(dev, record: dict, wrappers: dict,
+                        shape=(512, 512, 512)) -> None:
+    """512^3 float64 (1.07 GB), ABS 1e-3, through K1d/K2d: the bound,
+    compress and decompress MB/s (warm, best of 3) with spans, and the
+    kernel launches of one compress and one decompress."""
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+
+    cfg = SZConfig().with_bound(ErrorBoundMode.ABS, ABS)
+    x = field64(shape, 42)
+    mb = x.nbytes / 1e6
+    blob = sz_tpu_torch.compress(x, cfg, device=dev)
+    out = sz_tpu_torch.decompress(blob, x.shape, np.float64, device=dev)
+    err = float(np.abs(out - x).max())
+    del out
+    if err > ABS:
+        raise AssertionError(f"512^3 float64: error {err} above the bound")
+    tc, spans_c, _ = _best_of(
+        lambda: sz_tpu_torch.compress(x, cfg, device=dev), 3)
+    td, spans_d, counts_d = _best_of(
+        lambda: sz_tpu_torch.decompress(blob, x.shape, np.float64,
+                                        device=dev), 3)
+    launches = {}
+    for what, fn in (("compress", lambda: sz_tpu_torch.compress(
+            x, cfg, device=dev)), ("decompress", lambda: (
+                sz_tpu_torch.decompress(blob, x.shape, np.float64,
+                                        device=dev)))):
+        for w in wrappers.values():
+            w.launches = 0
+        fn()
+        launches[what] = {k: w.launches for k, w in wrappers.items()
+                          if w.launches}
+    row = dict(shape=list(shape), dtype="float64", ratio=x.nbytes / len(blob),
+               max_abs_err=err, compress_MBps=mb / tc,
+               decompress_MBps=mb / td, compress_s=tc, decompress_s=td,
+               compress_spans_s=spans_c, decompress_spans_s=spans_d,
+               decompress_counts=counts_d, launches=launches)
+    _log("full size 512^3 float64", **row)
+    record["full_512_f64"] = row
 
 
 def phase_full_size_pwrel(dev, record: dict, wrappers: dict) -> dict:
@@ -1342,6 +1689,8 @@ def phase_fsm_timing(dev, streams: dict) -> dict:
 DEVICE_NAMES = (
     ("wavefront_quantize_kernel", "wavefront_quantize"),
     ("wavefront_decode_kernel", "wavefront_decode"),
+    ("wavefront_quantize_f64_kernel", "wavefront_quantize_f64"),
+    ("wavefront_decode_f64_kernel", "wavefront_decode_f64"),
     ("histogram_window_kernel", "histogram"),
     ("pack_lookback_kernel", "pack_bits"),
     ("fsm_sweep_kernel", "fsm_sweep"), ("fsm_sweep_wide_kernel", "fsm_sweep"),
@@ -1397,6 +1746,11 @@ KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
                            "sz_tpu/tpu/pallas_kernels.py:404"),
     "wavefront_decode": ("K2", "sz_tpu_torch/csrc/lorenzo.cu",
                          "sz_tpu/tpu/wf_quantize.py:351"),
+    # float64 has no Pallas form: K1d/K2d replace the XLA fixpoints
+    "wavefront_quantize_f64": ("K1d", "sz_tpu_torch/csrc/lorenzo.cu",
+                               "sz_tpu/tpu/engine.py:796"),
+    "wavefront_decode_f64": ("K2d", "sz_tpu_torch/csrc/lorenzo.cu",
+                             "sz_tpu/tpu/engine.py:1568"),
     "histogram": ("K3", "sz_tpu_torch/csrc/hist.cu",
                   "sz_tpu/tpu/hist_kernel.py:74"),
     "pack_bits": ("K4", "sz_tpu_torch/csrc/pack.cu",
@@ -1469,6 +1823,7 @@ def main() -> int:
         record["ptxas"] = [ln for ln in log.read_text().splitlines()
                            if "registers" in ln or "Compiling entry" in ln
                            or "spill" in ln]
+        record["lorenzo_tiles"] = lorenzo_tiles(record["ptxas"])
 
     # phase 2: each kernel against its plain version
     record["lorenzo_cases"], entries = phase_lorenzo(dev)
@@ -1481,6 +1836,9 @@ def main() -> int:
     # phase 3: the main path; the launch counters cover exactly this run
     wrappers = {"wavefront_quantize": lorenzo_kernel.wavefront_quantize,
                 "wavefront_decode": lorenzo_kernel.wavefront_decode,
+                "wavefront_quantize_f64":
+                    lorenzo_kernel.wavefront_quantize_f64,
+                "wavefront_decode_f64": lorenzo_kernel.wavefront_decode_f64,
                 "histogram": hist_kernel.histogram,
                 "pack_bits": pack_kernel.pack_bits,
                 "fsm_sweep": fsm_kernel.fsm_sweep,
@@ -1500,10 +1858,14 @@ def main() -> int:
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"main path never launched {idle}")
+    phase_device_input_copies(dev, record)
 
-    # phase 4: full size, then PW_REL, then K5-K7 timed on their streams
+    # phase 4: full size (float32 from a host array and from a tensor),
+    # PW_REL, then float64 (after the float32 phases, which so run as
+    # before it), then K5-K7 timed on their streams
     blob, calls = phase_full_size(dev, record, wrappers)
     streams, pw_calls = phase_full_size_pwrel(dev, record, wrappers)
+    phase_full_size_f64(dev, record, wrappers)
     streams = {"512^3 ABS": (blob, (512, 512, 512)), **streams}
     calls = {"512^3 ABS": calls, **pw_calls}
     del blob, pw_calls

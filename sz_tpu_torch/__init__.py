@@ -8,8 +8,10 @@ and runs the device stages in torch, with the TPU's Pallas kernels
 replaced by CUDA C++ kernels for ``sm_90a`` (``csrc``, built with
 ``nvcc`` at first use).  It never imports ``jax``.
 
-Public API (the ported slice: float32, rank 2/3, regression codec); both
-run on the card unless the caller passes ``device="cpu"``:
+Public API (the ported slice: float32 and float64 of rank 2-4 through the
+regression codec, float32 through MSST19 PW_REL; ``data`` a numpy array
+or a torch tensor, which stays on the card when it lies there); both run
+on the card unless the caller passes ``device="cpu"``:
     compress(data, cfg, device="cuda") -> bytes
     decompress(blob, shape, dtype, device="cuda", as_tensor=False)
 """

@@ -1,10 +1,20 @@
 """``compress`` / ``decompress`` of the PyTorch port, for the slice it
-covers: float32 fields of rank 2 or 3 (rank 4 folds to 3) through the
-SZ2.1 blocked-regression codec, under any error bound that resolves to
-an absolute one (ABS, REL, ABS_AND_REL, ABS_OR_REL, PSNR, NORM), and
-through the MSST19 codec under any point-wise relative bound (PW_REL and
-the modes above it) when it is accelerated (``accelerate_pw_rel`` and a
-ratio of at least 1e-5, the reference's default route).
+covers: float32 and float64 fields of rank 2 or 3 (rank 4 folds to 3)
+through the SZ2.1 blocked-regression codec, under any error bound that
+resolves to an absolute one (ABS, REL, ABS_AND_REL, ABS_OR_REL, PSNR,
+NORM), and float32 fields through the MSST19 codec under any point-wise
+relative bound (PW_REL and the modes above it) when it is accelerated
+(``accelerate_pw_rel`` and a ratio of at least 1e-5, the reference's
+default route).
+
+``compress`` also takes a torch tensor.  One on the compute device (a
+field a simulation holds on the card) is compressed where it lies, as
+``sz_tpu`` compresses a ``jax.Array`` (``_try_compress_device``): the
+range scan, the optimizer's gathers and every lattice-sized stage run on
+the device, and the field crosses to the host only where the format
+needs it whole (the verbatim StoreOri fallback, or a PW_REL bound, whose
+MSST19 scans run on the host).  A tensor elsewhere is taken as a host
+array.
 
 The stream framing (range scan, bound resolution, header, constant and
 verbatim fallbacks, lossless wrap, decode clamp) is ``framing.py``, the
@@ -21,9 +31,9 @@ import torch
 
 from sz_tpu_torch import framing, native
 from sz_tpu_torch.config import (DEFAULT_CONFIG, MIN_NUM_OF_ELEMENTS,
-                                 DataType, SZConfig)
+                                 DataType, SZConfig, data_type, float_type,
+                                 np_dtype)
 from sz_tpu_torch.core import pwr
-from sz_tpu_torch.format import bytes_util as bu
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
 from sz_tpu_torch.format import tdps as tdps_mod
@@ -32,13 +42,11 @@ from sz_tpu_torch.gpu import engine, msst19_engine
 
 
 def _check_slice(dtype, ndim: int, cfg: SZConfig = None) -> None:
-    dt = np.dtype(dtype)
+    dt = np_dtype(dtype)
     if dt.kind in "iu":
         raise NotImplementedError(
             "integer data is not ported yet (ROADMAP 1.10)")
-    if dt == np.float64:
-        raise NotImplementedError("float64 is not ported yet (ROADMAP 1.3)")
-    if dt != np.float32:
+    if dt not in (np.float32, np.float64):
         raise TypeError(f"unsupported dtype {dt}")
     if ndim == 1:
         raise NotImplementedError(
@@ -50,6 +58,10 @@ def _check_slice(dtype, ndim: int, cfg: SZConfig = None) -> None:
             raise NotImplementedError(
                 "pre-log PW_REL (accelerate_pw_rel=False or a ratio below "
                 "1e-5) is not ported yet (ROADMAP 1.4)")
+        if dt == np.float64:
+            raise NotImplementedError(
+                "MSST19 PW_REL on float64 data is not ported yet "
+                "(ROADMAP 1.3)")
         return
     if not cfg.with_regression:
         raise NotImplementedError(
@@ -66,24 +78,35 @@ def _check_slice(dtype, ndim: int, cfg: SZConfig = None) -> None:
 
 def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
              device="cuda") -> bytes:
-    """Compress a float32 numpy array into an SZ2 stream, byte-equal to
-    ``sz_tpu.compress(data, cfg)``, with the device stages on
-    ``device`` ('cuda' runs the Hopper kernels)."""
+    """Compress a float32 or float64 field into an SZ2 stream, byte-equal
+    to ``sz_tpu.compress(data, cfg)``, with the device stages on
+    ``device`` ('cuda' runs the Hopper kernels).  ``data`` is a numpy
+    array or a torch tensor; a tensor on ``device`` stays there (made
+    contiguous there if it is not)."""
     dev = devmod.resolve(device)
     native.tune_malloc()
-    data = np.asarray(data)
+    on_dev = torch.is_tensor(data) and data.device == dev
+    data = data.detach() if on_dev else framing._host(data)
     dims = framing._filter_dims(data.shape)
     _check_slice(data.dtype, len(dims), cfg)
     n = int(np.prod(dims))
     if n <= MIN_NUM_OF_ELEMENTS:
-        return data.tobytes()   # SZ_skip_compress_float: raw bytes
+        # SZ_skip_compress_float: raw bytes
+        return framing._host(data).tobytes()
+    if on_dev and cfg.error_bound_mode.is_pw_rel:
+        # MSST19's range, sign and zero scans run on the host (as in
+        # sz_tpu, which materializes a jax.Array here)
+        data, on_dev = framing._host(data), False
+    if on_dev:
+        data = data.contiguous()   # copied where it lies, if at all
     data = data.reshape(dims)
-    dt = DataType.FLOAT
+    dt = data_type(data.dtype)
     flat = data.reshape(-1)
     (fmin, fmax, value_range, rp, _mode, hdr_cfg,
      range_info) = framing._fp_stream_params(data, cfg, dt)
     if value_range <= rp:
-        return framing._constant_stream(hdr_cfg, dt, fmin, fmax, flat[0], n)
+        return framing._constant_stream(hdr_cfg, dt, fmin, fmax,
+                                        framing._host(flat[:1])[0], n)
     if data.ndim == 4:
         # both codecs fold 4-D to 3-D (sz_float.c:2989-2992, :3010)
         d = data.shape
@@ -114,22 +137,23 @@ def _clamp_tensor(out: torch.Tensor, hdr) -> torch.Tensor:
     """framing._protect_clamp for a torch tensor."""
     if not hdr.protect_range:
         return out
-    mn = torch.tensor(np.float32(hdr.params.fmin), device=out.device)
-    mx = torch.tensor(np.float32(hdr.params.fmax), device=out.device)
+    T = float_type(out.dtype)
+    mn = torch.tensor(T(hdr.params.fmin), device=out.device)
+    mx = torch.tensor(T(hdr.params.fmax), device=out.device)
     return torch.where(out < mn, mn, torch.where(out > mx, mx, out))
 
 
 def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
                as_tensor: bool = False):
-    """Decode an SZ2 float32 regression or MSST19 PW_REL stream,
-    bit-equal to ``sz_tpu.decompress``.  Returns numpy, or a tensor on
-    ``device`` when ``as_tensor``."""
+    """Decode an SZ2 float32 or float64 regression stream, or a float32
+    MSST19 PW_REL one, bit-equal to ``sz_tpu.decompress``.  Returns
+    numpy, or a tensor on ``device`` when ``as_tensor``."""
     dev = devmod.resolve(device)
     native.tune_malloc()
     dims = framing._filter_dims(shape)
     _check_slice(dtype, len(dims))
     n = int(np.prod(dims))
-    T = np.float32
+    T = np_dtype(dtype).type
 
     def finish(out):
         if as_tensor:
@@ -140,27 +164,32 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
 
     if n <= MIN_NUM_OF_ELEMENTS:
         return finish(np.frombuffer(blob, dtype=T, count=n).copy())
-    dt = DataType.FLOAT
+    dt = data_type(T)
+    esize = np.dtype(T).itemsize
     mlen = md.meta_length(dt)
     if len(blob) not in (8 + 4 + mlen, 8 + 8 + mlen):
-        inner = ll.decompress(blob, expected_size=n * 4 + 4 + mlen + 8)
+        inner = ll.decompress(blob, expected_size=n * esize + 4 + mlen + 8)
     else:
         inner = blob
     if DataType(inner[4 + 5] & 0x0F) != dt:
-        raise TypeError("stream does not hold float32 data")
+        raise TypeError(f"stream does not hold {np.dtype(T).name} data")
     hdr = md.parse_header(inner, dt)
     off = hdr.body_offset + hdr.size_type
     if hdr.lossless:
-        out = np.frombuffer(inner, dtype=">f4", count=n, offset=off)
+        out = np.frombuffer(inner, dtype=f">f{esize}", count=n, offset=off)
         return finish(framing._protect_clamp(out.astype(T), hdr, T))
     if hdr.same:
-        v = bu.read_f32_be(inner, off)
+        v = np.frombuffer(inner, dtype=f">f{esize}", count=1, offset=off)[0]
         return finish(framing._protect_clamp(np.full(n, v, dtype=T), hdr, T))
     dims3 = (dims[0] * dims[1], dims[2], dims[3]) if len(dims) == 4 else dims
     if hdr.pw_rel:
         if not hdr.msst19:
             raise NotImplementedError(
                 "pre-log PW_REL streams are not ported yet (ROADMAP 1.4)")
+        if T is np.float64:
+            raise NotImplementedError(
+                "MSST19 PW_REL streams of float64 data are not ported yet "
+                "(ROADMAP 1.3)")
         t = tdps_mod.from_bytes(memoryview(inner)[off:], dt, is_pwr=True,
                                 msst19=True, size_type=hdr.size_type)
         out = msst19_engine.decompress(t, dims3, device=dev,

@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import numpy as np
+
 
 class ErrorBoundMode(enum.IntEnum):
     """Error bound modes (defines.h:29-41)."""
@@ -48,6 +50,28 @@ class DataType(enum.IntEnum):
     INT32 = 7
     UINT64 = 8
     INT64 = 9
+
+
+def np_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a numpy dtype-like or a torch dtype."""
+    if type(dtype).__module__ == "torch":
+        return np.dtype(str(dtype).removeprefix("torch."))
+    return np.dtype(dtype)
+
+
+def float_type(dtype) -> type:
+    """np.float32 or np.float64 for a float32 or float64 dtype (numpy or
+    torch), the two the codecs take; TypeError for any other."""
+    T = np_dtype(dtype).type
+    if T not in (np.float32, np.float64):
+        raise TypeError(f"float32 or float64 expected, not {np_dtype(dtype)}")
+    return T
+
+
+def data_type(dtype) -> DataType:
+    """The stream's DataType of a float32 or float64 dtype."""
+    return DataType.FLOAT if float_type(dtype) is np.float32 else \
+        DataType.DOUBLE
 
 
 class SZMode(enum.IntEnum):

@@ -8,7 +8,14 @@ Lorenzo prediction errors in units of 2*eb, and a value-frequency
 histogram that locates the densest value ("dense_pos") for the
 mean-flush optimization.  The walks are cached per shape; the
 histograms are vectorized in numpy; the one ordered reduction (the
-strided mean) runs in the host runtime's ``seq_sum_f32``.
+strided mean) runs in the host runtime's ``seq_sum``, in the data's
+dtype (float32 or float64).
+
+The engine runs the walks' gathers on the device
+(``sz_tpu_torch.gpu.stages.optimizer_samples``) and only the tail here
+(:func:`optimize_from_samples`); the host walks
+(``optimize_intervals_*_freq_dense``) are its plain version, which the
+tests hold it against.
 """
 
 from __future__ import annotations
@@ -118,9 +125,7 @@ def _sample_walk_indices_2d(r1: int, r2: int,
 def sample_count(shape, sample_distance: int) -> int:
     """The points the second sampling walk visits on a rank-2/3 field:
     ``_finish`` divides by it, and the C divides by it in double."""
-    walk = (_sample_walk_indices_3d if len(shape) == 3
-            else _sample_walk_indices_2d)
-    return len(walk(*(int(r) for r in shape), sample_distance))
+    return len(walks(shape, sample_distance)[1])
 
 
 def _finish(cur, pred, mean, rp, sample_count, max_range_radius,
@@ -165,11 +170,38 @@ def _finish(cur, pred, mean, rp, sample_count, max_range_radius,
     return int(pow2), dense_pos, max_freq, mean_freq
 
 
-def _walk_mean(flat, midx, T):
-    mean = native.seq_sum_f32(flat[midx])
-    if len(midx) > 0:
-        mean = T(mean / T(len(midx)))
+def walks(shape, sample_distance: int):
+    """(mean walk, sample walk) flat indices of a rank-2/3 field: pure
+    integer arithmetic, cached per shape."""
+    shape = tuple(int(r) for r in shape)
+    if len(shape) == 3:
+        return (_mean_walk_indices_3d(*shape),
+                _sample_walk_indices_3d(*shape, sample_distance))
+    return (_mean_walk_indices_2d(*shape),
+            _sample_walk_indices_2d(*shape, sample_distance))
+
+
+def seq_sum(vals: np.ndarray, T=np.float32):
+    """Strictly sequential accumulation in dtype T (C ``T acc += ...``)."""
+    return native.seq_sum(np.asarray(vals, dtype=T))
+
+
+def _walk_mean(mean_vals, T):
+    mean = seq_sum(mean_vals, T)
+    if len(mean_vals) > 0:
+        mean = T(mean / T(len(mean_vals)))
     return mean
+
+
+def optimize_from_samples(mean_vals, cur, pred, real_precision,
+                          max_range_radius, pred_threshold, T=np.float32):
+    """The optimizer's tail from its gathered samples (the mean walk's
+    values, the sample walk's values and their Lorenzo predictions, in
+    walk order): (quantization_intervals, dense_pos, max_freq,
+    mean_freq), as ``engine._optimizer_host_tail`` of the JAX package."""
+    return _finish(cur, pred, _walk_mean(mean_vals, T),
+                   float(real_precision), len(cur), max_range_radius,
+                   pred_threshold, T)
 
 
 def optimize_intervals_3d_freq_dense(flat, r1, r2, r3, real_precision,
@@ -177,7 +209,7 @@ def optimize_intervals_3d_freq_dense(flat, r1, r2, r3, real_precision,
                                      pred_threshold, T=np.float32):
     """(quantization_intervals, dense_pos, max_freq, mean_freq)."""
     r23 = r2 * r3
-    mean = _walk_mean(flat, _mean_walk_indices_3d(r1, r2, r3), T)
+    mean = _walk_mean(flat[_mean_walk_indices_3d(r1, r2, r3)], T)
     sidx = _sample_walk_indices_3d(r1, r2, r3, sample_distance)
     d = flat
     cur = d[sidx]
@@ -194,7 +226,7 @@ def optimize_intervals_3d_freq_dense(flat, r1, r2, r3, real_precision,
 def optimize_intervals_2d_freq_dense(flat, r1, r2, real_precision,
                                      max_range_radius, sample_distance,
                                      pred_threshold, T=np.float32):
-    mean = _walk_mean(flat, _mean_walk_indices_2d(r1, r2), T)
+    mean = _walk_mean(flat[_mean_walk_indices_2d(r1, r2)], T)
     sidx = _sample_walk_indices_2d(r1, r2, sample_distance)
     d = flat
     cur = d[sidx]
@@ -215,5 +247,5 @@ def fold_mean(vals: np.ndarray, T=np.float32):
     """mean = seq_sum(vals)/len in T (sz_float.c:6811-6817); T(0) when
     the dense cluster is empty."""
     if len(vals):
-        return T(native.seq_sum_f32(vals) / T(len(vals)))
+        return T(seq_sum(vals, T) / T(len(vals)))
     return T(0)

@@ -1,9 +1,10 @@
 """Body layout and host stages of the SZ2.1 blocked-regression codec (the
 port's copy of the parts of ``sz_tpu.core.regnd`` the main path runs).
 
-Float32 only.  Reference kernels:
+Float32 and float64.  Reference kernels:
   3D: SZ_compress_float_3D_MDQ_nonblocked_with_blocked_regression
-      (sz_float.c:6527) / decoder (szd_float.c:3483)
+      (sz_float.c:6527) / decoder (szd_float.c:3483), and their double
+      twins in sz_double.c / szd_double.c
   2D: sz_float.c:5516 (block_size=16, 3 coeffs, use_mean forced 0,
       noise=0.81*eb)
 
@@ -24,6 +25,7 @@ import struct
 import numpy as np
 
 from sz_tpu_torch import native
+from sz_tpu_torch.config import float_type
 from sz_tpu_torch.core import blocks as B
 from sz_tpu_torch.format import bytes_util as bu
 from sz_tpu_torch.format import huffman
@@ -43,7 +45,7 @@ class EncodeResult:
 
 @dataclasses.dataclass(frozen=True)
 class _Spec:
-    """Rank-dependent constants (float32)."""
+    """Rank- and dtype-dependent constants."""
 
     rank: int
     T: type  # numpy scalar type
@@ -52,16 +54,33 @@ class _Spec:
     noise_factor: float
     rel_param_err_expr: float  # 0.025 (3D) | 0.15/3 (2D), as C double
     esize: int  # element byte size
-    fmt_le: str = "<f4"
+
+    @property
+    def fmt_le(self) -> str:
+        return f"<f{self.esize}"
+
+    def val_be(self, v) -> bytes:
+        return np.array(v, f">f{self.esize}").tobytes()
+
+    def val_le(self, v) -> bytes:
+        return np.array(v, self.fmt_le).tobytes()
+
+    def read_be(self, b, off: int):
+        return self.T(np.frombuffer(b, f">f{self.esize}", 1, off)[0])
+
+    def read_le(self, b, off: int):
+        return self.T(np.frombuffer(b, self.fmt_le, 1, off)[0])
 
 
 def _spec(rank: int, dtype) -> _Spec:
-    if np.dtype(dtype) != np.float32:
-        raise NotImplementedError("float64 is not ported yet (ROADMAP 1.3)")
+    """The constants of ``rank`` for a float32 or float64 dtype (numpy or
+    torch)."""
+    T = float_type(dtype)
+    esize = np.dtype(T).itemsize
     if rank == 3:
-        return _Spec(3, np.float32, 6, 4, 1.22, 0.025, 4)
+        return _Spec(3, T, 6, 4, 1.22, 0.025, esize)
     if rank == 2:
-        return _Spec(2, np.float32, 16, 3, 0.81, 0.15 / 3, 4)
+        return _Spec(2, T, 16, 3, 0.81, 0.15 / 3, esize)
     raise ValueError(f"rank {rank} unsupported by regression codec")
 
 
@@ -116,19 +135,19 @@ def assemble_body(spec: _Spec, rp, quantization_intervals: int,
     total_unpred = len(unpred_arr)
     out = bytearray()
     out += bu.i32_be(spec.block_size)
-    out += bu.f32_be(rp)
+    out += spec.val_be(rp)
     out += bu.i32_be(quantization_intervals)
     out += bu.i32_be(len(tables.tree_bytes))
     out += bu.i32_be(tables.node_count)
     out += tables.tree_bytes
     out += bytes([1 if use_mean else 0])
-    out += bu.f32_le(mean)
+    out += spec.val_le(mean)
     out += bu.pack_bits_1(~np.asarray(use_reg, dtype=bool))
     if reg_count > 0:
         for e in range(spec.ncoeff):
             ct = huffman.build_tables(ctypes[e], 2 * COEFF_CAPACITY)
             cenc = encode_coeff_types(ct, ctypes[e])
-            out += bu.f32_be(cprec[e])
+            out += spec.val_be(cprec[e])
             out += bu.i32_be(COEFF_RADIUS)
             out += bu.i32_be(len(ct.tree_bytes))
             out += bu.i32_be(ct.node_count)
@@ -177,8 +196,8 @@ def parse_body(body: bytes, shape, dtype, size_type: int,
     pos = 0
     block_size = bu.read_i32_be(body, pos)
     pos += 4
-    rp = bu.read_f32_be(body, pos)
-    pos += 4
+    rp = spec.read_be(body, pos)
+    pos += spec.esize
     intervals = bu.read_i32_be(body, pos)
     pos += 4
     tree_size = bu.read_i32_be(body, pos)
@@ -190,8 +209,8 @@ def parse_body(body: bytes, shape, dtype, size_type: int,
     pos += tree_size
     use_mean = body[pos]
     pos += 1
-    mean = bu.read_f32_le(body, pos)
-    pos += 4
+    mean = spec.read_le(body, pos)
+    pos += spec.esize
 
     dbs = [B.dim_blocks(r, block_size) for r in shape]
     num_blocks = int(np.prod([db.num for db in dbs]))
@@ -207,8 +226,8 @@ def parse_body(body: bytes, shape, dtype, size_type: int,
     cradius = np.zeros(nc, dtype=np.int64)
     if reg_count > 0:
         for e in range(nc):
-            cprec[e] = bu.read_f32_be(body, pos)
-            pos += 4
+            cprec[e] = spec.read_be(body, pos)
+            pos += spec.esize
             cradius[e] = bu.read_i32_be(body, pos)
             pos += 4
             tsz = bu.read_i32_be(body, pos)

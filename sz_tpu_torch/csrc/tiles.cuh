@@ -48,11 +48,14 @@
 // warp's step on 32 banks.
 //
 // A point rule is a type Args with
-//   kArrays     4-byte arrays a point in shared memory, 2 or 3: R with its
-//               halo, the staged value X and, with 3, the int array T;
+//   kArrays     arrays a point in shared memory, 2 or 3: R with its halo
+//               and the staged value X, of R's element type, and, with
+//               3, the int array T;
 //   kFlagBytes  1 for a byte array F a point after them, else 0;
 //   kTypesOut   true when write_back also stores T to a.t_out;
-//   R           the float output, which later tiles read back as halo;
+//   R           the output (float* or double*: its element type V is the
+//               type of R, X and the halo), which later tiles read back
+//               as halo;
 // and, found by argument-dependent lookup in the kernel's source,
 //   stage(g, t, a, X, T, F)  fill the tile's inputs;
 //   point(g, a, c, i, j, k, Rs, X, T, F)  compute lattice point (i, j, k)
@@ -66,6 +69,24 @@ namespace tiles {
 
 // Threads a block at most: one a (i, j) column of the tile.
 constexpr int kMaxThreads = 256;
+
+// The element type V of a point rule's output R (float or double).
+template <class P>
+struct Pointee;
+template <class V>
+struct Pointee<V*> {
+  using type = V;
+};
+template <class Args>
+using ValueOf = typename Pointee<decltype(Args::R)>::type;
+
+// Shared-memory bytes a block of rule Args takes on tile shape G.
+template <class G, class Args>
+constexpr size_t shared_bytes() {
+  return (size_t)G::entries * (2 * sizeof(ValueOf<Args>) +
+                               (Args::kArrays == 3 ? 4 : 0) +
+                               Args::kFlagBytes);
+}
 
 // The smallest v >= lo with v = want (mod 32).
 constexpr int pitch(int lo, int want) {
@@ -167,10 +188,10 @@ __device__ __forceinline__ long long gidx(const G& g, int i, int j, int k) {
   return ((long long)i * g.r2 + j) * g.r3 + k;
 }
 
-template <class G>
-__device__ __forceinline__ float halo_at(const G& g, const float* R, int i,
-                                         int j, int k) {
-  return (i < 0 || j < 0 || k < 0) ? 0.0f : __ldcg(R + gidx(g, i, j, k));
+template <class G, class V>
+__device__ __forceinline__ V halo_at(const G& g, const V* R, int i, int j,
+                                     int k) {
+  return (i < 0 || j < 0 || k < 0) ? V(0) : __ldcg(R + gidx(g, i, j, k));
 }
 
 // With a two-deep k-halo: true for the tile that holds the k-2 neighbour
@@ -209,16 +230,15 @@ constexpr int kBatch = 8;
 constexpr int kStageBatch = 16;
 
 // Copies one face of the tile between R and its shared copy Rs (kLoad:
-// R -> Rs, 0.0f outside the lattice; else Rs -> R).  The face's points
+// R -> Rs, 0 outside the lattice; else Rs -> R).  The face's points
 // are an n1 x n2 grid; map(b, c, &li, &lj, &lk) places grid point (b, c)
 // in the tile.
-template <bool kLoad, class G, class Map>
-__device__ __forceinline__ void copy_face(const G& g, const Tile& t,
-                                          float* R, float* Rs, int n1,
-                                          int n2, Map map) {
+template <bool kLoad, class G, class V, class Map>
+__device__ __forceinline__ void copy_face(const G& g, const Tile& t, V* R,
+                                          V* Rs, int n1, int n2, Map map) {
   BoxWalk w(1, n1, n2);
   while (w.ok()) {
-    float v[kBatch];
+    V v[kBatch];
     int s[kBatch];
     long long x[kBatch];
 #pragma unroll
@@ -255,14 +275,13 @@ __device__ __forceinline__ void copy_face(const G& g, const Tile& t,
 // its edges; face lj = -1 (li >= 0, lk in [-1, nk)) with (I, J-1, K);
 // face lk = -1 (li, lj >= 0) with (I, J, K-1), and so is the point
 // (0, 0, -2) of a two-deep halo on the lattice's first row.  A face
-// outside the lattice reads 0.0f at once.
-template <class G>
+// outside the lattice reads 0 at once.
+template <class G, class V>
 __device__ __forceinline__ void wait_and_load_halo(const G& g,
                                                    const Tile& t,
                                                    const int* flags,
-                                                   const float* R,
-                                                   float* Rs) {
-  float* r = const_cast<float*>(R);
+                                                   const V* R, V* Rs) {
+  V* r = const_cast<V*>(R);
   const int* pred[3] = {t.ti > 0 ? flags + t.id - g.ntj * g.ntk : nullptr,
                         t.tj > 0 ? flags + t.id - g.ntk : nullptr,
                         t.tk > 0 ? flags + t.id - 1 : nullptr};
@@ -298,9 +317,9 @@ __device__ __forceinline__ void wait_and_load_halo(const G& g,
 
 // R on the tile's high faces that a later tile reads (the only points
 // other tiles read), and the k-2 neighbour of the next k-tile.
-template <class G>
-__device__ __forceinline__ void store_faces(const G& g, const Tile& t,
-                                            float* R, float* Rs) {
+template <class G, class V>
+__device__ __forceinline__ void store_faces(const G& g, const Tile& t, V* R,
+                                            V* Rs) {
   const int hi = t.ni - 1, hj = t.nj - 1, hk = t.nk - 1;
   if (t.si)
     copy_face<false>(g, t, R, Rs, t.nj, t.nk,
@@ -332,15 +351,15 @@ __device__ __forceinline__ void tile_point(const G& g, const Tile& t,
 
 // Coalesced write-back of the tile's R off the points store_faces wrote,
 // and of T where the rule has types, kBatch points a thread per round.
-template <class G, class Args>
+template <class G, class Args, class V>
 __device__ __forceinline__ void write_back(const G& g, const Tile& t,
-                                           const Args& a, const float* Rs,
+                                           const Args& a, const V* Rs,
                                            const int* T) {
   const bool k2 = holds_k2<G>(t);
   BoxWalk w(t.ni, t.nj, t.nk);
   while (w.ok()) {
     long long x[kBatch];
-    float r[kBatch];
+    V r[kBatch];
     int tv[kBatch];
     bool rest[kBatch];
 #pragma unroll
@@ -370,10 +389,11 @@ __device__ __forceinline__ void write_back(const G& g, const Tile& t,
 template <class G, class Args>
 __device__ __forceinline__ void run_tiles(const G& g, const int* order,
                                           int* flags, const Args& a) {
+  using V = ValueOf<Args>;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int m = G::entries;
-  float* Rs = (float*)smem;
-  float* X = Rs + m;
+  V* Rs = (V*)smem;
+  V* X = Rs + m;
   int* T = (int*)(X + m);
   unsigned char* F = (unsigned char*)(Args::kArrays == 3 ? T + m : T);
   int* counter = flags + g.ntiles;
@@ -421,7 +441,7 @@ int launch(void (*kernel)(G, const int*, int*, Args), const Args& a, int r1,
   if ((long long)g.nti * g.ntj * g.ntk != ntiles)
     return (int)cudaErrorInvalidValue;
   if (ntiles == 0) return 0;
-  size_t bytes = (size_t)G::entries * (4 * Args::kArrays + Args::kFlagBytes);
+  const size_t bytes = shared_bytes<G, Args>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;

@@ -3,7 +3,12 @@ helpers of ``sz_tpu.api``): bound resolution (with the MSST19 range and
 sign scan for PW_REL), the header, the constant-field and verbatim
 fallbacks, the lossless wrap and the decode clamp.  Mirrors
 SZ_compress_args_float / SZ_decompress_args_float (sz_float.c:2811-3039,
-szd_float.c:50-176).
+szd_float.c:50-176) and their double twins.
+
+A field may be a torch tensor on the compute device: its range is then
+scanned there (min and max do not depend on order, so the result is
+exact), and it is downloaded only where a fallback needs its values (the
+constant stream's first value, the StoreOri verbatim copy).
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 from sz_tpu_torch.config import DataType, ErrorBoundMode, SZConfig, SZMode
 from sz_tpu_torch.core import pwr
@@ -19,6 +25,17 @@ from sz_tpu_torch.format import bytes_util as bu
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
 from sz_tpu_torch.format import tdps as tdps_mod
+from sz_tpu_torch.utils import trace as _tr
+
+
+def _host(values) -> np.ndarray:
+    """``values`` as a host array: a tensor is downloaded (under the
+    ``device_input_download`` span), anything else goes through
+    ``np.asarray``."""
+    if not torch.is_tensor(values):
+        return np.asarray(values)
+    with _tr.trace("device_input_download"):
+        return values.detach().cpu().numpy()
 
 
 def _filter_dims(shape) -> tuple:
@@ -76,7 +93,9 @@ def _fp_stream_params(data: np.ndarray, cfg: SZConfig, dt: DataType):
 
     Returns (fmin, fmax, value_range, rp, eff_mode, hdr_cfg, range_info);
     range_info is the MSST19 scan (``pwr.range_size_msst19``: also the
-    signs and nearZero) for accelerated PW_REL, else None.
+    signs and nearZero) for accelerated PW_REL, else None.  ``data`` may
+    be a tensor (not under PW_REL): the range is then scanned where it
+    lies and two scalars come down.
     """
     T = np.float32 if dt == DataType.FLOAT else np.float64
     flat = data.reshape(-1)
@@ -84,11 +103,16 @@ def _fp_stream_params(data: np.ndarray, cfg: SZConfig, dt: DataType):
     if accelerated_pw_rel(cfg):
         range_info = pwr.range_size_msst19(data)
         fmin, value_range = range_info[0], range_info[1]
+    elif torch.is_tensor(flat):
+        # computeRangeSize on the device: order-independent, so exact
+        fmin, fmax = torch.stack(torch.aminmax(flat)).cpu().numpy()
+        fmin = T(fmin)
+        value_range = T(T(fmax) - fmin)
     else:
         # computeRangeSize (dataCompression.c:102/148): order-independent
         fmin = T(flat.min())
         value_range = T(T(flat.max()) - fmin)
-    out = _fp_params_from_range(cfg, dt, fmin, value_range, data.size)
+    out = _fp_params_from_range(cfg, dt, fmin, value_range, flat.shape[0])
     return (*out[:6], range_info)
 
 
@@ -157,9 +181,10 @@ def _constant_stream(cfg, dt, fmin, fmax, value, n) -> bytes:
 
 
 def _store_ori(cfg, dt, fmin, fmax, flat, n) -> bytes:
-    """StoreOriData (sz_float.c:526): verbatim big-endian values."""
+    """StoreOriData (sz_float.c:526): verbatim big-endian values (a
+    tensor's downloaded here, the one place it is needed whole)."""
     header = md.make_header(cfg, dt, fmin, fmax, lossless=True)
-    be = np.asarray(flat).astype(
+    be = _host(flat).astype(
         ">f4" if dt == DataType.FLOAT else ">f8").tobytes()
     return header + bu.size_be(n, cfg.size_type) + be
 

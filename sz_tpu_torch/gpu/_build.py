@@ -41,6 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # argtypes of every C entry point (pointers and the stream as c_void_p:
 # a bare Python int would be passed as a 32-bit int and cut)
@@ -48,6 +49,9 @@ SIGNATURES = {
     "sz_wavefront_quantize": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _F, _F, _F, _F, _I, _I, _P, _P, _I, _P),
     "sz_wavefront_decode": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "sz_wavefront_quantize_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _D, _D, _D, _D, _I, _I, _P, _P, _I, _P),
+    "sz_wavefront_decode_f64": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "sz_histogram": (_P, _LL, _I, _I, _P, _P),
     "sz_pack_bits": (_P, _LL, _P, _P, _P, _I, _P, _P, _LL, _P),
     "sz_fsm_sweep": (_P, _P, _P, _I, _LL, _LL, _I, _I, _P, _P, _P, _P),

@@ -2,15 +2,20 @@
 torch device: the port of ``sz_tpu.tpu.engine.compress`` / ``decompress``.
 
 Same split as the JAX engine with its device decode on, with identical
-bytes: the lattice-sized work (coefficient sums, predictor selection,
-the regression predictor, the Lorenzo recurrence K1, the stream reorder,
-the histogram K3, the escape gather and the Huffman bit-pack K4; on
-decode the Huffman decode K5-K7, the staging, the prelude and the
-reconstruction K2) runs on the device; the interval optimizer, the
-coefficient chain, the Huffman tree and the body layout run on the host
-(``sz_tpu_torch.core``, ``sz_tpu_torch.format``).  Span names follow the
-JAX engine so per-layer times read under the same names; each device
-span ends with a synchronize, so it times the device work.
+bytes, for float32 and float64 fields: the lattice-sized work
+(coefficient sums, predictor selection, the interval optimizer's sample
+gathers and the dense-mean mask, the regression predictor, the Lorenzo
+recurrence K1 (K1d in float64), the stream reorder, the histogram K3,
+the escape gather and the Huffman bit-pack K4; on decode the Huffman
+decode K5-K7, the staging, the prelude and the reconstruction K2 (K2d))
+runs on the device; the optimizer's float64 tail, the coefficient chain,
+the Huffman tree and the body layout run on the host
+(``sz_tpu_torch.core``, ``sz_tpu_torch.format``).  A field that already
+lies on the device (compress-from-device) never crosses to the host:
+only the optimizer's samples, the dense values, the histogram, the
+escapes and the packed stream come down.  Span names follow the JAX
+engine so per-layer times read under the same names; each device span
+ends with a synchronize, so it times the device work.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from sz_tpu_torch import state as state_mod
+from sz_tpu_torch.config import float_type
 from sz_tpu_torch.core import optimizer as opt
 from sz_tpu_torch.core import regnd
 from sz_tpu_torch.core.regnd import EncodeResult
@@ -30,13 +36,19 @@ from sz_tpu_torch.gpu import hist_kernel, lorenzo_kernel, pack_kernel, stages
 from sz_tpu_torch.utils import trace as _tr
 
 
-def compress(data: np.ndarray, real_precision, *, max_range_radius: int,
+def compress(data, real_precision, *, max_range_radius: int,
              sample_distance: int, pred_threshold, opt_quant_mode: int = 1,
              fixed_intervals: int = 0, size_type: int = 8,
              device) -> EncodeResult:
-    """Port of ``sz_tpu.tpu.engine.compress`` for a float32 rank-2/3
-    host array; the result's body is byte-equal to ``regnd.compress``."""
+    """Port of ``sz_tpu.tpu.engine.compress`` for a float32 or float64
+    rank-2/3 field: a host array, or a tensor on ``device``, which is
+    compressed where it lies (the JAX engine's device-resident input).
+    The result's body is byte-equal to ``regnd.compress``."""
     dev = devmod.resolve(device)
+    is_dev = torch.is_tensor(data)
+    if is_dev and data.device != dev:
+        raise ValueError(f"a tensor on {data.device} given to compress on "
+                         f"{dev}")
     rank = data.ndim
     spec = regnd._spec(rank, data.dtype)
     T = spec.T
@@ -51,11 +63,14 @@ def compress(data: np.ndarray, real_precision, *, max_range_radius: int,
         raise NotImplementedError(
             f"the empty optimizer sample walk of a {shape} field (the C "
             f"divides by its zero count) is not ported yet (ROADMAP 3.1)")
-    data = np.ascontiguousarray(data, dtype=T)
-    flat = data.reshape(-1)
-    with _tr.trace("upload"):
-        x = torch.from_numpy(data).to(dev)
-        devmod.sync(dev)
+    if is_dev:
+        with _tr.trace("device_input"):
+            x = data.contiguous()
+            devmod.sync(dev)
+    else:
+        with _tr.trace("upload"):
+            x = torch.from_numpy(np.ascontiguousarray(data, dtype=T)).to(dev)
+            devmod.sync(dev)
     with _tr.trace("coeff_sums"):
         sums = stages.coeff_sums(x, bs).cpu().numpy()
     with _tr.trace("coeff_finalize"):
@@ -65,11 +80,15 @@ def compress(data: np.ndarray, real_precision, *, max_range_radius: int,
     mean = T(0)
     if opt_quant_mode == 1:
         with _tr.trace("optimizer"):
-            optimize = (opt.optimize_intervals_3d_freq_dense if rank == 3
-                        else opt.optimize_intervals_2d_freq_dense)
-            intervals, dense_pos, max_freq, mean_freq = optimize(
-                flat, *shape, float(real_precision), max_range_radius,
-                sample_distance, pred_threshold, T=T)
+            # _device_optimizer: walks cached on the host, gathers on the
+            # device, one download, the float64 tail on the host
+            samples, nm, ns = stages.optimizer_samples(x, sample_distance)
+            s = samples.cpu().numpy()
+            del samples
+            intervals, dense_pos, max_freq, mean_freq = \
+                opt.optimize_from_samples(
+                    s[:nm], s[nm:nm + ns], s[nm + ns:], real_precision,
+                    max_range_radius, pred_threshold, T)
             use_mean = opt.decide_use_mean(mean_freq, max_freq, rank)
             if use_mean:
                 mean = stages.dense_mean(x, dense_pos, rp)
@@ -142,7 +161,7 @@ def quantize(x: torch.Tensor, st, use_mean: bool,
     cap = np.int64(st.intervals)
     return lorenzo_kernel.wavefront_quantize(
         x, t_reg, rec_reg, reg_pts, mean_mask, st.rp, st.recip,
-        np.float32(cap - 2), int(st.intervals) // 2, st.mean,
+        float_type(x.dtype)(cap - 2), int(st.intervals) // 2, st.mean,
         use_mean=use_mean)
 
 

@@ -1,5 +1,9 @@
 """K1 ``wavefront_quantize`` and K2 ``wavefront_decode``: the Lorenzo
-recurrence of the SZ2.1 regression codec, encode and decode.
+recurrence of the SZ2.1 regression codec, encode and decode, on float32
+lattices; K1d ``wavefront_quantize_f64`` and K2d ``wavefront_decode_f64``
+on float64 ones (the ports of the XLA fixpoints that run float64 in
+``sz_tpu/tpu/engine.py::_quantize_fn`` and ``::_decode_fn``).  K1 and K2
+pick their form by the data's dtype.
 
 CUDA kernels in ``csrc/lorenzo.cu`` (one persistent launch per call
 that computes the lattice tile by tile in dependency order; replaces
@@ -13,10 +17,11 @@ dependency chain across the tiles, not by bytes; the source notes in
 made in Python (:func:`sz_tpu_torch.gpu.tiles.tile_order`), so the CPU
 tests reach the geometry the kernel uses.
 
-Beside each kernel sits its plain torch version: the per-plane fixpoint
-of ``engine.py:957-1003`` (encode) and the plane scan of
-``engine.py:1646-1680`` (decode).  The wrappers take the plain version
-only for CPU tensors; for CUDA tensors they launch the kernel or raise.
+Beside each kernel sits its plain torch version, in the data's dtype:
+the per-plane fixpoint of ``engine.py:957-1003`` (encode) and the plane
+scan of ``engine.py:1646-1680`` (decode).  The wrappers take the plain
+version only for CPU tensors; for CUDA tensors they launch the kernel or
+raise.
 Rank-2 lattices run as one plane (r1 = 1), which is exact: the extra
 zero-valued neighbour terms change no value.
 """
@@ -25,14 +30,15 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sz_tpu_torch.config import float_type
 from sz_tpu_torch.gpu import _build, tiles
 from sz_tpu_torch.gpu.stages import quant, scalar
 
 F32 = torch.float32
+F64 = torch.float64
 
 
 def _as3d(x: torch.Tensor) -> torch.Tensor:
@@ -54,20 +60,21 @@ def _pred_plane(P, Qp):
 
 def quantize_plain(data, t_reg, rec_reg, reg_pts, mean_mask, rp, recip,
                    cap_szf, radius: int, mean, *, use_mean: bool):
-    """Plain torch K1: per-plane fixpoint iteration to the bit-exact serial
-    result (engine.py:957-1003).  Returns (t int32, R float32)."""
+    """Plain torch K1 (and K1d): per-plane fixpoint iteration to the
+    bit-exact serial result (engine.py:957-1003), in data's dtype.
+    Returns (t int32, R)."""
     shape = tuple(data.shape)
     data, t_reg, rec_reg, reg_pts = (_as3d(a) for a in
                                      (data, t_reg, rec_reg, reg_pts))
     if use_mean:
         mean_mask = _as3d(mean_mask)
-    dev = data.device
-    rp_t, recip_t, cap_t, mean_t = (scalar(v, dev)
+    dev, dt = data.device, data.dtype
+    rp_t, recip_t, cap_t, mean_t = (scalar(v, dev, dt)
                                     for v in (rp, recip, cap_szf, mean))
     r1, r2, r3 = data.shape
     t_out = torch.empty(data.shape, dtype=torch.int32, device=dev)
-    R_out = torch.empty(data.shape, dtype=F32, device=dev)
-    prev = torch.zeros((r2, r3), dtype=F32, device=dev)
+    R_out = torch.empty(data.shape, dtype=dt, device=dev)
+    prev = torch.zeros((r2, r3), dtype=dt, device=dev)
     for x in range(r1):
         d, regp = data[x], reg_pts[x]
         Qp = F.pad(prev, (1, 0, 1, 0))
@@ -98,14 +105,15 @@ def quantize_plain(data, t_reg, rec_reg, reg_pts, mean_mask, rp, recip,
 
 
 def decode_plain(known_mask, known, q_lor):
-    """Plain torch K2: per-plane fixpoint reconstruction
-    R = known_mask ? known : pred(R) + q_lor (engine.py:1646-1680)."""
+    """Plain torch K2 (and K2d): per-plane fixpoint reconstruction
+    R = known_mask ? known : pred(R) + q_lor (engine.py:1646-1680), in
+    known's dtype."""
     shape = tuple(known.shape)
     known_mask, known, q_lor = (_as3d(a) for a in (known_mask, known, q_lor))
     r1, r2, r3 = known.shape
     dev = known.device
-    R = torch.empty(known.shape, dtype=F32, device=dev)
-    prev = torch.zeros((r2, r3), dtype=F32, device=dev)
+    R = torch.empty(known.shape, dtype=known.dtype, device=dev)
+    prev = torch.zeros((r2, r3), dtype=known.dtype, device=dev)
     for x in range(r1):
         km, kv, qx = known_mask[x], known[x], q_lor[x]
         Qp = F.pad(prev, (1, 0, 1, 0))
@@ -122,15 +130,20 @@ def decode_plain(known_mask, known, q_lor):
 
 
 # the tile (bi, bj, bk) of a lattice with r1 > 1 and of one with r1 = 1,
-# as lorenzo.cu compiles them (LorenzoTile<3>, LorenzoTile<2>): one thread a
-# k-row (bi * bj threads a block, a multiple of 32), k the contiguous
-# axis; picked on the H100 (PERF.md)
+# as lorenzo.cu compiles them (LorenzoTile<3, V>, LorenzoTile<2, V>): one
+# thread a k-row (bi * bj threads a block, a multiple of 32), k the
+# contiguous axis; float32 picked by a sweep on the H100, float64 from the
+# shared-memory bytes a double tile takes (PERF.md)
 TILE3 = (8, 16, 32)
 TILE2 = (1, 64, 96)
+TILE3_F64 = (8, 16, 32)
+TILE2_F64 = (1, 64, 64)
 
 
-def tile_of(shape3):
-    """The tile the kernel uses for a rank-3 lattice shape."""
+def tile_of(shape3, dtype=F32):
+    """The tile the kernel uses for a rank-3 lattice shape of ``dtype``."""
+    if dtype == F64:
+        return TILE3_F64 if shape3[0] > 1 else TILE2_F64
     return TILE3 if shape3[0] > 1 else TILE2
 
 
@@ -159,64 +172,106 @@ def wavefront_quantize(data, t_reg, rec_reg, reg_pts, mean_mask, rp, recip,
                        want_R: bool = False):
     """K1: Lorenzo predict+quantize of a rank-3 (or rank-2) float32
     lattice, merging precomputed regression points (t_reg/rec_reg where
-    reg_pts) and the use_mean flush (mean_mask).  Returns the int32 type
-    lattice, and the reconstruction R when want_R."""
+    reg_pts) and the use_mean flush (mean_mask); a float64 lattice goes to
+    K1d (:func:`wavefront_quantize_f64`).  Returns the int32 type lattice,
+    and the reconstruction R when want_R."""
+    if data.dtype == F64:
+        return wavefront_quantize_f64(
+            data, t_reg, rec_reg, reg_pts, mean_mask, rp, recip, cap_szf,
+            radius, mean, use_mean=use_mean, want_R=want_R)
+    return _quantize(wavefront_quantize, "sz_wavefront_quantize", F32, data,
+                     t_reg, rec_reg, reg_pts, mean_mask, rp, recip, cap_szf,
+                     radius, mean, use_mean, want_R)
+
+
+def wavefront_quantize_f64(data, t_reg, rec_reg, reg_pts, mean_mask, rp,
+                           recip, cap_szf, radius: int, mean, *,
+                           use_mean: bool, want_R: bool = False):
+    """K1d: :func:`wavefront_quantize` on a float64 lattice, the rule in
+    double (``regnd._np_quant`` with T = float64)."""
+    return _quantize(wavefront_quantize_f64, "sz_wavefront_quantize_f64",
+                     F64, data, t_reg, rec_reg, reg_pts, mean_mask, rp, recip,
+                     cap_szf, radius, mean, use_mean, want_R)
+
+
+def _quantize(wrapper, entry, dt, data, t_reg, rec_reg, reg_pts, mean_mask,
+              rp, recip, cap_szf, radius, mean, use_mean, want_R):
+    """K1 or K1d (``entry``, element type ``dt``); counts a launch on
+    ``wrapper``."""
+    name = wrapper.__name__
     ins = [data, t_reg, rec_reg, reg_pts] + ([mean_mask] if use_mean else [])
-    _check_shapes("wavefront_quantize", *ins)
+    _check_shapes(name, *ins)
     if data.device.type == "cpu":
         t, R = quantize_plain(data, t_reg, rec_reg, reg_pts, mean_mask, rp,
                               recip, cap_szf, radius, mean,
                               use_mean=use_mean)
         return (t, R) if want_R else t
     if data.device.type != "cuda":
-        raise ValueError(f"wavefront_quantize: unsupported device "
-                         f"{data.device}")
-    _check_cuda("wavefront_quantize", *ins)
-    if (data.dtype != F32 or rec_reg.dtype != F32
+        raise ValueError(f"{name}: unsupported device {data.device}")
+    _check_cuda(name, *ins)
+    if (data.dtype != dt or rec_reg.dtype != dt
             or t_reg.dtype != torch.int32 or reg_pts.dtype != torch.bool
             or (use_mean and mean_mask.dtype != torch.bool)):
-        raise TypeError("wavefront_quantize: dtypes f32/i32/f32/bool/bool")
+        raise TypeError(f"{name}: dtypes {dt}/i32/{dt}/bool/bool")
+    T = float_type(dt)
     shape3 = tuple(_as3d(data).shape)
     t = torch.empty(data.shape, dtype=torch.int32, device=data.device)
-    R = torch.empty(data.shape, dtype=F32, device=data.device)
-    targs, flags = tiles.tiled(shape3, tile_of(shape3), data.device)
-    rc = _build.lib().sz_wavefront_quantize(
+    R = torch.empty(data.shape, dtype=dt, device=data.device)
+    targs, flags = tiles.tiled(shape3, tile_of(shape3, dt), data.device)
+    rc = getattr(_build.lib(), entry)(
         _ptr(data), _ptr(t_reg), _ptr(rec_reg), _ptr(reg_pts),
         _ptr(mean_mask if use_mean else None), _ptr(t), _ptr(R),
-        *shape3, float(np.float32(rp)), float(np.float32(recip)),
-        float(np.float32(cap_szf)), float(np.float32(mean)), int(radius),
-        int(bool(use_mean)), *targs,
+        *shape3, float(T(rp)), float(T(recip)), float(T(cap_szf)),
+        float(T(mean)), int(radius), int(bool(use_mean)), *targs,
         torch.cuda.current_stream(data.device).cuda_stream)
-    _build.check(rc, "wavefront_quantize")
-    wavefront_quantize.launches += 1
+    _build.check(rc, name)
+    wrapper.launches += 1
     return (t, R) if want_R else t
 
 
 wavefront_quantize.launches = 0
+wavefront_quantize_f64.launches = 0
 
 
 def wavefront_decode(known_mask, known, q_lor):
     """K2: reconstruction R = known_mask ? known : pred7(R) + q_lor in
-    dependency order, for a rank-3 (or rank-2) float32 lattice."""
-    _check_shapes("wavefront_decode", known, known_mask, q_lor)
+    dependency order, for a rank-3 (or rank-2) float32 lattice; a float64
+    lattice goes to K2d (:func:`wavefront_decode_f64`)."""
+    if known.dtype == F64:
+        return wavefront_decode_f64(known_mask, known, q_lor)
+    return _decode(wavefront_decode, "sz_wavefront_decode", F32, known_mask,
+                   known, q_lor)
+
+
+def wavefront_decode_f64(known_mask, known, q_lor):
+    """K2d: :func:`wavefront_decode` on a float64 lattice."""
+    return _decode(wavefront_decode_f64, "sz_wavefront_decode_f64", F64,
+                   known_mask, known, q_lor)
+
+
+def _decode(wrapper, entry, dt, known_mask, known, q_lor):
+    """K2 or K2d (``entry``, element type ``dt``); counts a launch on
+    ``wrapper``."""
+    name = wrapper.__name__
+    _check_shapes(name, known, known_mask, q_lor)
     if known.device.type == "cpu":
         return decode_plain(known_mask, known, q_lor)
     if known.device.type != "cuda":
-        raise ValueError(f"wavefront_decode: unsupported device "
-                         f"{known.device}")
-    _check_cuda("wavefront_decode", known_mask, known, q_lor)
-    if (known_mask.dtype != torch.bool or known.dtype != F32
-            or q_lor.dtype != F32):
-        raise TypeError("wavefront_decode: dtypes bool/f32/f32")
+        raise ValueError(f"{name}: unsupported device {known.device}")
+    _check_cuda(name, known_mask, known, q_lor)
+    if (known_mask.dtype != torch.bool or known.dtype != dt
+            or q_lor.dtype != dt):
+        raise TypeError(f"{name}: dtypes bool/{dt}/{dt}")
     shape3 = tuple(_as3d(known).shape)
-    R = torch.empty(known.shape, dtype=F32, device=known.device)
-    targs, flags = tiles.tiled(shape3, tile_of(shape3), known.device)
-    rc = _build.lib().sz_wavefront_decode(
+    R = torch.empty(known.shape, dtype=dt, device=known.device)
+    targs, flags = tiles.tiled(shape3, tile_of(shape3, dt), known.device)
+    rc = getattr(_build.lib(), entry)(
         _ptr(known_mask), _ptr(known), _ptr(q_lor), _ptr(R), *shape3,
         *targs, torch.cuda.current_stream(known.device).cuda_stream)
-    _build.check(rc, "wavefront_decode")
-    wavefront_decode.launches += 1
+    _build.check(rc, name)
+    wrapper.launches += 1
     return R
 
 
 wavefront_decode.launches = 0
+wavefront_decode_f64.launches = 0

@@ -2,46 +2,50 @@
 
 Counterparts of ``sz_tpu.tpu.engine``'s XLA stages: ``_quant``,
 ``_coeff_sums_fn``, ``_finalize_coeffs`` (host numpy), ``_select_fn``,
-the regression predictor of ``_quantize_fn``, the stream/histogram/escape
-epilogue, ``_escapes2_fn``, ``_delattice3_fn`` and the decode prelude of
-``_decode_fn``.
+the optimizer's sample gathers (``_opt_gather_fn`` /
+``_opt_gather_cat_fn``), the regression predictor of ``_quantize_fn``,
+the stream/histogram/escape epilogue, ``_escapes2_fn``,
+``_delattice3_fn`` and the decode prelude of ``_decode_fn``.
 
-Bit-exactness rule: each JAX float op is one torch op, in the same
-order, so each rounds once as in the serial C.  No ``alpha=``,
-``addcmul``, ``lerp`` or ``torch.compile``; no float reductions on values
-that reach the stream -- sums loop over in-block positions in C order,
-vectorized over blocks.  Float scalars enter as 0-dim float32 tensors on
-the data's device.
+Every stage runs in the data's dtype, float32 or float64, as the JAX
+engine's do.  Bit-exactness rule: each JAX float op is one torch op, in
+the same order, so each rounds once in that dtype as in the serial C.
+No ``alpha=``, ``addcmul``, ``lerp`` or ``torch.compile``; no float
+reductions on values that reach the stream -- sums loop over in-block
+positions in C order, vectorized over blocks.  Float scalars enter as
+0-dim tensors of the data's dtype on the data's device.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from sz_tpu_torch.config import float_type
 from sz_tpu_torch.core import blocks as B
 from sz_tpu_torch.core import optimizer as opt
 from sz_tpu_torch.core import regnd
 
 from sz_tpu_torch.gpu import geometry as geo
 
-F32 = torch.float32
-
-
-def scalar(v, device) -> torch.Tensor:
-    """A float32 0-dim tensor on ``device``."""
-    return torch.tensor(np.float32(v), dtype=F32, device=device)
+def scalar(v, device, dtype=torch.float32) -> torch.Tensor:
+    """A 0-dim tensor of ``dtype`` on ``device``, ``v`` rounded to that
+    dtype first."""
+    return torch.tensor(float_type(dtype)(v), dtype=dtype, device=device)
 
 
 def quant(cur, pred, rp, recip, capf, radius: int):
-    """engine._quant: predict -> quantize with escape + epsilon recheck.
-    rp, recip, capf: 0-dim float32 tensors.  Returns (t int32, rec)."""
+    """engine._quant: predict -> quantize with escape + epsilon recheck,
+    in cur's dtype.  rp, recip, capf: 0-dim tensors of that dtype.
+    Returns (t int32, rec)."""
     diff = cur - pred
     itv = diff.abs() * recip + 1.0
     within = itv < capf
     itv = torch.where(diff < 0, -itv, itv)
     t = (itv / 2.0).to(torch.int32) + radius
-    rec = pred + (2 * (t - radius)).to(F32) * rp
+    rec = pred + (2 * (t - radius)).to(cur.dtype) * rp
     ok = within & ((cur - rec).abs() <= rp)
     return torch.where(ok, t, 0), torch.where(ok, rec, cur)
 
@@ -73,10 +77,11 @@ def coeff_sums(data: torch.Tensor, block_size: int) -> torch.Tensor:
     rank = len(shape)
     dbs = [B.dim_blocks(r, block_size) for r in shape]
     nblocks = int(np.prod([db.num for db in dbs]))
-    out = torch.zeros((nblocks, rank + 1), dtype=F32, device=data.device)
+    out = torch.zeros((nblocks, rank + 1), dtype=data.dtype,
+                      device=data.device)
     for ranges, lens in regnd._iter_regions(dbs):
         s, flat_idx = _region_blocks(data, dbs, ranges, lens)
-        z = torch.zeros(s.shape[-1], dtype=F32, device=data.device)
+        z = torch.zeros(s.shape[-1], dtype=data.dtype, device=data.device)
         if rank == 3:
             fx = fy = fz = fsum = z
             for i in range(lens[0]):
@@ -177,7 +182,7 @@ def _select_samples(lens, rank: int):
                 nb = [pi * cby + pj, pi * cby + pj - 1,
                       (pi - 1) * cby + pj, (pi - 1) * cby + pj - 1]
             idxs.append(nb)
-            pcs.append([float(np.float32(c)) for c in pcoef])
+            pcs.append([float(c) for c in pcoef])   # small ints: exact
     return idxs, pcs
 
 
@@ -190,14 +195,14 @@ def select(data: torch.Tensor, coeffs: torch.Tensor, noise, mean,
     dev = data.device
     dbs = [B.dim_blocks(r, block_size) for r in shape]
     nblocks = int(np.prod([db.num for db in dbs]))
-    noise_t = scalar(noise, dev)
-    mean_t = scalar(mean, dev)
+    noise_t = scalar(noise, dev, data.dtype)
+    mean_t = scalar(mean, dev, data.dtype)
     use_reg = torch.zeros(nblocks, dtype=torch.bool, device=dev)
     for ranges, lens in regnd._iter_regions(dbs):
         s, flat_idx = _region_blocks(data, dbs, ranges, lens)
         s2 = s.reshape(-1, s.shape[-1])        # (in-block position, nblk)
         cf = coeffs[flat_idx].T.contiguous()   # (ncoeff, nblk)
-        z = torch.zeros(s2.shape[1], dtype=F32, device=dev)
+        z = torch.zeros(s2.shape[1], dtype=data.dtype, device=dev)
         err_sz = err_reg = z
         idxs, pcs = _select_samples(lens, rank)
         for nbi, pc in zip(idxs, pcs):
@@ -227,12 +232,46 @@ def select(data: torch.Tensor, coeffs: torch.Tensor, noise, mean,
 
 
 def dense_mean(data: torch.Tensor, dense_pos, rp):
-    """Mean of the dense-value cluster: |x - dense_pos| < rp selected on
-    the device in flat order, folded sequentially on the host in the C
-    order (sz_float.c:6811-6817)."""
-    m = (data - scalar(dense_pos, data.device)).abs() < scalar(rp, data.device)
+    """Mean of the dense-value cluster (``_device_dense_mean``):
+    |x - dense_pos| < rp selected on the device in flat order, folded
+    sequentially on the host in the C order (sz_float.c:6811-6817)."""
+    dev, dt = data.device, data.dtype
+    m = (data - scalar(dense_pos, dev, dt)).abs() < scalar(rp, dev, dt)
     vals = data.reshape(-1)[m.reshape(-1)]
-    return opt.fold_mean(vals.cpu().numpy(), np.float32)
+    return opt.fold_mean(vals.cpu().numpy(), float_type(dt))
+
+
+@functools.lru_cache(maxsize=8)
+def _walks_on(shape: tuple, sample_distance: int, device):
+    """The optimizer's walk indices on ``device``, once per shape."""
+    midx, sidx = opt.walks(shape, sample_distance)
+    return (torch.from_numpy(midx).to(device),
+            torch.from_numpy(sidx).to(device))
+
+
+def optimizer_samples(data: torch.Tensor, sample_distance: int):
+    """The interval optimizer's samples gathered on the device
+    (``_opt_gather_fn`` + ``_opt_gather_cat_fn``): one vector of the mean
+    walk's values, the sample walk's values and their Lorenzo
+    predictions, each sum in the data's dtype in the serial order of the
+    C.  Returns (that vector, mean-walk length, sample-walk length)."""
+    shape = tuple(int(r) for r in data.shape)
+    midx, sidx = _walks_on(shape, int(sample_distance), data.device)
+    flat = data.reshape(-1)
+    if len(shape) == 3:
+        r3, r23 = shape[2], shape[1] * shape[2]
+        pred = flat[sidx - 1] + flat[sidx - r3]
+        pred = pred + flat[sidx - r23]
+        pred = pred - flat[sidx - 1 - r23]
+        pred = pred - flat[sidx - r3 - 1]
+        pred = pred - flat[sidx - r3 - r23]
+        pred = pred + flat[sidx - r3 - r23 - 1]
+    else:
+        r2 = shape[1]
+        pred = flat[sidx - 1] + flat[sidx - r2]
+        pred = pred - flat[sidx - r2 - 1]
+    return (torch.cat([flat[midx], flat[sidx], pred]), int(midx.numel()),
+            int(sidx.numel()))
 
 
 def expand_blocks(lc_full: torch.Tensor, use_reg: torch.Tensor,
@@ -241,7 +280,7 @@ def expand_blocks(lc_full: torch.Tensor, use_reg: torch.Tensor,
     regression mask), by per-axis index_select on the block grid."""
     g = geo.geom_small(tuple(shape), block_size)
     nbs = tuple(db.num for db in g["dbs"])
-    aug = torch.cat([lc_full, use_reg.to(F32)[:, None]], dim=1).T
+    aug = torch.cat([lc_full, use_reg.to(lc_full.dtype)[:, None]], dim=1).T
     lcb = aug.reshape((aug.shape[0],) + nbs)
     for ax, b in enumerate(geo.dev_bid(shape, block_size, lc_full.device)):
         lcb = lcb.index_select(ax + 1, b)
@@ -250,7 +289,7 @@ def expand_blocks(lc_full: torch.Tensor, use_reg: torch.Tensor,
 
 def regression_predict(lcb: torch.Tensor, loc) -> torch.Tensor:
     """Position-only regression predictor per point (engine.py:830-842)."""
-    fl = [l.to(F32) for l in loc]
+    fl = [l.to(lcb.dtype) for l in loc]
     if len(loc) == 3:
         return (lcb[0] * fl[0][:, None, None] + lcb[1] * fl[1][None, :, None]
                 + lcb[2] * fl[2][None, None, :] + lcb[3])
@@ -266,14 +305,16 @@ def quantize_inputs(data: torch.Tensor, st, use_mean: bool,
                                  block_size)
     pred_reg = regression_predict(lcb, st.loc)
     del lcb
-    rp, recip = scalar(st.rp, dev), scalar(st.recip, dev)
-    capf = scalar(np.float32(st.intervals), dev)
+    dt = data.dtype
+    rp, recip = scalar(st.rp, dev, dt), scalar(st.recip, dev, dt)
+    capf = scalar(st.intervals, dev, dt)
     t_reg, rec_reg = quant(data, pred_reg, rp, recip, capf,
                            st.intervals // 2)
     del pred_reg
     mean_mask = None
     if use_mean:
-        mean_mask = (~reg_pts) & ((data - scalar(st.mean, dev)).abs() <= rp)
+        mean_mask = (~reg_pts) & ((data - scalar(st.mean, dev, dt)).abs()
+                                  <= rp)
     return t_reg, rec_reg, reg_pts, mean_mask
 
 
@@ -291,7 +332,7 @@ def delattice(types: torch.Tensor, unpred: torch.Tensor, dbs, shape: tuple):
     n = int(np.prod(shape))
     tp = types[:n].to(torch.int32)
     t_lat = geo.corner_unstream(tp, dbs, shape)
-    unpred_lat = torch.zeros(n, dtype=F32, device=types.device)
+    unpred_lat = torch.zeros(n, dtype=unpred.dtype, device=types.device)
     pos = torch.nonzero(tp == 0).reshape(-1)
     unpred_lat[geo.pos_to_lat(pos, dbs, shape)] = unpred[:pos.numel()]
     return t_lat, unpred_lat.reshape(shape)
@@ -305,7 +346,8 @@ def decode_inputs(t_lat: torch.Tensor, unpred_lat: torch.Tensor, st,
     dev = t_lat.device
     shape = tuple(t_lat.shape)
     radius = st.intervals // 2
-    rp = scalar(st.rp, dev)
+    dt = st.lc_full.dtype
+    rp = scalar(st.rp, dev, dt)
     lcb, reg_pts = expand_blocks(st.lc_full, st.use_reg, shape, block_size)
     pred_reg = regression_predict(lcb, st.loc)
     del lcb
@@ -314,12 +356,13 @@ def decode_inputs(t_lat: torch.Tensor, unpred_lat: torch.Tensor, st,
     if use_mean:
         # use_mean index shift on the Lorenzo side (szd_float.c:3697)
         t_adj = torch.where((~reg_pts) & (t_lat < radius), t_lat + 1, t_lat)
-    q_lor = (2 * (t_adj - radius)).to(F32) * rp
-    q_reg = (2 * (t_lat - radius)).to(F32) * rp
+    q_lor = (2 * (t_adj - radius)).to(dt) * rp
+    q_reg = (2 * (t_lat - radius)).to(dt) * rp
     reg_val = pred_reg + q_reg
     known_mask = esc | reg_pts
     if use_mean:
         known_mask = known_mask | ((~reg_pts) & (t_lat == radius))
     known = torch.where(esc, unpred_lat,
-                        torch.where(reg_pts, reg_val, scalar(st.mean, dev)))
+                        torch.where(reg_pts, reg_val,
+                                    scalar(st.mean, dev, dt)))
     return known_mask, known, q_lor

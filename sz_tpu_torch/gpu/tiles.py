@@ -52,3 +52,4 @@ def tiled(shape3, tile, device):
     flags = torch.zeros(ntiles + 1, dtype=torch.int32, device=device)
     return (ctypes.c_void_p(order.data_ptr()),
             ctypes.c_void_p(flags.data_ptr()), ntiles), flags
+

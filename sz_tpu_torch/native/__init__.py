@@ -28,6 +28,8 @@ import tempfile
 
 import numpy as np
 
+from sz_tpu_torch.config import float_type
+
 _HERE = pathlib.Path(__file__).resolve().parent
 _ZSTD = _HERE / "vendor" / "zstd"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
@@ -40,9 +42,13 @@ _I64 = ctypes.c_int64
 _SZ = ctypes.c_size_t
 _SIGNATURES = {
     "seq_sum_f32": ((_P, _I64), ctypes.c_float),
+    "seq_sum_f64": ((_P, _I64), ctypes.c_double),
     "coeff_chain_f32": ((_P, _I64, _I, _P, _I, _P, _P, _P, _P, _I, _I),
                         None),
+    "coeff_chain_f64": ((_P, _I64, _I, _P, _I, _P, _P, _P, _P, _I, _I),
+                        None),
     "coeff_chain_decode_f32": ((_P, _I64, _I, _P, _P, _P, _P, _P), None),
+    "coeff_chain_decode_f64": ((_P, _I64, _I, _P, _P, _P, _P, _P), None),
     "huff_build_tree": ((_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P), _I64),
     "exact_stream_f32": ((_P, _I64, _I, ctypes.c_float, _I, _P, _P, _P, _P,
                           _P, _P), None),
@@ -129,44 +135,56 @@ def lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def tune_malloc() -> None:
-    """Raise glibc's mmap threshold (M_MMAP_THRESHOLD = -3) once, as
-    sz_tpu's host runtime does, so the codec's large host buffers (the
-    field, its reconstruction, the coded stream: hundreds of MB a call)
-    come from the reusable heap instead of fresh mmaps that are unmapped
-    on free and page-fault again on the next call (the device-to-host
-    copy of a 512^3 reconstruction pays those faults).  The entry
-    points call it."""
+    """Raise glibc's mmap threshold (M_MMAP_THRESHOLD = -3), as sz_tpu's
+    host runtime does, and its trim threshold (M_TRIM_THRESHOLD = -1), so
+    the codec's large host buffers (the field, its reconstruction, the
+    coded stream: hundreds of MB a call) come from the reusable heap and
+    stay mapped when freed.  Otherwise a buffer freed at the top of the
+    heap is given back to the system and page-faults again on the next
+    call: the device-to-host copy of a 512^3 reconstruction then pays
+    those faults, 0.2-0.3 s more a decompress on an H100 host (PERF.md).
+    The entry points call it."""
     try:
-        ctypes.CDLL("libc.so.6").mallopt(ctypes.c_int(-3),
-                                         ctypes.c_int(2**31 - 1))
+        libc = ctypes.CDLL("libc.so.6")
     except OSError:  # not glibc
-        pass
+        return
+    for param in (-3, -1):
+        libc.mallopt(ctypes.c_int(param), ctypes.c_int(2**31 - 1))
 
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def seq_sum_f32(vals: np.ndarray) -> np.float32:
-    """Strictly ordered float32 accumulation (C ``acc += x``)."""
-    vals = np.ascontiguousarray(vals, dtype=np.float32)
-    return np.float32(lib().seq_sum_f32(_ptr(vals), vals.size))
+def _suffix(T) -> str:
+    return "f32" if T is np.float32 else "f64"
+
+
+def seq_sum(vals: np.ndarray):
+    """Strictly ordered accumulation (C ``T acc += x``) in the dtype of
+    ``vals``, float32 or float64."""
+    vals = np.ascontiguousarray(vals)
+    T = float_type(vals.dtype)
+    fn = getattr(lib(), f"seq_sum_{_suffix(T)}")
+    return T(fn(_ptr(vals), vals.size))
 
 
 def coeff_chain(coeffs: np.ndarray, precision: np.ndarray, use_mean: bool,
                 capacity: int, radius: int):
-    """Encode-side float32 coefficient chain.  Returns (ctypes[nc,nreg],
-    unpred per coeff, qcoeffs[nreg,nc])."""
-    coeffs = np.ascontiguousarray(coeffs, dtype=np.float32)
+    """Encode-side coefficient chain in the dtype of ``coeffs`` (float32
+    or float64).  Returns (ctypes[nc,nreg], unpred per coeff,
+    qcoeffs[nreg,nc])."""
+    coeffs = np.ascontiguousarray(coeffs)
+    T = float_type(coeffs.dtype)
     nreg, nc = coeffs.shape
     ct = np.zeros((nc, max(nreg, 1)), dtype=np.int32)
-    unpred = np.zeros((nc, max(nreg, 1)), dtype=np.float32)
+    unpred = np.zeros((nc, max(nreg, 1)), dtype=T)
     ucnt = np.zeros(8, dtype=np.int64)
-    qc = np.zeros((nreg, nc), dtype=np.float32)
+    qc = np.zeros((nreg, nc), dtype=T)
     if nreg:
-        lib().coeff_chain_f32(
+        getattr(lib(), f"coeff_chain_{_suffix(T)}")(
             _ptr(coeffs), nreg, nc,
-            _ptr(np.ascontiguousarray(precision, np.float32)),
+            _ptr(np.ascontiguousarray(precision, T)),
             1 if use_mean else 0, _ptr(ct), _ptr(unpred), _ptr(ucnt),
             _ptr(qc), capacity, radius)
     ulist = [unpred[e, :ucnt[e]].copy() for e in range(nc)]
@@ -175,16 +193,18 @@ def coeff_chain(coeffs: np.ndarray, precision: np.ndarray, use_mean: bool,
 
 def coeff_chain_decode(ctypes_arr: np.ndarray, precision: np.ndarray,
                        cradius: np.ndarray, unpred_list) -> np.ndarray:
-    """Decode-side float32 coefficient chain: qcoeffs[nreg, nc]."""
+    """Decode-side coefficient chain in the dtype of ``precision``
+    (float32 or float64): qcoeffs[nreg, nc]."""
+    T = float_type(np.asarray(precision).dtype)
     nc, nreg = ctypes_arr.shape
     stride = max([len(u) for u in unpred_list] + [1])
-    up = np.zeros((nc, stride), dtype=np.float32)
+    up = np.zeros((nc, stride), dtype=T)
     for e, u in enumerate(unpred_list):
         up[e, :len(u)] = u
-    qc = np.zeros((nreg, nc), dtype=np.float32)
-    lib().coeff_chain_decode_f32(
+    qc = np.zeros((nreg, nc), dtype=T)
+    getattr(lib(), f"coeff_chain_decode_{_suffix(T)}")(
         _ptr(np.ascontiguousarray(ctypes_arr, np.int32)), nreg, nc,
-        _ptr(np.ascontiguousarray(precision, np.float32)),
+        _ptr(np.ascontiguousarray(precision, T)),
         _ptr(np.ascontiguousarray(cradius, np.int32)), _ptr(up),
         _ptr(np.array([stride], dtype=np.int64)), _ptr(qc))
     return qc

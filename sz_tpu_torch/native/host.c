@@ -1,9 +1,11 @@
 /* Host runtime of sz_tpu_torch: the strictly serial host stages of the
  * regression codec, in C where Python would dominate the wall clock.
  * Copied from sz_tpu/native/core.c (same arithmetic, same order):
- *   - ordered float accumulation (C `acc += x`; sz_float.c:6658-6669)
- *   - the coefficient delta-quantization chain and its decode
- *     (sz_float.c:6787-6814, szd_float.c:3376-3414)
+ *   - ordered float and double accumulation (C `acc += x`;
+ *     sz_float.c:6658-6669)
+ *   - the coefficient delta-quantization chain and its decode, in float
+ *     and in double (sz_float.c:6787-6814, szd_float.c:3376-3414;
+ *     sz_double.c / szd_double.c)
  *   - the reference-exact Huffman tree build (Huffman.c:76-185, 443-585)
  *   - the PW_REL/MSST19 host stages: the exact-value escape stream and
  *     its decode (dataCompression.c:575, CompressElement.c:230,
@@ -23,6 +25,12 @@
 
 float seq_sum_f32(const float *x, int64_t n) {
     float acc = 0.0f;
+    for (int64_t i = 0; i < n; i++) acc += x[i];
+    return acc;
+}
+
+double seq_sum_f64(const double *x, int64_t n) {
+    double acc = 0.0;
     for (int64_t i = 0; i < n; i++) acc += x[i];
     return acc;
 }
@@ -72,6 +80,45 @@ void coeff_chain_f32(const float *coeffs, int64_t nreg, int nc,
     }
 }
 
+void coeff_chain_f64(const double *coeffs, int64_t nreg, int nc,
+                     const double *precision, int use_mean,
+                     int32_t *ctypes, double *unpred, int64_t *unpred_cnt,
+                     double *qcoeffs, int capacity, int radius) {
+    double last[8] = {0};
+    double recip[8];
+    for (int e = 0; e < nc; e++) {
+        recip[e] = 1.0 / precision[e];
+        unpred_cnt[e] = 0;
+    }
+    double cap = (double)capacity;
+    for (int64_t n = 0; n < nreg; n++) {
+        for (int e = 0; e < nc; e++) {
+            double cur = coeffs[n * nc + e];
+            double diff = cur - last[e];
+            double itv = use_mean ? fabs(diff) * recip[e] + 1.0
+                                  : fabs(diff) / precision[e] + 1.0;
+            int32_t t = 0;
+            if (itv < cap) {
+                if (diff < 0) itv = -itv;
+                t = (int32_t)(itv / 2.0) + radius;
+                double rec = last[e] + (double)(2 * (t - radius)) * precision[e];
+                if (fabs(cur - rec) > precision[e]) {
+                    t = 0;
+                    last[e] = cur;
+                    unpred[e * nreg + unpred_cnt[e]++] = cur;
+                } else {
+                    last[e] = rec;
+                }
+            } else {
+                last[e] = cur;
+                unpred[e * nreg + unpred_cnt[e]++] = cur;
+            }
+            ctypes[e * nreg + n] = t;
+            qcoeffs[n * nc + e] = last[e];
+        }
+    }
+}
+
 /* Decode side of the chain (szd_float.c:3376-3414). */
 void coeff_chain_decode_f32(const int32_t *ctypes, int64_t nreg, int nc,
                             const float *precision, const int32_t *cradius,
@@ -84,6 +131,24 @@ void coeff_chain_decode_f32(const int32_t *ctypes, int64_t nreg, int nc,
             int32_t t = ctypes[e * nreg + n];
             if (t != 0)
                 last[e] = last[e] + (float)(2 * (t - cradius[e])) * precision[e];
+            else
+                last[e] = unpred[e * stride[0] + ucnt[e]++];
+            qcoeffs[n * nc + e] = last[e];
+        }
+    }
+}
+
+void coeff_chain_decode_f64(const int32_t *ctypes, int64_t nreg, int nc,
+                            const double *precision, const int32_t *cradius,
+                            const double *unpred, const int64_t *stride,
+                            double *qcoeffs) {
+    double last[8] = {0};
+    int64_t ucnt[8] = {0};
+    for (int64_t n = 0; n < nreg; n++) {
+        for (int e = 0; e < nc; e++) {
+            int32_t t = ctypes[e * nreg + n];
+            if (t != 0)
+                last[e] = last[e] + (double)(2 * (t - cradius[e])) * precision[e];
             else
                 last[e] = unpred[e * stride[0] + ucnt[e]++];
             qcoeffs[n * nc + e] = last[e];

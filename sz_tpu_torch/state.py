@@ -4,9 +4,11 @@ The SZ codec has no weights; what it carries through a call is host-built
 state: the quantized regression coefficients per block (``lc_full``), the
 per-block predictor choice (``use_reg``), the per-axis in-block offsets
 (``loc``), the scalars ``rp``, ``recip``, ``intervals`` and ``mean``, and
-once the histogram is known the Huffman code table.  The JAX engine keeps
-all of it as numpy; :func:`from_numpy_state` puts the same numpy values on
-a torch device, so tests can hand both sides the same state.
+once the histogram is known the Huffman code table.  ``lc_full``, ``rp``,
+``recip`` and ``mean`` are in the data's dtype (float32 or float64).  The
+JAX engine keeps all of it as numpy; :func:`from_numpy_state` puts the
+same numpy values on a torch device, so tests can hand both sides the
+same state.
 """
 
 from __future__ import annotations
@@ -16,16 +18,18 @@ import dataclasses
 import numpy as np
 import torch
 
+from sz_tpu_torch.config import float_type
+
 
 @dataclasses.dataclass(frozen=True)
 class CodecState:
-    lc_full: torch.Tensor          # (nblocks, ncoeff) float32
+    lc_full: torch.Tensor          # (nblocks, ncoeff) in the data dtype
     use_reg: torch.Tensor          # (nblocks,) bool
     loc: tuple                     # per-axis in-block offsets, int32
-    rp: np.float32
-    recip: np.float32
+    rp: np.floating                # np.float32 or np.float64, as lc_full
+    recip: np.floating
     intervals: int
-    mean: np.float32
+    mean: np.floating
     code_hi: torch.Tensor = None   # (state_num,) int64 bit patterns
     code_lo: torch.Tensor = None   # (state_num,) int64 bit patterns
     code_len: torch.Tensor = None  # (state_num,) int32
@@ -61,14 +65,15 @@ def table_tensors(tables, device) -> dict:
 
 def from_numpy_state(*, lc_full, use_reg, loc, rp, recip, intervals, mean,
                      device, tables=None) -> CodecState:
-    """Numpy codec state -> :class:`CodecState` on ``device``.  ``tables``
-    (optional) is a ``huffman.HuffmanTables``."""
+    """Numpy codec state -> :class:`CodecState` on ``device``, in the
+    dtype of ``lc_full``, float32 or float64.  ``tables`` (optional) is
+    a ``huffman.HuffmanTables``."""
+    T = float_type(np.asarray(lc_full).dtype)
     st = CodecState(
         lc_full=torch.from_numpy(
-            np.ascontiguousarray(lc_full, dtype=np.float32)).to(device),
+            np.ascontiguousarray(lc_full, dtype=T)).to(device),
         use_reg=torch.from_numpy(np.asarray(use_reg, dtype=bool)).to(device),
         loc=tuple(torch.from_numpy(np.asarray(l, dtype=np.int32)).to(device)
                   for l in loc),
-        rp=np.float32(rp), recip=np.float32(recip),
-        intervals=int(intervals), mean=np.float32(mean))
+        rp=T(rp), recip=T(recip), intervals=int(intervals), mean=T(mean))
     return st if tables is None else st.with_tables(tables)

@@ -344,3 +344,92 @@ def test_pwrel_on_card_matches_oracle(cuda, shape, ratio):
         sz_tpu_torch.decompress(want, shape, device=cuda).view(np.uint32),
         sz_tpu.decompress(want, shape, np.float32,
                           engine="numpy").view(np.uint32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (20, 33, 47), (150, 130), (3, 5, 7), (33, 9, 65), (1, 1, 4097),
+    (4097, 1, 1), (1, 4097), (7, 20)])
+@pytest.mark.parametrize("use_mean", [False, True])
+def test_lorenzo_f64_kernels_match_plain(cuda, shape, use_mean):
+    """K1d/K2d bit-equal to their plain float64 versions, twice, on the
+    float64 tile shapes (ragged, sub-tile, single-row lattices); K2d
+    rebuilds K1d's reconstruction."""
+    args = SMOKE.k1_inputs(shape, 7, cuda, "mixed", np.float64)
+    if not use_mean:
+        args[4] = None
+    scal = SMOKE.k1_scalars(np.float64)
+    t, R = lorenzo_kernel.wavefront_quantize(*args, *scal, use_mean=use_mean,
+                                             want_R=True)
+    assert R.dtype == torch.float64
+    t_p, R_p = lorenzo_kernel.quantize_plain(*args, *scal,
+                                             use_mean=use_mean)
+    assert torch.equal(t, t_p) and torch.equal(R.view(torch.int64),
+                                               R_p.view(torch.int64))
+    t2, R2 = lorenzo_kernel.wavefront_quantize_f64(
+        *args, *scal, use_mean=use_mean, want_R=True)
+    assert torch.equal(t2, t) and torch.equal(R2.view(torch.int64),
+                                              R.view(torch.int64))
+    dec = SMOKE.k2_inputs(args, t, use_mean)
+    D = lorenzo_kernel.wavefront_decode(*dec)
+    assert torch.equal(D.view(torch.int64),
+                       lorenzo_kernel.decode_plain(*dec).view(torch.int64))
+    assert torch.equal(D.view(torch.int64), R.view(torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 64, 64), (25, 14, 20), (150, 130),
+                                   (3, 7, 12, 13)])
+def test_f64_and_tensor_input_on_card_match_oracle(cuda, shape):
+    """A float64 field through sz_tpu_torch on the card, from a host array
+    and from a CUDA tensor (also a non-contiguous one), byte-equal to
+    sz_tpu's numpy oracle; the decode bit-equal, also as a tensor."""
+    rng = np.random.default_rng(12)
+    n = int(np.prod(shape))
+    data = (np.sin(np.linspace(0, 12, n)) + 0.02 * rng.standard_normal(n)
+            ).reshape(shape)
+    ref = sz_tpu.compress(data, JConfig(engine="numpy").with_bound(
+        JMode.ABS, 1e-3))
+    cfg = sz_tpu_torch.SZConfig().with_bound(sz_tpu_torch.ErrorBoundMode.ABS,
+                                             1e-3)
+    assert sz_tpu_torch.compress(data, cfg, device=cuda) == ref
+    xt = torch.from_numpy(data).to(cuda)
+    assert sz_tpu_torch.compress(xt, cfg, device=cuda) == ref
+    swapped = xt.transpose(0, 1)
+    assert not swapped.is_contiguous()
+    assert sz_tpu_torch.compress(swapped, cfg, device=cuda) == \
+        sz_tpu.compress(np.ascontiguousarray(data.swapaxes(0, 1)), JConfig(
+            engine="numpy").with_bound(JMode.ABS, 1e-3))
+    want = sz_tpu.decompress(ref, shape, np.float64, engine="numpy")
+    out = sz_tpu_torch.decompress(ref, shape, np.float64, device=cuda)
+    np.testing.assert_array_equal(out.view(np.uint64), want.view(np.uint64))
+    t = sz_tpu_torch.decompress(ref, shape, np.float64, device=cuda,
+                                as_tensor=True)
+    assert t.is_cuda and t.dtype == torch.float64
+    np.testing.assert_array_equal(t.cpu().numpy().view(np.uint64),
+                                  want.view(np.uint64))
+    x32 = xt.float()
+    assert sz_tpu_torch.compress(x32, cfg, device=cuda) == sz_tpu.compress(
+        data.astype(np.float32), JConfig(engine="numpy").with_bound(
+            JMode.ABS, 1e-3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [np.float32, np.float64])
+@pytest.mark.parametrize("mode,value", [("ABS", 1e-3), ("REL", 1e-4),
+                                        ("PSNR", 80.0), ("NORM", 0.5),
+                                        ("ABS_AND_REL", 1e-4)])
+def test_tensor_input_bounds_on_card_match_oracle(cuda, T, mode, value):
+    """A CUDA tensor under every bound that resolves to an absolute one,
+    byte-equal to sz_tpu's numpy oracle of the same field."""
+    rng = np.random.default_rng(13)
+    shape = (30, 34, 38)
+    n = int(np.prod(shape))
+    data = (np.sin(np.linspace(0, 12, n)) + 0.02 * rng.standard_normal(n)
+            ).astype(T).reshape(shape)
+    ref = sz_tpu.compress(data, JConfig(engine="numpy").with_bound(
+        JMode[mode], value))
+    cfg = sz_tpu_torch.SZConfig().with_bound(
+        sz_tpu_torch.ErrorBoundMode[mode], value)
+    assert sz_tpu_torch.compress(torch.from_numpy(data).to(cuda), cfg,
+                                 device=cuda) == ref

@@ -5,6 +5,7 @@ the kernel wrappers never fall back for a non-CPU tensor, and the kernel
 build keeps IEEE float semantics."""
 
 import ast
+import ctypes
 import pathlib
 import re
 import subprocess
@@ -84,6 +85,18 @@ def test_cuda_without_card_raises(monkeypatch):
         sz_tpu_torch.decompress(b"", (8, 8, 8), device="cuda")
 
 
+def test_tensor_input_without_card_raises(monkeypatch):
+    """A tensor handed to compress for the card raises without one: it is
+    neither compressed on the CPU nor copied anywhere."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dt in (torch.float32, torch.float64):
+        x = torch.zeros((8, 8, 8), dtype=dt)
+        with pytest.raises(RuntimeError, match="cuda"):
+            sz_tpu_torch.compress(x, SZConfig(), device="cuda")
+        with pytest.raises(RuntimeError, match="cuda"):
+            sz_tpu_torch.compress(x, SZConfig())
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((8, 8, 8), np.float32)
@@ -101,7 +114,8 @@ _PW = SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)
 
 
 @pytest.mark.parametrize("data,cfg,item", [
-    (_X3.astype(np.float64), _ABS, "1.3"),
+    (_X3.astype(np.float64), SZConfig(with_regression=False).with_bound(
+        ErrorBoundMode.ABS, 1e-3), "1.4"),
     (_X3, SZConfig(accelerate_pw_rel=False).with_bound(ErrorBoundMode.PW_REL,
                                                        1e-3), "1.4"),
     (_X3, SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-6), "1.4"),
@@ -115,15 +129,19 @@ _PW = SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)
     ((_X3 * 100).astype(np.int32), _ABS, "1.10"),
     (_X3.reshape(-1), _PW, "1.4"),
     (_X3.astype(np.float64), _PW, "1.3"),
+    (_X3.astype(np.float64), SZConfig(accelerate_pw_rel=False).with_bound(
+        ErrorBoundMode.PW_REL, 1e-3), "1.4"),
+    (_X3.astype(np.float64).reshape(-1), _ABS, "1.4"),
 ], ids=["f64", "pw_rel", "pw_rel_1e-6", "classic", "random_access",
-        "random_access_4d", "1d", "int", "pw_rel_1d", "pw_rel_f64"])
+        "random_access_4d", "1d", "int", "pw_rel_1d", "pw_rel_f64",
+        "pw_rel_prelog_f64", "1d_f64"])
 def test_out_of_slice_raises(data, cfg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
         sz_tpu_torch.compress(data, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("dtype,shape,item", [
-    (np.float64, (10, 11, 12), "1.3"),
+    (np.float64, (1320,), "1.4"),
     (np.float32, (1320,), "1.4"),
     (np.int16, (10, 11, 12), "1.10"),
 ], ids=["f64", "1d", "int"])
@@ -262,6 +280,10 @@ def test_kernel_build_keeps_ieee_floats():
         text = p.read_text()
         assert "fast_math" not in text and "fmad=true" not in text
         assert "#pragma STDC FP_CONTRACT ON" not in text
+        assert "ftz=true" not in text
+        # no fused multiply-add written out, in float or double
+        assert not re.search(r"\b(__)?fmaf?(_r[nzdu])?\s*\(", text), p.name
+        assert not re.search(r"\b__fmaf?_r[nzdu]\s*\(", text), p.name
 
 
 def test_kernel_digest_follows_headers(tmp_path, monkeypatch):
@@ -311,3 +333,20 @@ def test_profiler_names_cover_every_kernel():
     stale = sorted(p for p in parts if p not in ("Memcpy", "Memset")
                    and not any(p in k for k in kernels))
     assert not stale, stale
+
+
+def test_build_signatures_cover_every_entry_point():
+    """Every extern "C" entry point of csrc/ has its argument types in
+    _build.SIGNATURES (ctypes would pass a pointer as a 32-bit int
+    without them), and every signature names an entry point that
+    exists."""
+    entries = set()
+    for p in sorted((REPO / "sz_tpu_torch" / "csrc").glob("*.cu*")):
+        entries.update(re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(',
+                                  p.read_text()))
+    assert {"sz_wavefront_quantize_f64", "sz_wavefront_decode_f64"} <= entries
+    assert entries == set(_build.SIGNATURES)
+    # a float64 entry point takes its scalars as doubles, never floats
+    for name, argtypes in _build.SIGNATURES.items():
+        if name.endswith("_f64"):
+            assert ctypes.c_float not in argtypes, name

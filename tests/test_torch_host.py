@@ -6,7 +6,10 @@ inputs, the MSST19 PW_REL stages and tables included.  Tolerance: exact
 
 import dataclasses
 import filecmp
+import json
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -158,7 +161,7 @@ def test_coeff_chain_and_its_decode_match(rank, use_mean):
 def test_seq_sum_and_fold_mean_match():
     rng = np.random.default_rng(13)
     v = (rng.standard_normal(100003) * 1e3).astype(np.float32)
-    assert tnative.seq_sum_f32(v) == jnative.seq_sum(v)
+    assert tnative.seq_sum(v) == jnative.seq_sum(v)
     assert topt.fold_mean(v) == jopt.fold_mean(v)
     assert topt.fold_mean(v[:0]) == jopt.fold_mean(v[:0])
 
@@ -460,3 +463,27 @@ def test_tdps_round_trip_matches(msst19, size_type):
         {k: v for k, v in tb.items() if k != "data_type"}
     assert int(back.data_type) == int(want.data_type)
     assert ttdps.to_bytes(back, size_type) == raw
+
+
+def test_tune_malloc_keeps_freed_buffers_mapped():
+    """After tune_malloc, a large host buffer freed and allocated again
+    comes back from the heap already mapped: the refill takes almost no
+    page faults (without the trim threshold it faults every page again).
+    Run in a fresh process, whose heap nothing else touches."""
+    code = (
+        "import json, resource, numpy as np\n"
+        "from sz_tpu_torch import native\n"
+        "native.tune_malloc()\n"
+        "faults = []\n"
+        "for _ in range(3):\n"
+        "    f0 = resource.getrusage(resource.RUSAGE_SELF).ru_minflt\n"
+        "    a = np.empty(16 * 2**20, np.float32); a[:] = 1\n"
+        "    faults.append(resource.getrusage(resource.RUSAGE_SELF)"
+        ".ru_minflt - f0)\n"
+        "    del a\n"
+        "print(json.dumps(faults))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         cwd=pathlib.Path(__file__).resolve().parents[1])
+    first, *again = json.loads(out.stdout)
+    assert first > 0 and max(again) <= first // 20, (first, again)
