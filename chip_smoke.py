@@ -24,8 +24,9 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      Huffman decode) on skewed streams, trees of 20,000 and 80,000 nodes
      (transition tables of 80 and 320 KB), a stream past 2^31 bits,
      codes of 1100 and 40 bits, and a stream of the 512^3 stream's size
-     whose chunks never self-synchronize, each with its K6 steps and
-     decode time; K8/K9
+     whose chunks never self-synchronize, each with K6's launches a
+     decode and the decode time; K6 also on synthetic maps of up to
+     10^6 chunks (never converging, counts past 2^31, D past 63); K8/K9
      (the tiled MSST19 PW_REL recurrence, both directions, each called
      twice, the decode also rebuilding the encode's reconstruction) at
      the CPU tests' shapes, on ragged, sub-tile and single-row lattices
@@ -57,7 +58,8 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      512^3 float64 (1.07 GB; K1d/K2d): the bound, MB/s, spans and
      launches; then K5-K7 timed against their plain versions on the type streams
      of 512^3 ABS, 512^3 PW_REL and 1800x3600 PW_REL (node count,
-     longest code and codeword-table bits of each); K3 and K4 timed
+     longest code and codeword-table bits of each; K6 also at each tile
+     size, and its launches in one decode); K3 and K4 timed
      against their plain versions on the same fields' main-path inputs
      (the type lattice; the stream with its real tables), caught from
      the first compress of each field above.
@@ -790,28 +792,23 @@ def _packed_on_card(types, nstate, dev):
 
 
 def fsm_vs_plain(name, stream, n_sym, want=None, node_count=None) -> dict:
-    """K5, every K6 step and K7 against their plain versions on one
-    stream (n_sym None: decode every symbol the stream codes), and the
-    whole decode timed."""
+    """K5, K6 and K7 against their plain versions on one stream (n_sym
+    None: decode every symbol the stream codes), and the whole decode
+    timed, with K6's launches in one decode."""
     import torch
     from sz_tpu_torch.gpu import fsm_kernel as fk
     trans, bits, total_bits, depth = (stream.trans, stream.bits,
                                       stream.total_bits, stream.depth)
     gk, nk = fk.fsm_sweep(stream)
     gp, np_ = fk.fsm_sweep_plain(bits, trans, total_bits, depth)
-    ok = {"K5": torch.equal(gk, gp) and torch.equal(nk, np_), "K6": True}
-    steps, stride = 0, 1
-    while stride < gk.shape[0]:
-        gk2, nk2 = fk.fsm_sync(gk, nk, stride)
-        gp, np_ = fk.fsm_sync_plain(gk, nk, stride)
-        ok["K6"] = ok["K6"] and torch.equal(gk2, gp) and torch.equal(nk2,
-                                                                     np_)
-        gk, nk, stride, steps = gk2, nk2, 2 * stride, steps + 1
-    zero = torch.zeros(1, dtype=torch.int64, device=bits.device)
-    entry = torch.cat([zero.to(torch.int32), gk[:-1, 0]])
-    off = torch.cat([zero, nk[:-1, 0]])
-    total = int(nk[-1, 0])
-    del gk, nk, gp, np_
+    ok = {"K5": torch.equal(gk, gp) and torch.equal(nk, np_)}
+    del gp, np_
+    entry, off, total = fk.fsm_scan(gk, nk)
+    ok["K6"] = all(torch.equal(a, b) for a, b in zip(
+        (entry, off, total), fk.fsm_scan_plain(gk, nk)))
+    total = int(total)
+    chunks = gk.shape[0]
+    del gk, nk
     n = total if n_sym is None else n_sym
     sk = fk.fsm_emit(stream, entry, off, n)
     sp = fk.fsm_emit_plain(bits, trans, total_bits, depth, entry, off, n)
@@ -822,17 +819,73 @@ def fsm_vs_plain(name, stream, n_sym, want=None, node_count=None) -> dict:
             sk, want if torch.is_tensor(want) else
             torch.from_numpy(want).to(sk.device))
     del sp
+    k6 = fk.fsm_scan.launches
+    fk.decode_coded(stream, n, bits.device)
+    k6 = fk.fsm_scan.launches - k6
+    ok["one_K6_launch"] = k6 == 1
     decode_ms = cuda_ms(lambda: fk.decode_coded(stream, n, bits.device), 3)
     row = dict(case=name, node_count=node_count or trans.numel() // 2,
                longest_code=depth, chunk_bits=fk.chunk_bits(depth),
                lut_bits=stream.lut.numel().bit_length() - 1,
-               total_bits=total_bits, chunks=int(entry.numel()),
-               symbols=n, k6_steps=steps, decode_ms=decode_ms, **ok)
+               total_bits=total_bits, chunks=chunks,
+               scan_tile=fk.scan_tile(depth), symbols=n,
+               k6_launches_a_decode=k6, decode_ms=decode_ms, **ok)
     _log("kernel K5-K7 vs plain", **row)
     if not all(ok.values()):
         raise AssertionError(f"K5-K7 differ from their plain versions on "
                              f"{name}: {ok}")
     return row
+
+
+def scan_maps(kind: str, L: int, D: int, seed: int, dev):
+    """Synthetic K5-shaped maps on ``dev``: random entries, a permutation
+    a chunk (composites never converge), one entry a chunk, or random
+    entries with counts of 2^31 and more."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "permutation":
+        g = torch.rand((L, D), generator=gen, device=dev).argsort(dim=1)
+    elif kind == "constant":
+        g = torch.randint(0, D, (L, 1), generator=gen,
+                          device=dev).expand(L, D).contiguous()
+    else:
+        g = torch.randint(0, D, (L, D), generator=gen, device=dev)
+    lo, hi = (1 << 31, 1 << 33) if kind == "big_counts" else (0, 1000)
+    n = torch.randint(lo, hi, (L, D), generator=gen, device=dev)
+    return g.to(torch.int32), n
+
+
+def phase_scan_cases(dev) -> list:
+    """K6 against its plain version on synthetic maps: thousands of tiles
+    (the look-back meets aggregates and steps back window by window),
+    maps that never converge, counts past 2^31 in every chunk, the
+    largest windowed depth and the wide path (D > 63)."""
+    import torch
+    from sz_tpu_torch.gpu import fsm_kernel as fk
+    rows = []
+    for kind, L, D in (("random", 1_000_003, 28),
+                       ("permutation", 1_000_003, 28),
+                       ("big_counts", 400_001, 63),
+                       ("permutation", 20_001, 1),
+                       ("random", 30_001, 64),
+                       ("permutation", 5_001, 1100)):
+        g, n = scan_maps(kind, L, D, L + D, dev)
+        want = fk.fsm_scan_plain(g, n)
+        ok = all(all(torch.equal(a, b) for a, b in zip(fk.fsm_scan(g, n),
+                                                        want))
+                 for _ in range(2))
+        row = dict(case=f"{kind}_{L}x{D}", tile=fk.scan_tile(D),
+                   tiles=-(-L // fk.scan_tile(D)),
+                   ms=cuda_ms(lambda: fk.fsm_scan(g, n), 3),
+                   total=int(want[2]), equal=ok)
+        _log("kernel K6 vs plain, synthetic maps", **row)
+        if not ok:
+            raise AssertionError(f"K6 differs from its plain version on "
+                                 f"{row['case']}")
+        rows.append(row)
+        del g, n, want
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _caterpillar(depth):
@@ -1617,21 +1670,20 @@ def type_stream(blob: bytes, shape, dev):
 
 def fsm_timing(name: str, coded, n: int, nodes: int) -> dict:
     """K5-K7 on one full-size type stream, each against its plain
-    version (K6: one step, stride 1; a decode makes ceil(log2 L)), and
-    the decode timed.  Returns the kernel entries."""
+    version, K6 also at each tile size it can take, and the decode timed
+    with K6's launches in it.  Returns the kernel entries."""
     from sz_tpu_torch.gpu import fsm_kernel as fk
 
     bits, trans, lut = coded.bits, coded.trans, coded.lut
     tb, depth = coded.total_bits, coded.depth
     g, m = fk.fsm_sweep(coded)
-    g1, m1 = fk.fsm_sync(g, m, 1)
-    entry, off, _, steps = fk.compose(g, m)
+    entry, off, total = fk.fsm_scan(g, m)
     syms = fk.fsm_emit(coded, entry, off, n)
     errs = {
         "fsm_sweep": max(max_abs_err(a, b) for a, b in zip(
             (g, m), fk.fsm_sweep_plain(bits, trans, tb, depth))),
-        "fsm_sync": max(max_abs_err(a, b) for a, b in zip(
-            (g1, m1), fk.fsm_sync_plain(g, m, 1))),
+        "fsm_scan": max(max_abs_err(a, b) for a, b in zip(
+            (entry, off, total), fk.fsm_scan_plain(g, m))),
         "fsm_emit": max_abs_err(syms, fk.fsm_emit_plain(
             bits, trans, tb, depth, entry, off, n)),
     }
@@ -1644,10 +1696,10 @@ def fsm_timing(name: str, coded, n: int, nodes: int) -> dict:
                       # reads the stream and the tables, writes the maps;
                       # walks every coded bit at least once
                       bound(nbytes(bits, trans, lut, g, m), tb)),
-        "fsm_sync": (lambda: fk.fsm_sync(g, m, 1),
-                     lambda: fk.fsm_sync_plain(g, m, 1),
-                     # reads the maps once, writes them once
-                     bound(nbytes(g, m, g1, m1))),
+        "fsm_scan": (lambda: fk.fsm_scan(g, m),
+                     lambda: fk.fsm_scan_plain(g, m),
+                     # reads the maps once, writes entry and offsets once
+                     bound(nbytes(g, m, entry, off, total))),
         "fsm_emit": (lambda: fk.fsm_emit(coded, entry, off, n),
                      lambda: fk.fsm_emit_plain(bits, trans, tb, depth, entry,
                                                off, n),
@@ -1661,13 +1713,26 @@ def fsm_timing(name: str, coded, n: int, nodes: int) -> dict:
                               plain_ms=plain_ms, bound_ms=b_ms,
                               bound_by=b_by, library_ms=None,
                               shape=list(g.shape) + [tb])
+    # K6 at every tile size of its windowed path that fits a block
+    gc, mc = g.contiguous(), m.contiguous()
+    tiles_ms = {T: cuda_ms(lambda: fk._scan(gc, mc, T), 5)
+                for T in (32, 64, 128, 256, 512)
+                if depth > fk.WINDOW_DEPTH
+                or fk.scan_smem(T, depth) <= 232448}
+    k6 = fk.fsm_scan.launches
+    fk.decode_coded(coded, n, bits.device)
+    k6 = fk.fsm_scan.launches - k6
     decode_ms = cuda_ms(lambda: fk.decode_coded(coded, n, bits.device), 3)
     _log(f"kernel K5-K7 on the {name} stream", node_count=nodes,
          total_bits=tb, chunks=int(g.shape[0]), longest_code=depth,
-         lut_bits=lut.numel().bit_length() - 1, k6_steps=steps,
-         decode_ms=decode_ms,
+         lut_bits=lut.numel().bit_length() - 1,
+         scan_tile=fk.scan_tile(depth), k6_ms_by_tile=tiles_ms,
+         k6_launches_a_decode=k6, decode_ms=decode_ms,
          **{k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms")}
             for k, v in entries.items()})
+    if k6 != 1:
+        raise AssertionError(f"a decode of the {name} stream launched K6 "
+                             f"{k6} times")
     return entries
 
 
@@ -1694,7 +1759,7 @@ DEVICE_NAMES = (
     ("histogram_window_kernel", "histogram"),
     ("pack_lookback_kernel", "pack_bits"),
     ("fsm_sweep_kernel", "fsm_sweep"), ("fsm_sweep_wide_kernel", "fsm_sweep"),
-    ("fsm_sync_kernel", "fsm_sync"),
+    ("fsm_scan_kernel", "fsm_scan"), ("fsm_scan_wide_kernel", "fsm_scan"),
     ("fsm_emit_kernel", "fsm_emit"),
     ("wavefront3d_encode_kernel", "msst19_wavefront3d_encode"),
     ("wavefront3d_decode_kernel", "msst19_wavefront3d_decode"),
@@ -1757,7 +1822,7 @@ KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
                   "sz_tpu/tpu/pack_kernel.py:515"),
     "fsm_sweep": ("K5", "sz_tpu_torch/csrc/fsm.cu",
                   "sz_tpu/tpu/fsm_kernel.py:137"),
-    "fsm_sync": ("K6", "sz_tpu_torch/csrc/fsm.cu",
+    "fsm_scan": ("K6", "sz_tpu_torch/csrc/fsm.cu",
                  "sz_tpu/tpu/fsm_kernel.py:172"),
     "fsm_emit": ("K7", "sz_tpu_torch/csrc/fsm.cu",
                  "sz_tpu/tpu/fsm_kernel.py:298"),
@@ -1830,6 +1895,7 @@ def main() -> int:
     entries.update(phase_kernels(dev))
     record["pack_hist_cases"] = phase_pack_hist_cases(dev)
     record["fsm_cases"] = phase_fsm_cases(dev)
+    record["scan_cases"] = phase_scan_cases(dev)
     record["msst19_cases"], msst19_entries = phase_msst19_cases(dev)
     entries.update(msst19_entries)
 
@@ -1842,7 +1908,7 @@ def main() -> int:
                 "histogram": hist_kernel.histogram,
                 "pack_bits": pack_kernel.pack_bits,
                 "fsm_sweep": fsm_kernel.fsm_sweep,
-                "fsm_sync": fsm_kernel.fsm_sync,
+                "fsm_scan": fsm_kernel.fsm_scan,
                 "fsm_emit": fsm_kernel.fsm_emit,
                 "msst19_wavefront3d_encode": msst19_kernel.wavefront3d_encode,
                 "msst19_wavefront3d_decode": msst19_kernel.wavefront3d_decode,

@@ -1,12 +1,12 @@
-// K5 fsm_sweep, K6 fsm_sync, K7 fsm_emit: Huffman decode of the type
+// K5 fsm_sweep, K6 fsm_scan, K7 fsm_emit: Huffman decode of the type
 // stream on Hopper (sm_90a).
 //
 // Replaces sz_tpu/tpu/fsm_kernel.py's three Pallas kernels (kernel A
-// _fsm_call, :137; kernel B _fsm_call_b, :172; kernel C _compact_call,
-// :298).  The coded stream is cut into chunks of F bits (F = 1024, one
-// 128-byte line, or the next multiple of 1024 at or above the longest
-// code D), one thread per chunk.  Bits at or past total_bits emit
-// nothing.
+// _fsm_call, :137; kernel B _fsm_call_b, :172, the chunk entry-state
+// sync; kernel C _compact_call, :298).  The coded stream is cut into
+// chunks of F bits (F = 1024, one 128-byte line, or the next multiple of
+// 1024 at or above the longest code D), one thread per chunk.  Bits at
+// or past total_bits emit nothing.
 //
 // Walks step a codeword at a time (codeword() below): the next k bits
 // from the root index the codeword table lut (fsm_kernel.build_lut; k =
@@ -28,32 +28,53 @@
 //       = the symbols emitted.  Walks from different offsets meet at a
 //       common boundary and coincide from there (self-synchronization):
 //       each distinct boundary of the chunk is decoded once (below).
-//   K6: one doubling step of the prefix composition of the chunk maps:
-//       g'[c] = g[c] o g[c - step], n'[c] = n[c - step] + n[c] o g[c -
-//       step].  ceil(log2 L) launches make g[c][0] the first boundary of
-//       chunk c + 1 and n[c][0] the symbols of chunks 0..c, for every
-//       stream: no rounds that depend on the data, no host sync between
-//       them, no window.
+//   K6: one scan of the maps from chunk 0, entered at 0: entry[c + 1] =
+//       g[c][entry[c]], offsets[c + 1] = offsets[c] + n[c][entry[c]], and
+//       the stream's symbol count, in one launch (a single-pass scan
+//       with decoupled look-back over tiles of chunks, below).  It relies
+//       on no self-synchronization: a stream whose walks never meet
+//       decodes in the same one launch.
 //   K7: walk each chunk from its true first boundary and write each
 //       symbol as int32 at the chunk's int64 offset; symbols at or past
 //       n_sym (the byte padding's junk) are dropped.
 //
-// Bound on this card: the latency of the dependent chain of a walk (a
-// table lookup in shared memory a codeword, the window's word loads, and
-// for codes past k bits one load of trans a bit through L1/L2) and the
-// instructions a step, not bytes: the stream is read about once and the
-// maps and symbols written once.  The design answers with fewer links
-// (a codeword a lookup, not a bit; K5 decodes each distinct boundary of
-// a chunk once, however many walks reach it), loads issued a word ahead,
-// and parallelism (one chunk a thread, ~10^6 at 512^3, the block size
-// chosen for the most threads an SM).  K5 stages its maps and K7 its
-// symbols in shared memory and stores them in whole lines.  Bit offsets
-// are int64 (streams pass 2^31 bits).
+// Bound on this card, K5 and K7: the latency of the dependent chain of a
+// walk (a table lookup in shared memory a codeword, the window's word
+// loads, and for codes past k bits one load of trans a bit through
+// L1/L2) and the instructions a step, not bytes: the stream is read
+// about once and the maps and symbols written once.  The design answers
+// with fewer links (a codeword a lookup, not a bit; K5 decodes each
+// distinct boundary of a chunk once, however many walks reach it), loads
+// issued a word ahead, and parallelism (one chunk a thread, ~10^6 at
+// 512^3, the block size chosen for the most threads an SM).  K5 stages
+// its maps and K7 its symbols in shared memory and stores them in whole
+// lines.  Bit offsets are int64 (streams pass 2^31 bits).
+//
+// Bound on this card, K6: bytes, one read of the maps (12 B an entry,
+// 298 MB at 512^3) and one write of entry and offsets.  The composition
+// of two chunks' maps is associative, so a tile's D-wide aggregate can
+// be built before anything is known about its entry; the scan's carry,
+// once chunk 0's entry is fixed, is a scalar pair (entry, count).  The
+// design stages each tile's rows once (16-byte cp.async) and composes
+// them in shared memory.  What stands in its way is the look-back: its
+// folds are D-wide and each window of it costs two round trips to L2,
+// and the tiles that stage together all look back past one another.  So
+// it runs in a warp of its own from the moment the tile is claimed,
+// beside the staging, and tiles are as large as two blocks an SM allow
+// (fsm_kernel.scan_tile): the fewer tiles for the same bytes, the fewer
+// aggregates each look-back folds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+using lookback::bar_arrive;
+using lookback::bar_sync;
+using lookback::kAggregate;
+using lookback::kInclusive;
 
 constexpr int kWideThreads = 256;   // K5 for D > 63
 constexpr int kEmitThreads = 256;
@@ -62,6 +83,13 @@ constexpr int kStage = 32;        // K7: symbols a lane stages a round
 constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory
 constexpr int kSmemPerSm = 233472;
 constexpr int kPayload = (1 << 26) - 1;
+constexpr int kScanWarps = 8;     // K6: warps that compose a tile
+constexpr int kScanThreads = 32 * kScanWarps;
+constexpr int kScanBlock = kScanThreads + 32;  // and one that looks back
+constexpr int kWindow = 32;       // K6: predecessors a look-back step reads
+// K6's named barriers: the composing warps alone, and their hand-over of
+// the runs' composites to the look-back warp
+constexpr int kComposers = 1, kComposed = 2;
 
 // The bits of one chunk from its first word: at(q) is the 32 bits from
 // chunk bit q on, the first in bit 31.  Words at or past the stream's
@@ -338,22 +366,311 @@ __global__ void __launch_bounds__(kWideThreads, 4)
   }
 }
 
-__global__ void fsm_sync_kernel(const int* __restrict__ g,
-                                const long long* __restrict__ n,
-                                long long nchunks, int D, long long stride,
-                                int* __restrict__ g_out,
-                                long long* __restrict__ n_out) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nchunks * D) return;
-  if (i < stride * D) {
-    g_out[i] = g[i];
-    n_out[i] = n[i];
-    return;
+// K6: a tile's entries.  A g value outside [0, D) (no map K5 writes)
+// reads as D - 1, so every gather stays inside its row.
+__device__ __forceinline__ int entry_in(int x, int D) {
+  return (int)min((unsigned)x, (unsigned)(D - 1));
+}
+
+// Copies `bytes` (a multiple of 4) from device memory into shared memory
+// with `threads` threads (this one is `tid`): 16-byte cp.async where
+// the source is 16-byte aligned, word loads for the tail (and for a
+// source that is not).  Both read L2 (.cg), never a line that L1 may
+// hold from before a look-back's flag.  The caller waits (cp_async_wait)
+// before it reads the copy.
+__device__ __forceinline__ void stage(void* dst, const void* src,
+                                      long long bytes, int tid,
+                                      int threads) {
+  const long long words = bytes >> 2;
+  long long done = 0;
+  if (!(reinterpret_cast<size_t>(src) & 15)) {
+    done = (bytes >> 4) << 2;
+    for (long long i = tid; i < done >> 2; i += threads) {
+      const unsigned d = (unsigned)__cvta_generic_to_shared(
+          static_cast<char*>(dst) + 16 * i);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                   "l"(static_cast<const char*>(src) + 16 * i)
+                   : "memory");
+    }
   }
-  long long prev = i - stride * D;
-  long long k = (i / D) * D + g[prev];
-  g_out[i] = g[k];
-  n_out[i] = n[prev] + n[k];
+  for (long long i = done + tid; i < words; i += threads)
+    static_cast<int*>(dst)[i] = __ldcg(static_cast<const int*>(src) + i);
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+template <class V>
+__device__ __forceinline__ V shfl(V v, int lane) {
+  return __shfl_sync(0xffffffffu, v, lane);
+}
+
+// Entry x of a map spread over a warp, lane l holding entries l and l +
+// 32 (v0, v1): every lane of the warp calls it (x < 64).
+template <class V>
+__device__ __forceinline__ V entry_of(V v0, V v1, int x, bool two) {
+  const V a = shfl(v0, x & 31);
+  if (!two) return a;
+  const V b = shfl(v1, x & 31);
+  return x < 32 ? a : b;
+}
+
+// Entries a row of K6's aggregates: D rounded up to a multiple of 4, so
+// that every row starts on 16 bytes.
+__host__ __device__ __forceinline__ int padded(int D) {
+  return (D + 3) & ~3;
+}
+
+// K6's look-back for tile t > 0, D <= 63, one warp: the tile's first
+// boundary (*e) and the symbols before it (*k).  Y, the composite from
+// the start of the earliest tile folded so far to the start of tile t,
+// starts as the identity; lane l holds Y's entries l and l + 32.  The
+// warp reads kWindow predecessors' descriptors at a time (nearest
+// first), copies the aggregates of those up to the nearest inclusive
+// prefix (one contiguous block of rows) into its buffer wg/wn
+// ([kWindow][padded(D)]) in one round of cp.async, and folds them into Y,
+//   Y.g[x] <- Y.g[A.g[x]],  Y.n[x] <- A.n[x] + Y.n[A.g[x]],
+// until it meets an inclusive prefix (e, k) of tile s: the entry at tile
+// s + 1 and the symbols of tiles 0..s.  Then tile t starts at Y.g[e]
+// with k + Y.n[e] symbols before it.  A window costs two round trips to
+// L2 (descriptors, then aggregates) and a fold two shuffles' latency.
+__device__ void look_back(long long t, const longlong2* desc,
+                          const int* agg_g, const long long* agg_n, int D,
+                          int* wg, long long* wn, int* e, long long* k) {
+  const int lane = threadIdx.x & 31, Dp = padded(D);
+  const bool two = D > 32;
+  int y0 = lane, y1 = lane + 32;
+  long long m0 = 0, m1 = 0;
+  for (long long j = t - 1;; j -= kWindow) {
+    unsigned incl;
+    const longlong2 d = lookback::window(j, desc, &incl);
+    const int nfold = incl ? __ffs(incl) - 1 : kWindow;
+    if (nfold) {
+      __threadfence();  // read the aggregates after their flags
+      const long long first = (j - nfold + 1) * Dp;
+      stage(wn, agg_n + first, 8LL * nfold * Dp, lane, 32);
+      stage(wg, agg_g + first, 4LL * nfold * Dp, lane, 32);
+      cp_async_wait();
+      __syncwarp();
+#pragma unroll 4
+      for (int i = 0; i < nfold; ++i) {  // tile j - i, in row nfold - 1 - i
+        const int r = (nfold - 1 - i) * Dp;
+        const int a0 = lane < D ? wg[r + lane] : lane;
+        const int a1 = lane + 32 < D ? wg[r + lane + 32] : lane + 32;
+        const long long n0 = lane < D ? wn[r + lane] : 0;
+        const long long n1 = lane + 32 < D ? wn[r + lane + 32] : 0;
+        const int g0 = entry_of(y0, y1, a0, two);
+        const int g1 = entry_of(y0, y1, a1, two);
+        const long long q0 = entry_of(m0, m1, a0, two);
+        const long long q1 = entry_of(m0, m1, a1, two);
+        y0 = g0;
+        y1 = g1;
+        m0 = n0 + q0;
+        m1 = n1 + q1;
+      }
+      __syncwarp();  // the buffer is read before the next window's copy
+    }
+    if (incl) {  // the inclusive prefix, in lane nfold
+      const int x = (int)shfl(d.y, nfold);
+      *e = entry_of(y0, y1, x, two);
+      *k = shfl(d.x, nfold) + entry_of(m0, m1, x, two);
+      return;
+    }
+  }
+}
+
+// K6, D <= 63 (every tree of the main path).  A block claims the next
+// tile of T chunks from the counter and stages the tile's rows of g and n
+// in shared memory (cp.async, so every map byte is read from device
+// memory once).  Its kScanWarps composing warps each compose a run of T /
+// kScanWarps chunks: lane l carries the walks entered at offsets l and l
+// + 32 through the run (X.n[j] += n[c][X.g[j]], X.g[j] = g[c][X.g[j]]);
+// the runs' composites, in warp order, make the tile's aggregate, which
+// the tile publishes (D-wide to scratch, then its descriptor, flagged
+// AGGREGATE) before anything waits on its prefix.  Meanwhile its own
+// warp looks back (look_back above), from the moment the tile is
+// claimed.  With both, the look-back warp's lane 0 walks the runs'
+// composites from the tile's entry, which gives each run's entry and
+// count and the tile's inclusive prefix (the entry at the next tile and
+// the symbols so far), published at once.  Then each composing warp's
+// lane 0 walks its run from its entry in shared memory, staging entry
+// and offsets, which the block stores whole.  Tile 0 starts at (0, 0)
+// and publishes only its inclusive prefix.
+__global__ void __launch_bounds__(kScanBlock, 2)
+    fsm_scan_kernel(const int* __restrict__ g,
+                    const long long* __restrict__ n, long long nchunks,
+                    int D, int T, longlong2* desc, int* counter,
+                    int* agg_g, long long* agg_n, int* __restrict__ entry,
+                    long long* __restrict__ offsets,
+                    long long* __restrict__ total) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Dp = padded(D);
+  long long* sn = reinterpret_cast<long long*>(smem);  // [T][D] rows of n
+  long long* xn = sn + (long long)T * D;  // [kScanWarps][D] composites
+  long long* soff = xn + kScanWarps * D;  // [T] the tile's offsets
+  long long* wn = soff + T;               // [kWindow][Dp] look-back buffer
+  int* sg = reinterpret_cast<int*>(wn + kWindow * Dp);  // [T][D] of g
+  int* xg = sg + T * D;                            // [kScanWarps][D]
+  int* sent = xg + kScanWarps * D;  // [T] the tile's entries
+  int* wg = sent + T;               // [kWindow][Dp]
+  __shared__ long long s_tile;
+  __shared__ int s_e[kScanWarps];              // each run's entry
+  __shared__ long long s_k[kScanWarps];        // and its count
+  if (threadIdx.x == 0) s_tile = atomicAdd(counter, 1);
+  __syncthreads();
+  const long long t = s_tile, c0 = t * T;
+  const int rows = (int)min((long long)T, nchunks - c0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int R = T / kScanWarps;
+
+  if (warp == kScanWarps) {
+    int e = 0;
+    long long k = 0;
+    if (t) look_back(t, desc, agg_g, agg_n, D, wg, wn, &e, &k);
+    bar_sync(kComposed, kScanBlock);
+    if (lane == 0) {
+      for (int w = 0; w < kScanWarps; ++w) {
+        s_e[w] = e;
+        s_k[w] = k;
+        k += xn[w * D + e];
+        e = xg[w * D + e];
+      }
+      lookback::store_desc(desc + t, k, (long long)kInclusive << 32 | e);
+    }
+  } else {
+    stage(sn, n + c0 * D, 8LL * rows * D, threadIdx.x, kScanThreads);
+    stage(sg, g + c0 * D, 4LL * rows * D, threadIdx.x, kScanThreads);
+    cp_async_wait();
+    bar_sync(kComposers, kScanThreads);
+    const int r0 = warp * R, r1 = min(r0 + R, rows);
+    for (int j = lane; j < D; j += 32) {
+      int e = j;
+      long long k = 0;
+      for (int c = r0; c < r1; ++c) {
+        k += sn[c * D + e];
+        e = entry_in(sg[c * D + e], D);
+      }
+      xg[warp * D + j] = e;
+      xn[warp * D + j] = k;
+    }
+    bar_sync(kComposers, kScanThreads);
+    if (t) {
+      for (int j = threadIdx.x; j < D; j += kScanThreads) {
+        int e = j;
+        long long k = 0;
+        for (int w = 0; w < kScanWarps; ++w) {
+          k += xn[w * D + e];
+          e = xg[w * D + e];
+        }
+        agg_g[t * Dp + j] = e;
+        agg_n[t * Dp + j] = k;
+      }
+      __threadfence();
+      bar_sync(kComposers, kScanThreads);
+      if (threadIdx.x == 0)
+        lookback::store_desc(desc + t, 0, (long long)kAggregate << 32);
+    }
+    bar_arrive(kComposed, kScanBlock);
+  }
+  __syncthreads();
+  if (warp < kScanWarps && lane == 0) {
+    int e = s_e[warp];
+    long long k = s_k[warp];
+    const int r0 = warp * R, r1 = min(r0 + R, rows);
+    for (int c = r0; c < r1; ++c) {
+      sent[c] = e;
+      soff[c] = k;
+      k += sn[c * D + e];
+      e = entry_in(sg[c * D + e], D);
+    }
+    if (r0 < r1 && c0 + r1 == nchunks) *total = k;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows; i += kScanBlock) {
+    entry[c0 + i] = sent[i];
+    offsets[c0 + i] = soff[i];
+  }
+}
+
+// K6, D > 63 (deep trees only): no rows staged.  Each thread carries the
+// walks entered at its offsets j through the tile's T chunks,
+// reading the maps through L1/L2, which gives the aggregate directly.
+// The look-back cannot hold a D-wide composite in a warp, so it finds
+// the nearest inclusive prefix and walks its entry forward through the
+// aggregates in between, one lookup a tile; thread 0 then walks the
+// tile's chunks.
+__global__ void __launch_bounds__(kScanThreads)
+    fsm_scan_wide_kernel(const int* __restrict__ g,
+                         const long long* __restrict__ n, long long nchunks,
+                         int D, int T, longlong2* desc, int* counter,
+                         int* agg_g, long long* agg_n,
+                         int* __restrict__ entry,
+                         long long* __restrict__ offsets,
+                         long long* __restrict__ total) {
+  __shared__ long long s_tile, s_k;
+  __shared__ int s_e;
+  if (threadIdx.x == 0) s_tile = atomicAdd(counter, 1);
+  __syncthreads();
+  const long long t = s_tile, c0 = t * T;
+  const int rows = (int)min((long long)T, nchunks - c0);
+  const int* gt = g + c0 * D;
+  const long long* nt = n + c0 * D;
+  const int Dp = padded(D);
+  for (int j = threadIdx.x; j < D; j += kScanThreads) {
+    int e = j;
+    long long k = 0;
+    for (int c = 0; c < rows; ++c) {
+      k += __ldg(nt + (long long)c * D + e);
+      e = entry_in(__ldg(gt + (long long)c * D + e), D);
+    }
+    agg_g[t * Dp + j] = e;
+    agg_n[t * Dp + j] = k;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    int e = 0;
+    long long k = 0;
+    if (t) {
+      if (threadIdx.x == 0)
+        lookback::store_desc(desc + t, 0, (long long)kAggregate << 32);
+      long long j = t - 1;
+      unsigned incl;
+      longlong2 d;
+      for (;; j -= 32) {
+        d = lookback::window(j, desc, &incl);
+        if (incl) break;
+      }
+      const int stop = __ffs(incl) - 1;
+      e = (int)shfl(d.y, stop);
+      k = shfl(d.x, stop);
+      __threadfence();  // read the aggregates after their flags
+      for (long long i = j - stop + 1; i < t; ++i) {
+        k += __ldcg(agg_n + i * Dp + e);
+        e = __ldcg(agg_g + i * Dp + e);
+      }
+    }
+    if (threadIdx.x == 0) {
+      lookback::store_desc(desc + t, k + __ldcg(agg_n + t * Dp + e),
+                           (long long)kInclusive << 32 |
+                               __ldcg(agg_g + t * Dp + e));
+      s_e = e;
+      s_k = k;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int e = s_e;
+    long long k = s_k;
+    for (int c = 0; c < rows; ++c) {
+      entry[c0 + c] = e;
+      offsets[c0 + c] = k;
+      k += __ldg(nt + (long long)c * D + e);
+      e = entry_in(__ldg(gt + (long long)c * D + e), D);
+    }
+    if (c0 + rows == nchunks) *total = k;
+  }
 }
 
 // K7.  Each lane walks its chunk from its true first boundary, a
@@ -459,13 +776,42 @@ extern "C" int sz_fsm_sweep(const void* bits, const int* trans,
                 nwords, trans, lut, k, total_bits, nchunks, F, D, g, n);
 }
 
-extern "C" int sz_fsm_sync(const int* g, const long long* n,
-                           long long nchunks, int D, long long stride,
-                           int* g_out, long long* n_out, void* stream) {
-  long long total = nchunks * D;
-  unsigned blocks = (unsigned)((total + 255) / 256);
-  fsm_sync_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      g, n, nchunks, D, stride, g_out, n_out);
+// K6.  tile: chunks a tile, a multiple of 32 (fsm_kernel.scan_tile).
+// scratch: (ntiles + 1) 16-byte words (a descriptor a tile, then the
+// tile counter; zeroed here), then the tiles' aggregates, rows of
+// padded(D) entries: ntiles rows of int64 counts, ntiles of int32
+// entries.
+extern "C" int sz_fsm_scan(const int* g, const long long* n,
+                           long long nchunks, int D, int tile,
+                           void* scratch, int* entry, long long* offsets,
+                           long long* total, void* stream) {
+  if (nchunks < 1 || D < 1 || tile < 32 || tile % 32)
+    return (int)cudaErrorInvalidValue;
+  const long long ntiles = (nchunks + tile - 1) / tile;
+  if (ntiles >= 1LL << 31) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  longlong2* desc = (longlong2*)scratch;
+  int* counter = (int*)(desc + ntiles);
+  long long* agg_n = (long long*)(desc + ntiles + 1);
+  int* agg_g = (int*)(agg_n + ntiles * padded(D));
+  cudaError_t e = cudaMemsetAsync(desc, 0, (ntiles + 1) * 16, st);
+  if (e != cudaSuccess) return (int)e;
+  if (D > kWindowDepth) {
+    fsm_scan_wide_kernel<<<(unsigned)ntiles, kScanThreads, 0, st>>>(
+        g, n, nchunks, D, tile, desc, counter, agg_g, agg_n, entry, offsets,
+        total);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem =
+      12 * ((size_t)tile * D + kScanWarps * D + tile + kWindow * padded(D));
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(fsm_scan_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fsm_scan_kernel<<<(unsigned)ntiles, kScanBlock, smem, st>>>(
+      g, n, nchunks, D, tile, desc, counter, agg_g, agg_n, entry, offsets,
+      total);
   return (int)cudaGetLastError();
 }
 

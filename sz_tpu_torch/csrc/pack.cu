@@ -62,7 +62,14 @@
 
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+using lookback::bar_arrive;
+using lookback::bar_sync;
+using lookback::kAggregate;
+using lookback::kInclusive;
 
 constexpr int kThreads = 256;              // threads that pack
 constexpr int kRun = 8;                    // consecutive symbols a thread
@@ -72,9 +79,6 @@ constexpr int kMaxCodeBits = 128;
 // a tile's words, and one zero word past them for the funnel shifts
 constexpr int kWords = kTile * kMaxCodeBits / 32 + 1;
 constexpr int kLookback = 32;              // predecessors a look-back step
-
-// a tile's published state
-constexpr int kNone = 0, kAggregate = 1, kInclusive = 2;
 
 // A segment of the bit stream: its length, and its last min(bits, 31)
 // bits right-aligned.
@@ -92,38 +96,15 @@ __device__ __forceinline__ Seg join(Seg a, Seg b) {
   return r;
 }
 
-// A tile's descriptor is one 16-byte word, (bits, state << 32 | tail),
-// stored and loaded whole (one v2.s64 access): a reader sees a state
-// together with its segment, so neither side needs a fence.  The accesses
-// are volatile: they go to L2, so the spinning loads leave the SM's L1
-// (the code table) alone, and the compiler may not hoist a load out of
-// the spin loop.
-__device__ __forceinline__ longlong2 load_desc(const longlong2* p) {
-  longlong2 v;
-  asm volatile("ld.volatile.global.v2.s64 {%0, %1}, [%2];"
-               : "=l"(v.x), "=l"(v.y)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
+// A tile's descriptor (lookback.cuh) holds (bits, state << 32 | tail).
 __device__ __forceinline__ void publish(longlong2* d, Seg v, int state) {
-  asm volatile("st.volatile.global.v2.s64 [%0], {%1, %2};" ::"l"(d),
-               "l"(v.bits), "l"((long long)state << 32 | (long long)v.tail)
-               : "memory");
+  lookback::store_desc(d, v.bits,
+                       (long long)state << 32 | (long long)v.tail);
 }
 
 // Named barriers: the packing threads alone (kPackers), and the packers'
 // hand-over of the tile's segment to the look-back warp (kSegmentReady).
 constexpr int kPackers = 1, kSegmentReady = 2;
-
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
 
 // Exclusive scan of one int per packing thread (threadIdx.x < kThreads).
 __device__ __forceinline__ int packers_exclusive_scan(int v, int* total) {
@@ -187,18 +168,8 @@ __device__ Seg look_back(long long t, const longlong2* desc) {
   const int lane = threadIdx.x & 31;
   Seg suffix = {0, 0u};
   for (long long j = t - 1;; j -= kLookback) {
-    const long long idx = j - lane;
-    longlong2 d;
     unsigned incl;
-    for (;;) {
-      d = idx >= 0 ? load_desc(desc + idx)
-                   : make_longlong2(0, (long long)kInclusive << 32);
-      const int f = (int)(d.y >> 32);
-      incl = __ballot_sync(0xffffffffu, f == kInclusive);
-      // lanes up to the nearest inclusive prefix must have published
-      const unsigned need = incl ? incl ^ (incl - 1) : 0xffffffffu;
-      if (!(__ballot_sync(0xffffffffu, f == kNone) & need)) break;
-    }
+    const longlong2 d = lookback::window(j, desc, &incl);
     const int stop = incl ? __ffs(incl) - 1 : kLookback - 1;
     // fold lanes stop..0 (earliest tile first) in five shuffle steps
     Seg v = {0, 0u};

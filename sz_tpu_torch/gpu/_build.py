@@ -55,7 +55,7 @@ SIGNATURES = {
     "sz_histogram": (_P, _LL, _I, _I, _P, _P),
     "sz_pack_bits": (_P, _LL, _P, _P, _P, _I, _P, _P, _LL, _P),
     "sz_fsm_sweep": (_P, _P, _P, _I, _LL, _LL, _I, _I, _P, _P, _P, _P),
-    "sz_fsm_sync": (_P, _P, _LL, _I, _LL, _P, _P, _P),
+    "sz_fsm_scan": (_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P),
     "sz_fsm_emit": (_P, _P, _P, _I, _LL, _LL, _I, _I, _P, _P, _LL, _P,
                     _P),
     "sz_msst19_wavefront3d_encode": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,

@@ -190,10 +190,10 @@ def decompress(body: bytes, shape, dtype=np.float32, size_type: int = 8, *,
         coded = fsm_kernel.upload(p.tree, p.encoded, dev)
         devmod.sync(dev)
     with _tr.trace("huffman_device"):
-        types, steps = fsm_kernel.decode_coded(coded, n, dev)
+        types, scans = fsm_kernel.decode_coded(coded, n, dev)
         del coded
         devmod.sync(dev)
-    _tr.count("fsm_steps", steps)
+    _tr.count("fsm_scans", scans)
     g = geo.geom_small(shape, spec.block_size)
     use_reg = p.indicator == 0
     lc_full = np.zeros((g["nblocks"], spec.ncoeff), dtype=T)

@@ -1,4 +1,4 @@
-"""K5 ``fsm_sweep``, K6 ``fsm_sync`` and K7 ``fsm_emit``: the Huffman
+"""K5 ``fsm_sweep``, K6 ``fsm_scan`` and K7 ``fsm_emit``: the Huffman
 decode of the type stream on the card.
 
 CUDA kernels in ``csrc/fsm.cu``; they replace the three Pallas kernels of
@@ -17,12 +17,13 @@ composition of small maps:
   ``n[c, j]`` the symbols it emitted.  Walks from different offsets meet
   at a common boundary (Huffman codes self-synchronize) and go on as
   one, so the kernel decodes each distinct boundary of a chunk once;
-- K6 is one doubling step of the prefix composition of the maps; after
-  ceil(log2 L) steps ``g[c, 0]`` is chunk c + 1's first boundary and
-  ``n[c, 0]`` the symbols of chunks 0..c.  The step count depends only
-  on the chunk count, so every stream, also one that never
-  self-synchronizes, decodes exactly in the same launches with no host
-  sync between them;
+- K6 scans the maps from chunk 0, entered at 0: each chunk's first
+  boundary ``entry[c + 1] = g[c, entry[c]]``, its output offset
+  ``offsets[c + 1] = offsets[c] + n[c, entry[c]]`` and the stream's
+  symbol count, in one launch (a scan with decoupled look-back over
+  tiles of chunks).  It relies on no self-synchronization, so every
+  stream, also one that never self-synchronizes, decodes exactly in the
+  same three launches with no host sync between them;
 - K7 walks each chunk from its true first boundary once more and writes
   its symbols as int32 at its int64 offset, dropping those past
   ``n_sym`` (the byte padding's junk).
@@ -68,6 +69,11 @@ LEAF = 0x80000000
 LUT_BITS = 12                  # bits a codeword-table lookup reads
 LUT_PAYLOAD = 1 << 26          # symbols and nodes an entry can name
 WINDOW_DEPTH = 63              # K5's windowed sweep takes codes this long
+SCAN_WARPS = 8                 # K6: warps that compose a tile
+SCAN_WINDOW = 32               # K6: predecessors a look-back step reads
+# K6: shared memory a block such that two share an SM (fsm.cu kSmemPerSm
+# / 2, less the 1 KB the card reserves a block)
+SCAN_SMEM = 233472 // 2 - 1024
 _I32, _I64 = torch.int32, torch.int64
 
 
@@ -208,13 +214,21 @@ def fsm_sweep_plain(bits, trans, total_bits: int, depth: int):
     return _walk_plain(bits, trans, total_bits, depth, start)
 
 
-def fsm_sync_plain(g, n, stride: int):
-    if stride >= g.shape[0]:
-        return g.clone(), n.clone()
-    prev = g[:-stride].to(_I64)
-    g2 = torch.gather(g[stride:], 1, prev)
-    n2 = n[:-stride] + torch.gather(n[stride:], 1, prev)
-    return torch.cat([g[:stride], g2]), torch.cat([n[:stride], n2])
+def fsm_scan_plain(g, n):
+    """K6's plain version: the prefix composition of the maps by
+    doubling (ceil(log2 L) steps, g[c] o g[c - stride] and n[c - stride]
+    + n[c][g[c - stride]]), after which g[c, 0] is chunk c + 1's first
+    boundary and n[c, 0] the symbols of chunks 0..c."""
+    stride = 1
+    while stride < g.shape[0]:
+        prev = g[:-stride].to(_I64)
+        g = torch.cat([g[:stride], torch.gather(g[stride:], 1, prev)])
+        n = torch.cat([n[:stride],
+                       n[:-stride] + torch.gather(n[stride:], 1, prev)])
+        stride *= 2
+    zero = torch.zeros(1, dtype=_I64, device=g.device)
+    return (torch.cat([zero.to(_I32), g[:-1, 0]]),
+            torch.cat([zero, n[:-1, 0]]), n[-1:, 0].clone())
 
 
 def fsm_emit_plain(bits, trans, total_bits: int, depth: int, entry,
@@ -329,27 +343,61 @@ def fsm_sweep(coded: Coded):
     return g, n
 
 
-def fsm_sync(g, n, stride: int):
-    """K6: one doubling step of the prefix composition of the chunk maps:
-    g'[c] = g[c] o g[c - stride], n'[c] = n[c - stride] + n[c][g[c -
-    stride]] for c >= stride (else unchanged)."""
+def scan_smem(tile: int, depth: int) -> int:
+    """Shared memory of a K6 block on the windowed path: the staged rows,
+    the runs' composites, the tile's outputs and the look-back's buffer
+    of ``SCAN_WINDOW`` aggregates (rows of ``depth`` rounded up to 4), 12
+    B each."""
+    padded = -(-depth // 4) * 4
+    return 12 * (tile * depth + SCAN_WARPS * depth + tile
+                 + SCAN_WINDOW * padded)
+
+
+def scan_tile(depth: int) -> int:
+    """Chunks a K6 tile for maps of ``depth`` offsets: 32 past the
+    windowed depth (no rows staged); else the largest of 32..512 whose
+    block fits ``SCAN_SMEM``, so that two blocks share an SM."""
+    if depth > WINDOW_DEPTH:
+        return 32
+    return next(t for t in (512, 256, 128, 64, 32)
+                if scan_smem(t, depth) <= SCAN_SMEM)
+
+
+def fsm_scan(g, n):
+    """K6: each chunk's first boundary (int32 (L,)) and output offset
+    (int64 (L,)), and the stream's symbol count (int64 (1,), on the
+    device), from K5's maps g (int32 (L, D)) and n (int64 (L, D)), chunk
+    0 entered at offset 0.  g's entries lie in [0, D), as K5 writes them
+    (for others the result is unspecified; the kernel reads inside its
+    inputs)."""
     if g.dtype != _I32 or n.dtype != _I64 or g.dim() != 2 or \
             g.shape != n.shape:
-        raise ValueError("fsm_sync: g (int32) and n (int64) must be maps "
+        raise ValueError("fsm_scan: g (int32) and n (int64) must be maps "
                          "of one (chunks, depth) shape")
-    if stride < 1:
-        raise ValueError("fsm_sync: stride must be >= 1")
-    _same_device("fsm_sync", g, n)
+    if g.shape[0] < 1 or not 1 <= g.shape[1] <= 1 << 17:
+        raise ValueError("fsm_scan: the maps need a chunk and a depth in "
+                         "1..2^17")
+    _same_device("fsm_scan", g, n)
     if g.device.type == "cpu":
-        return fsm_sync_plain(g, n, stride)
-    g, n = g.contiguous(), n.contiguous()
-    g2, n2 = torch.empty_like(g), torch.empty_like(n)
-    rc = _build.lib().sz_fsm_sync(
-        *_ptrs(g, n), g.shape[0], g.shape[1], stride, *_ptrs(g2, n2),
-        _stream(g))
-    _build.check(rc, "fsm_sync")
-    fsm_sync.launches += 1
-    return g2, n2
+        return fsm_scan_plain(g, n)
+    return _scan(g.contiguous(), n.contiguous(), scan_tile(g.shape[1]))
+
+
+def _scan(g, n, tile: int):
+    """K6's launch on contiguous CUDA maps, ``tile`` chunks a tile."""
+    L, D = g.shape
+    ntiles, padded = -(-L // tile), -(-D // 4) * 4
+    scratch = torch.empty(16 * (ntiles + 1) + 12 * ntiles * padded,
+                          dtype=torch.uint8, device=g.device)
+    entry = torch.empty(L, dtype=_I32, device=g.device)
+    offsets = torch.empty(L, dtype=_I64, device=g.device)
+    total = torch.empty(1, dtype=_I64, device=g.device)
+    rc = _build.lib().sz_fsm_scan(*_ptrs(g, n), L, D, tile,
+                                  *_ptrs(scratch, entry, offsets, total),
+                                  _stream(g))
+    _build.check(rc, "fsm_scan")
+    fsm_scan.launches += 1
+    return entry, offsets, total
 
 
 def fsm_emit(coded: Coded, entry, offsets, n_sym: int):
@@ -376,27 +424,14 @@ def fsm_emit(coded: Coded, entry, offsets, n_sym: int):
     return out
 
 
-fsm_sweep.launches = fsm_sync.launches = fsm_emit.launches = 0
-
-
-def compose(g, n):
-    """K6 steps until every chunk's map starts at chunk 0.  Returns
-    (chunk c's first boundary offset int32 (L,), its output offset
-    int64 (L,), total symbols, steps)."""
-    L, steps, stride = g.shape[0], 0, 1
-    while stride < L:
-        g, n = fsm_sync(g, n, stride)
-        stride, steps = 2 * stride, steps + 1
-    zero = torch.zeros(1, dtype=_I64, device=g.device)
-    entry = torch.cat([zero.to(_I32), g[:-1, 0]])
-    offsets = torch.cat([zero, n[:-1, 0]])
-    return entry, offsets, int(n[-1, 0]), steps
+fsm_sweep.launches = fsm_scan.launches = fsm_emit.launches = 0
 
 
 def decode_coded(coded: Coded, n_sym: int, device):
-    """``n_sym`` int32 symbols of an uploaded stream (K5, K6 steps, K7).
-    Returns (symbols, K6 steps).  A tree whose root is a leaf codes a
-    constant stream with no bits (Huffman.c:310).  Raises ValueError when
+    """``n_sym`` int32 symbols of an uploaded stream (K5, K6, K7).
+    Returns (symbols, K6 scans: 1, or 0 where no bits are decoded).  A
+    tree whose root is a leaf codes a constant stream with no bits
+    (Huffman.c:310).  Raises ValueError when
     the stream emits a count outside [n_sym, n_sym + 7] (each junk symbol
     of the byte padding takes at least one of its at most 7 bits): the
     stream is corrupt."""
@@ -406,16 +441,17 @@ def decode_coded(coded: Coded, n_sym: int, device):
         return torch.full((n_sym,), coded.leaf_symbol, dtype=_I32,
                           device=device), 0
     g, n = fsm_sweep(coded)
-    entry, offsets, total, steps = compose(g, n)
+    entry, offsets, total = fsm_scan(g, n)
     del g, n
+    total = int(total)
     if not n_sym <= total <= n_sym + 7:
         raise ValueError(f"corrupt Huffman stream: {total} symbols coded, "
                          f"{n_sym} expected")
-    return fsm_emit(coded, entry, offsets, n_sym), steps
+    return fsm_emit(coded, entry, offsets, n_sym), 1
 
 
 def decode(tree, encoded, n_sym: int, device):
     """Huffman-decode ``n_sym`` symbols of ``encoded`` (bytes) with the
     serialized ``tree`` on ``device``.  Returns (int32 tensor, K6
-    steps)."""
+    scans)."""
     return decode_coded(upload(tree, encoded, device), n_sym, device)

@@ -157,11 +157,11 @@ def decompress(tdps: TDPS, shape, *, device, as_tensor: bool = False):
         coded = fsm_kernel.upload((*tree, node_count), ta[8 + tsize:], dev)
         devmod.sync(dev)
     with _tr.trace("huffman_device"):
-        types, steps = fsm_kernel.decode_coded(coded, n, dev)
+        types, scans = fsm_kernel.decode_coded(coded, n, dev)
         del coded
         counts = torch.stack([(types == 0).sum(),
                               (types >= intervals).sum()]).cpu()
-    _tr.count("fsm_steps", steps)
+    _tr.count("fsm_scans", scans)
     n_esc, n_bad = int(counts[0]), int(counts[1])
     if n_bad:
         raise ValueError(f"corrupt stream: {n_bad} types past the "

@@ -3,7 +3,7 @@
 
     with trace("quantize"):
         ...
-    count("fsm_steps", 20)
+    count("fsm_scans", 1)
     print(last_spans(), last_counts())
 
 Device spans in the port end with a synchronize inside the ``with``, so

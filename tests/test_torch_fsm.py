@@ -1,10 +1,14 @@
-"""The device Huffman decode (K5 fsm_sweep, K6 fsm_sync, K7 fsm_emit) on
-the CPU: the plain versions against a serial tree walk, and
-``decode_coded`` against the Pallas decode of sz_tpu
-(``fsm_kernel.decode_bits_device`` in interpret mode) and against the
-symbols that were encoded.  Tolerance: exact (equal symbols, offsets and
-counts).
+"""The device Huffman decode (K5 fsm_sweep, K6 fsm_scan, K7 fsm_emit) on
+the CPU: the plain versions against a serial tree walk, K6 against a
+serial chain over its maps, a numpy model of K6's decomposition (tiles,
+runs, look-back) against the same chain, and ``decode_coded`` against
+the Pallas decode of sz_tpu (``fsm_kernel.decode_bits_device`` in
+interpret mode) and against the symbols that were encoded.  Tolerance:
+exact (equal symbols, offsets and counts).
 """
+
+import itertools
+import pathlib
 
 import numpy as np
 import pytest
@@ -35,8 +39,8 @@ def _tree(t):
 
 
 def _decode(t, enc, n):
-    syms, steps = fk.decode(_tree(t), enc, n, "cpu")
-    return syms.numpy(), steps
+    syms, scans = fk.decode(_tree(t), enc, n, "cpu")
+    return syms.numpy(), scans
 
 
 def _jax_decode(t, enc, n):
@@ -94,10 +98,9 @@ def test_code_depth_is_the_longest_code():
 def test_decode_bits_matches_pallas(seed, n, nstate, a):
     types = _zipf_stream(seed, n, nstate, a)
     t, enc = _coded(types, nstate)
-    got, steps = _decode(t, enc, n)
+    got, scans = _decode(t, enc, n)
     np.testing.assert_array_equal(got, types)
-    chunks = fk.nchunks_of(8 * len(enc))
-    assert steps == int(np.ceil(np.log2(chunks))) >= 1
+    assert fk.nchunks_of(8 * len(enc)) > 1 and scans == 1
     np.testing.assert_array_equal(got, _jax_decode(t, enc, n))
 
 
@@ -150,9 +153,9 @@ def test_plain_versions_match_a_serial_walk(tree_kind):
             q, syms = _serial_walk(u8, *tree, c * F + j, (c + 1) * F, total)
             assert (int(g[c, j]), int(n[c, j])) == \
                 (max(q - (c + 1) * F, 0), len(syms))
-    entry, offsets, count, steps = fk.compose(g, n)
+    entry, offsets, count = fk.fsm_scan(g, n)
     _, ref = _serial_walk(u8, *tree, 0, total, total)
-    assert count == len(ref) and steps == 3
+    assert count.shape == (1,) and int(count) == len(ref)
     q, k = 0, 0
     for c in range(nchunks):      # the true boundaries, chunk by chunk
         assert (int(entry[c]), int(offsets[c])) == (q - c * F, k)
@@ -162,28 +165,195 @@ def test_plain_versions_match_a_serial_walk(tree_kind):
     np.testing.assert_array_equal(out.numpy(), ref[:-3])
 
 
-def test_sync_step_composes_maps():
-    """One K6 step against the composition written out, and the full
-    doubling against a serial scan p[c + 1] = g[c][p[c]]."""
-    rng = np.random.default_rng(59)
-    nch, D = 37, 5
-    g = torch.from_numpy(rng.integers(0, D, (nch, D)).astype(np.int32))
-    n = torch.from_numpy(rng.integers(0, 1000, (nch, D)).astype(np.int64))
-    g2, n2 = fk.fsm_sync(g, n, 4)
-    for c in range(nch):
-        for j in range(D):
-            if c < 4:
-                want = (int(g[c, j]), int(n[c, j]))
-            else:
-                p = int(g[c - 4, j])
-                want = (int(g[c, p]), int(n[c - 4, j]) + int(n[c, p]))
-            assert (int(g2[c, j]), int(n2[c, j])) == want
-    entry, offsets, total, steps = fk.compose(g, n)
-    p, k = 0, 0
-    for c in range(nch):
-        assert (int(entry[c]), int(offsets[c])) == (p, k)
-        p, k = int(g[c, p]), k + int(n[c, p])
-    assert total == k and steps == 6
+def _maps(kind, L, D, seed):
+    """K5-shaped maps (g int32 (L, D) in [0, D), n int64 (L, D)) from a
+    seed: random, a permutation a chunk (composites never converge), a
+    constant a chunk, or counts of 2^31 and more."""
+    rng = np.random.default_rng(seed)
+    if kind == "permutation":
+        g = np.stack([rng.permutation(D) for _ in range(L)])
+    elif kind == "constant":
+        g = np.repeat(rng.integers(0, D, (L, 1)), D, axis=1)
+    else:
+        g = rng.integers(0, D, (L, D))
+    lo, hi = (1 << 31, 1 << 33) if kind == "big_counts" else (0, 1000)
+    n = rng.integers(lo, hi, (L, D))
+    return (torch.from_numpy(g.astype(np.int32)),
+            torch.from_numpy(n.astype(np.int64)))
+
+
+def _chain(g, n):
+    """The serial chain: chunk 0 entered at 0, entry[c + 1] =
+    g[c][entry[c]], offsets[c + 1] = offsets[c] + n[c][entry[c]];
+    returns (entry, offsets, total) as numpy int64 and a Python int."""
+    g, n = g.numpy(), n.numpy()
+    entry = np.zeros(len(g), np.int64)
+    offsets = np.zeros(len(g), np.int64)
+    e = k = 0
+    for c in range(len(g)):
+        entry[c], offsets[c] = e, k
+        e, k = int(g[c, e]), k + int(n[c, e])
+    return entry, offsets, k
+
+
+MAP_KINDS = ["random", "permutation", "constant", "big_counts"]
+
+
+@pytest.mark.parametrize("kind", MAP_KINDS)
+@pytest.mark.parametrize("D", [1, 5, 28, 63, 64, 200])
+@pytest.mark.parametrize("L", [1, 2, 37, 1237])
+def test_scan_matches_a_serial_chain(L, D, kind):
+    """K6 (on the CPU its plain version, the doubling composition)
+    against the serial chain.  1237 chunks are no multiple of any tile
+    size."""
+    g, n = _maps(kind, L, D, 59 + L + D)
+    entry, offsets, total = fk.fsm_scan(g, n)
+    want_e, want_o, want_t = _chain(g, n)
+    assert entry.dtype == torch.int32 and offsets.dtype == torch.int64
+    assert total.dtype == torch.int64 and total.shape == (1,)
+    np.testing.assert_array_equal(entry.numpy(), want_e)
+    np.testing.assert_array_equal(offsets.numpy(), want_o)
+    assert int(total) == want_t
+    if kind == "big_counts":
+        assert want_t >= 1 << 31
+
+
+# --- a model of K6's decomposition (csrc/fsm.cu fsm_scan_kernel, and
+# fsm_scan_wide_kernel past the windowed depth) ---------------------------
+
+def _walk(g, n, chunks, j):
+    """The walk entered at offset j through ``chunks``, reading g as the
+    kernel does (an entry past D - 1 as D - 1): (entry after, count)."""
+    D = g.shape[1]
+    e, k = j, 0
+    for c in chunks:
+        e, k = min(int(g[c, e]), D - 1), k + int(n[c, e])
+    return e, k
+
+
+def _composite(g, n, chunks):
+    """The D-wide composite of a run of chunks: (entries, counts)."""
+    w = [_walk(g, n, chunks, j) for j in range(g.shape[1])]
+    return (np.array([e for e, _ in w], np.int64),
+            np.array([k for _, k in w], np.int64))
+
+
+def _then(first, second):
+    """The composite of ``first`` followed by ``second``."""
+    return second[0][first[0]], first[1] + second[1][first[0]]
+
+
+def _look_back(t, states, agg, incl, window, wide):
+    """Tile t's (entry, count) as its look-back warp finds them: lanes
+    read ``window`` predecessors at a time (a tile before 0 reads as
+    inclusive (0, 0)); states[s] is what tile s's descriptor shows
+    ("A" or "I"); incl[s] its inclusive prefix; agg[s] its aggregate.
+    Narrow: fold the aggregates, nearest first, into Y until the nearest
+    inclusive prefix.  Wide: find that prefix, then walk its entry
+    forward through the aggregates in between."""
+    D = len(agg[0][0])
+    y = (np.arange(D), np.zeros(D, np.int64))
+    j = t - 1
+    while True:
+        tiles = [j - lane for lane in range(window)]
+        stop = next((lane for lane, s in enumerate(tiles)
+                     if s < 0 or states[s] == "I"), None)
+        if not wide:
+            for s in tiles[:window if stop is None else stop]:
+                y = _then(agg[s], y)
+        if stop is not None:
+            s = tiles[stop]
+            e, k = incl[s] if s >= 0 else (0, 0)
+            if wide:
+                for a in range(s + 1, t):
+                    e, k = int(agg[a][0][e]), k + int(agg[a][1][e])
+                return e, k
+            return int(y[0][e]), k + int(y[1][e])
+        j -= window
+
+
+def scan_model(g, n, tile, warps, window):
+    """K6's decomposition: tiles of ``tile`` chunks, each composed in
+    ``warps`` runs (narrow; one run on the wide path) whose composites
+    make its aggregate; every tile's look-back is run against every
+    order in which its predecessors' descriptors can show AGGREGATE or
+    INCLUSIVE (tile 0 is always inclusive) and must give its true
+    prefix; then each run walks from its entry.  Returns (entry,
+    offsets, total) and the look-backs run."""
+    L, D = g.shape
+    wide = D > fk.WINDOW_DEPTH
+    ntiles = -(-L // tile)
+    runs, agg, incl = [], [], []
+    e = k = 0
+    for t in range(ntiles):
+        rows = list(range(t * tile, min((t + 1) * tile, L)))
+        R = tile if wide else tile // warps
+        parts = [_composite(g, n, rows[r:r + R])
+                 for r in range(0, tile, R)]
+        a = parts[0]
+        for x in parts[1:]:
+            a = _then(a, x)
+        runs.append(parts)
+        agg.append(a)
+        e, k = int(a[0][e]), k + int(a[1][e])
+        incl.append((e, k))
+    entry = np.zeros(L, np.int64)
+    offsets = np.zeros(L, np.int64)
+    looks = 0
+    for t in range(ntiles):
+        if t == 0:
+            start = (0, 0)
+        else:
+            for pattern in itertools.product("AI", repeat=t - 1):
+                states = ("I",) + pattern
+                got = _look_back(t, states, agg, incl, window, wide)
+                assert got == incl[t - 1], (t, states)
+                looks += 1
+            start = incl[t - 1]
+        e, k = start
+        R = tile if wide else tile // warps
+        for r, (xg, xn) in enumerate(runs[t]):
+            for c in range(t * tile + r * R, min(t * tile + (r + 1) * R, L)):
+                entry[c], offsets[c] = e, k
+                e, k = min(int(g[c, e]), D - 1), k + int(n[c, e])
+            assert (e, k) == (int(xg[start[0]]), start[1] + int(xn[start[0]]))
+            start = (e, k)
+    return entry, offsets, k, looks
+
+
+@pytest.mark.parametrize("kind", ["random", "permutation", "big_counts"])
+@pytest.mark.parametrize("D", [1, 5, 28, 63, 64, 200])
+def test_scan_model_matches_a_serial_chain(D, kind):
+    """The model, at small tiles (8 chunks, 2 runs of 4; 37 chunks make
+    a ragged last tile), with the kernel's window of 32 predecessors and
+    with one of 2 (the look-back steps back window by window), against
+    the serial chain."""
+    g, n = _maps(kind, 37, D, 71 + D)
+    want = _chain(g, n)
+    for window in (fk.SCAN_WINDOW, 2):
+        entry, offsets, total, looks = scan_model(g, n, 8, 2, window)
+        np.testing.assert_array_equal(entry, want[0])
+        np.testing.assert_array_equal(offsets, want[1])
+        assert total == want[2] and looks == 2 ** 4 - 1
+
+
+def test_scan_tile_fits_the_kernel():
+    """scan_tile's tiles are multiples of 32 whose staged rows fit two
+    blocks an SM; the constants are fsm.cu's."""
+    src = (pathlib.Path(fk.__file__).resolve().parent.parent / "csrc"
+           / "fsm.cu").read_text()
+    assert f"constexpr int kScanWarps = {fk.SCAN_WARPS};" in src
+    assert "constexpr int kSmemPerSm = 233472;" in src
+    assert f"constexpr int kWindow = {fk.SCAN_WINDOW};" in src
+    assert "(D + 3) & ~3" in src and "kWindow * padded(D)" in src
+    for D in range(1, fk.WINDOW_DEPTH + 1):
+        T = fk.scan_tile(D)
+        assert T % 32 == 0 and 32 <= T <= 512
+        assert fk.scan_smem(T, D) <= fk.SCAN_SMEM
+        assert T == 512 or fk.scan_smem(2 * T, D) > fk.SCAN_SMEM
+    assert fk.scan_smem(256, 28) == 12 * (256 * 28 + 8 * 28 + 256 + 32 * 28)
+    assert fk.scan_tile(28) == 256 and fk.scan_tile(63) == 64
+    assert fk.scan_tile(fk.WINDOW_DEPTH + 1) == 32
 
 
 def test_tree_past_8192_nodes():
@@ -198,7 +368,7 @@ def test_stream_under_2_16_bits():
     types = _zipf_stream(43, 900, 50, 1.5)
     t, enc = _coded(types, 50)
     assert len(enc) * 8 < (1 << 16)
-    got, steps = _decode(t, enc, len(types))
+    got, scans = _decode(t, enc, len(types))
     np.testing.assert_array_equal(got, types)
     np.testing.assert_array_equal(got, _jax_decode_small(t, enc, types))
 
@@ -212,25 +382,25 @@ def test_one_leaf_tree_fills_the_output():
     types = np.full(777, 5, np.int32)
     t, enc = _coded(types, 8)
     assert t.node_count == 1 and enc == b""
-    got, steps = _decode(t, enc, len(types))
+    got, scans = _decode(t, enc, len(types))
     np.testing.assert_array_equal(got, types)
-    assert steps == 0
+    assert scans == 0
 
 
 def test_chunks_that_never_sync():
     """A fixed-length 3-bit code never self-synchronizes, and F_BITS is
     no multiple of 3: the walks of a chunk from its three offsets never
     meet (far past the TPU's 2048-bit window), and the decode is still
-    exact in ceil(log2 L) K6 steps, as for any stream."""
+    exact in one K6 scan, as for any stream."""
     rng = np.random.default_rng(47)
     types = rng.integers(0, 8, 6000).astype(np.int32)
     t, enc = _coded(types, 8)
     assert set(t.code_len[:8].tolist()) == {3} and fk.F_BITS % 3
-    got, steps = _decode(t, enc, len(types))
+    got, scans = _decode(t, enc, len(types))
     np.testing.assert_array_equal(got, types)
     g, _ = fk.fsm_sweep(fk.upload(_tree(t), enc, "cpu"))
     assert all(len(set(row.tolist())) == 3 for row in g[:-1])
-    assert steps == int(np.ceil(np.log2(g.shape[0]))) == 5
+    assert g.shape[0] == 18 and scans == 1
 
 
 @pytest.mark.parametrize("how", ["truncated", "extra_bytes", "bad_tree"])

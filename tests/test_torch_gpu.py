@@ -201,13 +201,14 @@ def test_fsm_kernels_match_plain(cuda, name):
     k = fsm_kernel.fsm_sweep(c)
     p = fsm_kernel.fsm_sweep_plain(c.bits, c.trans, c.total_bits, c.depth)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
-    for stride in (1, 2, 64):
-        a = fsm_kernel.fsm_sync(*k, stride)
-        b = fsm_kernel.fsm_sync_plain(*k, stride)
-        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    got, steps = fsm_kernel.decode_coded(c, len(types), cuda)
-    want, steps_cpu = fsm_kernel.decode(tree, enc, len(types), "cpu")
-    assert steps == steps_cpu
+    a = fsm_kernel.fsm_scan(*k)
+    b = fsm_kernel.fsm_scan_plain(*k)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    launches = fsm_kernel.fsm_scan.launches
+    got, scans = fsm_kernel.decode_coded(c, len(types), cuda)
+    assert fsm_kernel.fsm_scan.launches == launches + 1 and scans == 1
+    want, scans_cpu = fsm_kernel.decode(tree, enc, len(types), "cpu")
+    assert scans_cpu == 1
     np.testing.assert_array_equal(got.cpu().numpy(), types)
     np.testing.assert_array_equal(want.numpy(), types)
 
@@ -235,7 +236,10 @@ def test_fsm_deep_codes_match_plain(cuda, depth):
     k = fsm_kernel.fsm_sweep(c)
     p = fsm_kernel.fsm_sweep_plain(c.bits, c.trans, c.total_bits, c.depth)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
-    entry, off, total, _ = fsm_kernel.compose(*k)
+    entry, off, total = fsm_kernel.fsm_scan(*k)
+    assert all(torch.equal(x, y) for x, y in
+               zip((entry, off, total), fsm_kernel.fsm_scan_plain(*k)))
+    total = int(total)
     got = fsm_kernel.fsm_emit(c, entry, off, total)
     want = fsm_kernel.fsm_emit_plain(c.bits, c.trans, c.total_bits,
                                      c.depth, entry, off, total)
@@ -254,12 +258,29 @@ def test_fsm_tables_match_plain(cuda):
     k = fsm_kernel.fsm_sweep(c)
     p = fsm_kernel.fsm_sweep_plain(c.bits, c.trans, c.total_bits, c.depth)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
-    entry, off, total, _ = fsm_kernel.compose(*k)
+    entry, off, _ = fsm_kernel.fsm_scan(*k)
     got = fsm_kernel.fsm_emit(c, entry, off, len(types))
     want = fsm_kernel.fsm_emit_plain(c.bits, c.trans, c.total_bits,
                                      c.depth, entry, off, len(types))
     assert torch.equal(got, want)
     np.testing.assert_array_equal(got.cpu().numpy(), types + (1 << 27))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "permutation", "constant",
+                                  "big_counts"])
+@pytest.mark.parametrize("L,D", [(300_001, 28), (70_001, 63), (20_001, 5),
+                                 (3_001, 64), (2_001, 200)])
+def test_fsm_scan_past_many_tiles(cuda, L, D, kind):
+    """K6 on synthetic maps of enough tiles (hundreds to thousands) that
+    the look-back meets aggregates and steps back window by window:
+    permutations never converge, big counts pass 2^31 in every chunk.
+    D > 63 takes the wide path.  Every call equals the plain version."""
+    g, n = SMOKE.scan_maps(kind, L, D, L + D, cuda)
+    want = fsm_kernel.fsm_scan_plain(g, n)
+    for _ in range(3):
+        got = fsm_kernel.fsm_scan(g, n)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.gpu

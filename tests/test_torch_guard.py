@@ -201,7 +201,7 @@ def test_wrappers_take_no_fallback_off_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         fsm_kernel.fsm_sweep(coded)
     with pytest.raises(ValueError, match="unsupported device"):
-        fsm_kernel.fsm_sync(one[:, None], one[:, None].to(torch.int64), 1)
+        fsm_kernel.fsm_scan(one[:, None], one[:, None].to(torch.int64))
     with pytest.raises(ValueError, match="unsupported device"):
         fsm_kernel.fsm_emit(coded, one, one.to(torch.int64), 4)
     m, t, tab, pt = _msst19_meta()
@@ -246,8 +246,11 @@ def test_wrappers_check_shapes():
     with pytest.raises(ValueError, match="depth"):
         fsm_kernel.fsm_sweep(coded._replace(depth=0))
     with pytest.raises(ValueError, match="shape"):
-        fsm_kernel.fsm_sync(two[:, None], torch.zeros((2, 2),
-                                                      dtype=torch.int64), 1)
+        fsm_kernel.fsm_scan(two[:, None], torch.zeros((2, 2),
+                                                      dtype=torch.int64))
+    with pytest.raises(ValueError, match="depth in 1..2"):
+        fsm_kernel.fsm_scan(two[:0, None], torch.zeros((0, 1),
+                                                       dtype=torch.int64))
     with pytest.raises(ValueError, match="dtype"):
         fsm_kernel.fsm_emit(coded, two, two, 4)
     t3 = torch.zeros((4, 5, 6), dtype=torch.int32)
@@ -275,7 +278,8 @@ def test_kernel_build_keeps_ieee_floats():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"lorenzo.cu", "hist.cu", "pack.cu",
                                       "fsm.cu", "msst19.cu"}
-    assert {p.name for p in _build.headers()} == {"tiles.cuh"}
+    assert {p.name for p in _build.headers()} == {"tiles.cuh",
+                                                  "lookback.cuh"}
     for p in srcs + _build.headers():
         text = p.read_text()
         assert "fast_math" not in text and "fmad=true" not in text
