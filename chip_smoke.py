@@ -32,7 +32,13 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      the CPU tests' shapes, on ragged, sub-tile and single-row lattices
      and one long on k, a 1e-5 table past 4096 states, a signed field
      with zeros, and timed at 256^3, 1800x3600 and 512^3 (the plain
-     versions on the first planes there);
+     versions on the first planes there); K10/K11 (the classic codec's
+     recurrence, both directions, each called twice, the decode
+     rebuilding the encode's reconstruction) on the CPU tests' degenerate
+     shapes, ragged, sub-tile and single-row lattices, one long on k,
+     4-D fields (one launch a volume), float64 and random data that
+     nearly always escapes, and timed with their launches a call at
+     256^3 (float32 and float64), 1800x3600, 8x128x256x256 and 512^3;
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
      1e-3 (float32 and float64) and PW_REL 1e-3 streams and
      reconstructions hash to the SHA-256 of the host oracle's (sz_tpu,
@@ -42,8 +48,13 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      streams (float32 and float64) decode bit-equal, synth_f64_64.dat
      compresses to its golden's inner stream, and a compress from a CUDA
      tensor (float32, float64, non-contiguous, 4-D) gives the host
-     array's bytes; the launch counters of K1-K9 and K1d/K2d must all
-     rise; run under torch.profiler: each kernel's device time summed
+     array's bytes; the classic codec (2-D, 3-D, 4-D, float64, 4-D with
+     random access), the 1-D codec and pre-log PW_REL (1e-3 with
+     accelerate_pw_rel off, 1e-6) hash to the oracle's
+     (tests/test_torch_smoke_oracle_classic.py) and hold their bound,
+     the reference's classic, 1-D and pre-log goldens decode bit-equal
+     and synth_signed.dat compresses to sz_tpu's stream; the launch
+     counters of K1-K11 and K1d/K2d must all rise; run under torch.profiler: each kernel's device time summed
      over the phase, and the device's idle share; then, under its own
      profile, the host<->device copies of a compress from a 256^3 tensor
      (no copy of the field up; down, besides the packed stream, under
@@ -56,7 +67,12 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      then PW_REL 1e-3 at 512^3 (the point-wise
      bound asserted) and at 1800x3600, MB/s with spans and launches;
      512^3 float64 (1.07 GB; K1d/K2d): the bound, MB/s, spans and
-     launches; then K5-K7 timed against their plain versions on the type streams
+     launches; the classic codec on 512^3 float32 and float64,
+     1800x3600 and 8x128x256x256 (without regression and with random
+     access), the 1-D codec on 2^27 values, pre-log PW_REL 1e-3 on the
+     signed 512^3 field and PW_REL 1e-6 on 1800x3600 float32 and 256^3
+     float64: the bound, MB/s, spans and launches; then K5-K7 timed
+     against their plain versions on the type streams
      of 512^3 ABS, 512^3 PW_REL and 1800x3600 PW_REL (node count,
      longest code and codeword-table bits of each; K6 also at each tile
      size, and its launches in one decode); K3 and K4 timed
@@ -182,6 +198,72 @@ ORACLE_PWREL = {
         "81f7c4fac7853065db71e776501ec0ebb1af9a996fd5450289bf6fd14b33bca2",
         "fc1270fe9591bad2c4cfb40e1f28efa1ee5684ee21c78d362a25dce38ba9b1bf"),
 }
+
+
+# the classic, 1-D and pre-log main path: name -> (maker, shape, seed,
+# bound, config overrides, SHA-256 of the oracle's stream, of its decode).
+# maker "field", "field64", "signed" (pwrel_field's signed field) or
+# "field_1d" (field over the shape, flattened: field rejects rank 1)
+ORACLE_CLASSIC = {
+    "classic_256": (
+        "field", (256, 256, 256), 42, ("ABS", ABS),
+        dict(with_regression=False),
+        "c13b615be281561fee1111a95fa4b6be68e89dbab1b1c730ae2473383a64e9a2",
+        "3064ccbdc25cdfe83fa006c7fb85306653a245d9293d9d4bbe76059272ff5af5"),
+    "classic_cesm_atm_1800x3600": (
+        "field", (1800, 3600), 6, ("ABS", ABS), dict(with_regression=False),
+        "a619fd4a839567b67c4bd05c1754ca1c463154da991b7be692c5a1777b207216",
+        "eb87a9d8437d2e27f13ebc5dac58318bf7fb15b68323f20f6da20ddbb72e75d2"),
+    "classic64_cesm_atm_1800x3600": (
+        "field64", (1800, 3600), 6, ("ABS", ABS),
+        dict(with_regression=False),
+        "daef4825146dc4361622eb54ed431fd424c6c778f7980630a1b216e199402fe9",
+        "98d5c6e5ac9f2cdea04822d75d51f74e1e28b2b5f1cae18fb845206e04c6dbf4"),
+    "classic_4d_4x64x64x64": (
+        "field", (4, 64, 64, 64), 9, ("ABS", ABS),
+        dict(with_regression=False),
+        "f9e7f4b9c6cc8eac4a319d667bcfbf3ed9f660f1912bb2f30818552696b5d4eb",
+        "686a8f841cd42d2304b07b93b57af37e7e8c58fff8e178f515d2f4f2605154cf"),
+    "random_access_4d_4x64x64x64": (
+        "field", (4, 64, 64, 64), 9, ("ABS", ABS), dict(random_access=True),
+        "6ec9dfccbd69f13de3f072923973870917f865abfefb24141ba33b41a66eeb1e",
+        "23c98722926c51822da429193d6c6659053c68b6f871ae87b117ff97429898d8"),
+    "classic_1d_2^24": (
+        "field_1d", (256, 256, 256), 42, ("ABS", ABS), {},
+        "1f757f38085927f97ec29db6e6a986a6e3af8beb2eef9f7bd379bd1819f1fe4b",
+        "52d9b2322b14fa691ea5a9305ff9e8d7b0d3b99cec88adf4327059e131dbf67d"),
+    "prelog_signed_256": (
+        "signed", (256, 256, 256), 42, ("PW_REL", PW_REL),
+        dict(accelerate_pw_rel=False),
+        "159b62f65d9e4ae34a7d3c671f00b11d52fe176548e6a93a03b3685a93fa1ed8",
+        "581a88cc4c73331dabda02ac19a47feac2a3664c89be291a83e2a8ad208ea041"),
+    "pwrel_1e-6_cesm_atm_1800x3600": (
+        "signed", (1800, 3600), 6, ("PW_REL", 1e-6), {},
+        "81dc0254638a1432695df79336433b341e3b867bac13b443d17081e9439b4a06",
+        "ff1e7c11e7f365dacf1bac71ec3525a34bae4afe01b4394b2bf3a1e824a47484"),
+    "pwrel64_1e-6_256": (
+        "field64", (256, 256, 256), 42, ("PW_REL", 1e-6), {},
+        "0ab1c804691c0d2fcab09a5647a279f98b97f1cec8070ac66d4240cb903a227c",
+        "86d95783b62bdc2cc40d278f04b1458c90c8f8d9f14dc50d790cda0ca6747523"),
+}
+
+
+def classic_input(maker: str, shape, seed: int) -> np.ndarray:
+    """An ORACLE_CLASSIC field."""
+    if maker == "field64":
+        return field64(shape, seed)
+    if maker == "signed":
+        return pwrel_field("signed", shape, seed)
+    x = field(shape, seed)
+    return x.reshape(-1) if maker == "field_1d" else x
+
+
+def classic_config(bound_: tuple, overrides: dict):
+    """The sz_tpu_torch config of an ORACLE_CLASSIC case."""
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+    mode, value = bound_
+    return SZConfig(**overrides).with_bound(getattr(ErrorBoundMode, mode),
+                                           value)
 
 
 def sha256(b) -> str:
@@ -1142,6 +1224,180 @@ def phase_msst19_cases(dev) -> tuple:
     return rows, entries
 
 
+# --- phase 2: K10/K11 -----------------------------------------------------
+
+def classic_field(shape, dtype, rp: float, seed: int, noise: float = 0.1):
+    """A K10/K11 case: a smooth product of sines and cosines with seeded
+    normal noise (random data alone where noise is None), and its
+    quantizer parameters as the classic path sets them.  Returns (field,
+    core.classic_nd.Params)."""
+    from sz_tpu_torch.core import classic_nd
+    rng = np.random.default_rng(seed)
+    if noise is None:
+        x = rng.standard_normal(shape).astype(dtype)
+    else:
+        g = np.meshgrid(*[np.linspace(0, 6, r) for r in shape],
+                        indexing="ij")
+        x = np.sin(2 * g[0])
+        for a in g[1:]:
+            x = x * np.cos(a)
+        x = (x + noise * rng.standard_normal(shape)).astype(dtype)
+    vr = dtype(x.max() - x.min())
+    p = classic_nd.params(x, rp, vr, dtype(x.min() + vr / 2),
+                          max_range_radius=32768, sample_distance=100,
+                          pred_threshold=np.float32(0.99))
+    return x, p
+
+
+def classic_ops(shape, escapes: int, decode: bool, f64: bool,
+                dbl: bool) -> tuple:
+    """(32-bit, 64-bit) operations of one K10/K11 call: the predictor's
+    adds by position (6 in the 3-D interior, 2 on its faces, 2 in the
+    layer-0 interior and on its first row), counted per volume; the
+    encode's quantizer at every point but the first (the difference and
+    the recheck's in the data's type, itvNum's multiply-add and the
+    recheck's compare in double, the halving and the reconstruction's
+    two in RT), the decode's reconstruction (two in RT) at each point
+    that is not an escape."""
+    n = int(np.prod(shape))
+    vol = shape[-3:] if len(shape) >= 3 else (1,) + tuple(shape)
+    nvol = n // int(np.prod(vol))
+    r1, r2, r3 = vol
+    pred = 2 * ((r2 - 1) * (r3 - 1) + max(r3 - 2, 0)) + (
+        6 * (r1 - 1) * (r2 - 1) * (r3 - 1)
+        + 2 * (r1 - 1) * ((r2 - 1) + (r3 - 1)))
+    pred *= nvol
+    if decode:
+        t_ops, rt_ops, d_ops = pred, 2 * (n - escapes), 0
+    else:
+        q = n - nvol
+        t_ops, rt_ops, d_ops = pred + 2 * q, 3 * q, 3 * q
+    if f64:
+        return 0, t_ops + rt_ops + d_ops
+    if dbl:
+        return t_ops, rt_ops + d_ops
+    return t_ops + rt_ops, d_ops
+
+
+def classic_vs_plain(name, x, p, dev, timed: bool) -> tuple:
+    """K10 and K11 against their plain versions on one field: each kernel
+    called twice, bit-equal; K11 on the escapes' reconstructions must
+    rebuild K10's.  Above PLAIN_MAX_POINTS the plain versions run on the
+    first planes only.  Timed: the kernels' mean time, the plain
+    version's one call, the bound, the launches a call."""
+    import torch
+    from sz_tpu_torch.gpu import classic_kernel as ck
+    xt = torch.from_numpy(x).to(dev)
+    args = (p.rp, p.recip, p.intervals, p.radius, p.median, p.req_length)
+    whole = x.size <= PLAIN_MAX_POINTS
+    sub = slice(None) if whole else slice(0, 2 * ck.TILE3[0] + 1)
+    launches = ck.classic_quantize.launches
+    t_k, R_k = ck.classic_quantize(xt, *args)
+    launches = ck.classic_quantize.launches - launches
+    t_2, R_2 = ck.classic_quantize(xt, *args)
+    e_again = bit_equal(t_k, t_2) and bit_equal(R_k, R_2)
+    del t_2, R_2
+    (t_p, R_p), enc_plain_ms = cuda_once(
+        lambda: ck.classic_quantize_plain(xt[sub].contiguous(), *args))
+    e_err = max(max_abs_err(t_k[sub], t_p), max_abs_err(R_k[sub], R_p))
+    plain_on = list(t_p.shape)
+    del t_p, R_p
+    known = torch.where(t_k == 0, R_k, torch.zeros_like(R_k))
+    dec = (t_k, known, p.rp, p.radius)
+    o_k = ck.classic_decode(*dec)
+    d_again = bit_equal(o_k, ck.classic_decode(*dec))
+    o_p, dec_plain_ms = cuda_once(lambda: ck.classic_decode_plain(
+        t_k[sub].contiguous(), known[sub].contiguous(), p.rp, p.radius))
+    d_err = max_abs_err(o_k[sub], o_p)
+    del o_p
+    escapes = int((t_k == 0).sum())
+    dbl, f64 = p.form.dbl, x.dtype == np.float64
+    row = dict(case=name, shape=list(x.shape), dtype=x.dtype.name,
+               form="double" if dbl else "float", intervals=p.intervals,
+               escapes=escapes, plain_on=plain_on,
+               launches_a_call=launches, encode_bit_equal=e_err == 0.0,
+               encode_repeat_bit_equal=e_again, decode_bit_equal=d_err == 0.0,
+               decode_repeat_bit_equal=d_again,
+               decode_rebuilds_encode=bit_equal(o_k, R_k))
+    entries = {}
+    if timed:
+        runs = {  # each input read once, each output written once
+            "classic_quantize": (
+                e_err, lambda: ck.classic_quantize(xt, *args), enc_plain_ms,
+                bound(nbytes(xt, t_k, R_k), *classic_ops(
+                    x.shape, escapes, False, f64, dbl))),
+            "classic_decode": (
+                d_err, lambda: ck.classic_decode(*dec), dec_plain_ms,
+                bound(nbytes(t_k, known, o_k), *classic_ops(
+                    x.shape, escapes, True, f64, dbl))),
+        }
+        for key, (err, kern, plain_ms, (b_ms, b_by)) in runs.items():
+            ms = cuda_ms(kern, 3)
+            plain_ms = plain_ms if whole else None
+            row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+            entries[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None, shape=list(x.shape))
+    _log("kernel K10/K11 classic vs plain", **row)
+    if not all(row[k] for k in (
+            "encode_bit_equal", "encode_repeat_bit_equal", "decode_bit_equal",
+            "decode_repeat_bit_equal", "decode_rebuilds_encode")):
+        raise AssertionError(f"K10/K11 differ from their plain versions or "
+                             f"from themselves on {name}: {row}")
+    return row, entries
+
+
+def phase_classic_cases(dev) -> tuple:
+    """Phase 2, K10/K11.  Returns (rows, timed record entries at the main
+    path's 256^3)."""
+    import torch
+    f32, f64 = np.float32, np.float64
+    rows, entries = [], {}
+    cases = [  # (name, shape, dtype, rp, seed, noise, timed)
+        # the CPU tests' degenerate shapes
+        ("degenerate", (1, 5, 7), f32, 1e-3, 1, 0.3, False),
+        ("degenerate", (5, 1, 7), f32, 1e-3, 2, 0.3, False),
+        ("degenerate", (5, 7, 1), f32, 1e-3, 3, 0.3, False),
+        ("degenerate", (2, 65), f32, 1e-3, 4, 0.3, False),
+        ("degenerate", (6, 2, 2), f32, 1e-3, 5, 0.3, False),
+        # 2-D, 3-D, 4-D and float64; what the tiles can get wrong: shapes
+        # no multiple of a tile, under one tile, one tile wide but many
+        # long on k (the k-2 hand-off along the first row), a row and a
+        # column in 2-D
+        ("ragged_2d", (777, 1031), f32, 1e-4, 6, 0.1, False),
+        ("ragged_3d", (33, 17, 300), f32, 1e-3, 7, 0.1, False),
+        ("sub_tile", (3, 5, 7), f32, 1e-3, 8, 0.1, False),
+        ("long_first_row", (3, 5, 4100), f32, 1e-3, 9, 0.1, False),
+        ("single_row_2d", (2, 5000), f32, 1e-3, 10, 0.1, False),
+        ("single_column_2d", (5000, 2), f32, 1e-3, 11, 0.1, False),
+        ("4d", (5, 9, 12, 10), f32, 1e-4, 12, 0.1, False),
+        ("4d", (3, 20, 33, 70), f32, 1e-4, 13, 0.1, False),
+        ("4d_f64", (3, 2, 2, 2), f64, 1e-4, 14, 0.1, False),
+        ("4d_f64", (2, 10, 20, 33), f64, 1e-4, 15, 0.1, False),
+        ("f64_3d", (40, 70, 130), f64, 1e-6, 16, 0.1, False),
+        ("f64_2d", (700, 300), f64, 1e-6, 17, 0.1, False),
+        # random data at 1e-7: nearly every point escapes
+        ("escape_heavy", (64, 64, 64), f32, 1e-7, 18, None, False),
+        ("escape_heavy_f64", (40, 50, 60), f64, 1e-9, 19, None, False),
+        # the main path's shapes, timed
+        ("main_path_256", (256, 256, 256), f32, ABS, 42, 0.1, True),
+        ("main_path_cesm_atm", (1800, 3600), f32, ABS, 6, 0.1, True),
+        ("main_path_f64_256", (256, 256, 256), f64, ABS, 42, 0.1, True),
+        ("full_size_4d", (8, 128, 256, 256), f32, ABS, 20, 0.1, True),
+        ("full_size_512", (512, 512, 512), f32, ABS, 42, 0.1, True),
+    ]
+    for name, shape, dtype, rp, seed, noise, timed in cases:
+        x, p = classic_field(shape, dtype, rp, seed, noise)
+        row, ent = classic_vs_plain(name, x, p, dev, timed)
+        rows.append(row)
+        if name == "main_path_256":
+            entries.update(ent)
+        del x
+        torch.cuda.empty_cache()
+    return rows, entries
+
+
 # --- phase 3: the main path -----------------------------------------------
 
 def phase_main_path(dev, record: dict) -> None:
@@ -1211,7 +1467,95 @@ def phase_main_path(dev, record: dict) -> None:
         _log("main path", case=f"golden_{name}", decode_bit_equal=True)
     main_path_f64(dev, rows)
     main_path_tensor_input(dev, rows)
+    main_path_classic(dev, rows)
     record["main_path"] = rows
+
+
+def classic_err(name: str, x: np.ndarray, out: np.ndarray, bound_: tuple,
+                blob: bytes, dev) -> dict:
+    """The error of a classic, 1-D or pre-log case against its bound
+    (raises past it).  A 4-D field under random access was compressed on
+    its folded 3-D lattice (sz_tpu/api.py:350-392): its bound is held on
+    the decode with that shape, and the 4-D shape's decode (the 4-D
+    scheme, as sz_tpu's) is reported beside it."""
+    import sz_tpu_torch
+    mode, value = bound_
+    if mode == "PW_REL":
+        return dict(max_rel_err=pointwise_err(x, out, value))
+    row = {}
+    if name.startswith("random_access_4d"):
+        d = x.shape
+        row["decode_4d_max_abs_err"] = float(
+            np.abs(out.astype(np.float64) - x).max())
+        out = sz_tpu_torch.decompress(blob, (d[0] * d[1], d[2], d[3]),
+                                      x.dtype, device=dev).reshape(d)
+    err = float(np.abs(out.astype(np.float64) - x).max())
+    if err > value:
+        raise AssertionError(f"{name}: error {err} above the bound")
+    row["max_abs_err"] = err
+    return row
+
+
+# the reference binary's classic, 1-D and pre-log streams whose .out is
+# its decode (the float 4-D one's is not: its own decoder is broken,
+# tests/test_golden_classic_nd.py), and their shapes
+GOLDEN_CLASSIC = (
+    ("cl_f32_2d_abs1e-4", (128, 64), "<f4"),
+    ("cl_f32_3d_abs1e-4", (128, 8, 8), "<f4"),
+    ("cl_f64_3d_abs1e-4", (128, 8, 8), "<f8"),
+    ("cl_f64_4d_rel1e-3", (128, 8, 8, 8), "<f8"),
+    ("f32_1d_abs1e-4", (8192,), "<f4"), ("f64_1d_abs1e-4", (8192,), "<f8"),
+    ("f32_1d_pwrel1e-3", (8192,), "<f4"),
+    ("pl_f32_1d_pwrel1e-3", (8192,), "<f4"),
+    ("sg_f32_1d_pwrel1e-3", (4096,), "<f4"))
+# SHA-256 of sz_tpu's stream of synth_signed.dat under PW_REL 1e-3
+SYNTH_SIGNED_SHA256 = (
+    "a2b1a9cf0ed78312d444dbaab07f768d57b468945dcb5fd2e72231e2069842b6")
+
+
+def main_path_classic(dev, rows: list) -> None:
+    """Phase 3, the classic codec (K10/K11, and K3-K7 on its type
+    stream), the 1-D codec and pre-log PW_REL: the ORACLE_CLASSIC fields'
+    streams and decodes hash to the oracle's and hold their bound, the
+    reference's classic, 1-D and pre-log goldens decode bit-equal, and
+    synth_signed.dat compresses to sz_tpu's stream."""
+    import sz_tpu_torch
+    for name, (maker, shape, seed, bnd, over, want_stream,
+               want_recon) in ORACLE_CLASSIC.items():
+        x = classic_input(maker, shape, seed)
+        cfg = classic_config(bnd, over)
+        t0 = time.perf_counter()
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        t1 = time.perf_counter()
+        out = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=dev)
+        t2 = time.perf_counter()
+        if sha256(blob) != want_stream:
+            raise AssertionError(f"{name}: stream differs from the oracle")
+        if out.dtype != x.dtype or sha256(out.tobytes()) != want_recon:
+            raise AssertionError(f"{name}: decode differs from the oracle")
+        row = dict(case=name, dtype=x.dtype.name, shape=list(x.shape),
+                   bound=f"{bnd[0]} {bnd[1]}", config=over,
+                   stream_sha256_equal=True, decode_sha256_equal=True,
+                   ratio=x.nbytes / len(blob),
+                   **classic_err(name, x, out, bnd, blob, dev),
+                   port_compress_s=t1 - t0, port_decompress_s=t2 - t1)
+        _log("main path", **row)
+        rows.append(row)
+    golden = REPO / "tests" / "golden"
+    for name, shape, dt in GOLDEN_CLASSIC:
+        want = np.fromfile(golden / f"{name}.out", dtype=dt)
+        got = sz_tpu_torch.decompress((golden / f"{name}.sz").read_bytes(),
+                                      shape, np.dtype(dt).type, device=dev)
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"golden {name} decodes differently")
+        _log("main path", case=f"golden_{name}", decode_bit_equal=True)
+    x = np.fromfile(golden / "synth_signed.dat", dtype="<f4")
+    blob = sz_tpu_torch.compress(x, classic_config(("PW_REL", PW_REL), {}),
+                                 device=dev)
+    if sha256(blob) != SYNTH_SIGNED_SHA256:
+        raise AssertionError("synth_signed differs from sz_tpu's stream")
+    _log("main path", case="synth_signed_pwrel1e-3_compress",
+         stream_sha256_equal=True)
 
 
 # the float64 goldens (the reference binary's streams) and their shapes
@@ -1315,16 +1659,17 @@ def main_path_tensor_input(dev, rows: list) -> None:
              contiguous=xt.is_contiguous(), stream_equal=True)
 
 
-def pointwise_err(x: np.ndarray, out: np.ndarray) -> float:
+def pointwise_err(x: np.ndarray, out: np.ndarray,
+                  ratio: float = PW_REL) -> float:
     """The largest |x^ - x| / |x| over x != 0; raises unless it is within
-    PW_REL * (1 + PW_REL) and x^ is 0 wherever x is 0 (a field without
+    ratio * (1 + ratio) and x^ is 0 wherever x is 0 (a field without
     negative values: a signed field's replaced zeros may decode to a
     tiny negative escape, as in the reference)."""
     nz = x != 0
     rel = (np.abs(out.astype(np.float64) - x)[nz]
            / np.abs(x[nz].astype(np.float64)))
     err = float(rel.max())
-    if not err <= PW_REL * (1 + PW_REL):
+    if not err <= ratio * (1 + ratio):
         raise AssertionError(f"point-wise error {err} above the bound")
     if not (x < 0).any() and (out[~nz] != 0).any():
         raise AssertionError("a zero decoded to a non-zero value")
@@ -1635,6 +1980,76 @@ def phase_full_size_pwrel(dev, record: dict, wrappers: dict) -> dict:
     return blobs, calls
 
 
+def phase_full_size_classic(dev, record: dict, wrappers: dict) -> None:
+    """The classic codec (K10/K11), the 1-D codec and pre-log PW_REL at
+    full size: the bound, compress and decompress MB/s (warm, best of 3)
+    with spans, the ratio and the kernel launches of one compress and one
+    decompress.  Classic ABS 1e-3 on 512^3 float32 (537 MB) and float64
+    (1.07 GB), on 1800x3600 and on a 4-D 8x128x256x256 float32 field (268
+    MB) without regression and with random access; 1-D on 512^3's 2^27
+    values; pre-log PW_REL 1e-3 on the signed 512^3 field with zeros;
+    PW_REL 1e-6 (pre-log in the reference) on 1800x3600 float32 and 256^3
+    float64."""
+    import sz_tpu_torch
+    x512 = field((512, 512, 512), 42)
+    x4d = field((8, 128, 256, 256), 20)
+    cases = [
+        ("classic_512", lambda: x512, ("ABS", ABS),
+         dict(with_regression=False)),
+        ("classic64_512", lambda: field64((512, 512, 512), 42),
+         ("ABS", ABS), dict(with_regression=False)),
+        ("classic_cesm_atm_1800x3600", lambda: field((1800, 3600), 6),
+         ("ABS", ABS), dict(with_regression=False)),
+        ("classic_4d_8x128x256x256", lambda: x4d, ("ABS", ABS),
+         dict(with_regression=False)),
+        ("random_access_4d_8x128x256x256", lambda: x4d, ("ABS", ABS),
+         dict(random_access=True)),
+        ("classic_1d_2^27", lambda: x512.reshape(-1), ("ABS", ABS), {}),
+        ("prelog_signed_512",
+         lambda: pwrel_field("signed", (512, 512, 512), 42),
+         ("PW_REL", PW_REL), dict(accelerate_pw_rel=False)),
+        ("pwrel_1e-6_cesm_atm_1800x3600",
+         lambda: pwrel_field("signed", (1800, 3600), 6), ("PW_REL", 1e-6),
+         {}),
+        ("pwrel64_1e-6_256", lambda: field64((256, 256, 256), 42),
+         ("PW_REL", 1e-6), {}),
+    ]
+    rows = {}
+    for name, make, bnd, over in cases:
+        x = make()
+        cfg = classic_config(bnd, over)
+        mb = x.nbytes / 1e6
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        out = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=dev)
+        err = classic_err(name, x, out, bnd, blob, dev)
+        del out
+        tc, spans_c, _ = _best_of(
+            lambda: sz_tpu_torch.compress(x, cfg, device=dev), 3)
+        td, spans_d, counts_d = _best_of(
+            lambda: sz_tpu_torch.decompress(blob, x.shape, x.dtype,
+                                            device=dev), 3)
+        launches = {}
+        for what, fn in (("compress", lambda: sz_tpu_torch.compress(
+                x, cfg, device=dev)), ("decompress", lambda: (
+                    sz_tpu_torch.decompress(blob, x.shape, x.dtype,
+                                            device=dev)))):
+            for w in wrappers.values():
+                w.launches = 0
+            fn()
+            launches[what] = {k: w.launches for k, w in wrappers.items()
+                              if w.launches}
+        row = dict(shape=list(x.shape), dtype=x.dtype.name,
+                   bound=f"{bnd[0]} {bnd[1]}", config=over,
+                   ratio=x.nbytes / len(blob), **err, compress_MBps=mb / tc,
+                   decompress_MBps=mb / td, compress_s=tc, decompress_s=td,
+                   compress_spans_s=spans_c, decompress_spans_s=spans_d,
+                   decompress_counts=counts_d, launches=launches)
+        _log(f"full size {name}", **row)
+        rows[name] = row
+        del x
+    record["full_classic"] = rows
+
+
 def type_stream(blob: bytes, shape, dev):
     """(uploaded type stream, its tree's node count) of a compressed
     float32 field: the regression codec's (ABS) or MSST19's (PW_REL)."""
@@ -1765,6 +2180,16 @@ DEVICE_NAMES = (
     ("wavefront3d_decode_kernel", "msst19_wavefront3d_decode"),
     ("lines2d_encode_kernel", "msst19_lines2d_encode"),
     ("lines2d_decode_kernel", "msst19_lines2d_decode"),
+    ("classic_quantize2d_kernel", "classic_quantize"),
+    ("classic_quantize3d_kernel", "classic_quantize"),
+    ("classic_quantize4d_kernel", "classic_quantize"),
+    ("classic_quantize2d_f64_kernel", "classic_quantize"),
+    ("classic_quantize3d_f64_kernel", "classic_quantize"),
+    ("classic_decode2d_kernel", "classic_decode"),
+    ("classic_decode3d_kernel", "classic_decode"),
+    ("classic_decode4d_kernel", "classic_decode"),
+    ("classic_decode2d_f64_kernel", "classic_decode"),
+    ("classic_decode3d_f64_kernel", "classic_decode"),
     ("Memcpy", "memcpy"), ("Memset", "memset"),
 )
 
@@ -1834,6 +2259,12 @@ KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
                               "sz_tpu/tpu/msst19_kernel.py:723"),
     "msst19_lines2d_decode": ("K9", "sz_tpu_torch/csrc/msst19.cu",
                               "sz_tpu/tpu/msst19_kernel.py:760"),
+    # the classic codec's recurrence has no Pallas form: K10/K11 replace
+    # the XLA fixpoints
+    "classic_quantize": ("K10", "sz_tpu_torch/csrc/classic.cu",
+                         "sz_tpu/tpu/classic_engine.py:95"),
+    "classic_decode": ("K11", "sz_tpu_torch/csrc/classic.cu",
+                       "sz_tpu/tpu/classic_engine.py:236"),
 }
 
 
@@ -1862,8 +2293,9 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     from sz_tpu_torch import native
-    from sz_tpu_torch.gpu import (_build, fsm_kernel, hist_kernel,
-                                  lorenzo_kernel, msst19_kernel, pack_kernel)
+    from sz_tpu_torch.gpu import (_build, classic_kernel, fsm_kernel,
+                                  hist_kernel, lorenzo_kernel, msst19_kernel,
+                                  pack_kernel)
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     t0 = time.perf_counter()
@@ -1898,6 +2330,8 @@ def main() -> int:
     record["scan_cases"] = phase_scan_cases(dev)
     record["msst19_cases"], msst19_entries = phase_msst19_cases(dev)
     entries.update(msst19_entries)
+    record["classic_cases"], classic_entries = phase_classic_cases(dev)
+    entries.update(classic_entries)
 
     # phase 3: the main path; the launch counters cover exactly this run
     wrappers = {"wavefront_quantize": lorenzo_kernel.wavefront_quantize,
@@ -1913,7 +2347,9 @@ def main() -> int:
                 "msst19_wavefront3d_encode": msst19_kernel.wavefront3d_encode,
                 "msst19_wavefront3d_decode": msst19_kernel.wavefront3d_decode,
                 "msst19_lines2d_encode": msst19_kernel.lines2d_encode,
-                "msst19_lines2d_decode": msst19_kernel.lines2d_decode}
+                "msst19_lines2d_decode": msst19_kernel.lines2d_decode,
+                "classic_quantize": classic_kernel.classic_quantize,
+                "classic_decode": classic_kernel.classic_decode}
     for w in wrappers.values():
         w.launches = 0
     prof = profiled(lambda: phase_main_path(dev, record))
@@ -1932,6 +2368,7 @@ def main() -> int:
     blob, calls = phase_full_size(dev, record, wrappers)
     streams, pw_calls = phase_full_size_pwrel(dev, record, wrappers)
     phase_full_size_f64(dev, record, wrappers)
+    phase_full_size_classic(dev, record, wrappers)
     streams = {"512^3 ABS": (blob, (512, 512, 512)), **streams}
     calls = {"512^3 ABS": calls, **pw_calls}
     del blob, pw_calls

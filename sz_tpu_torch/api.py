@@ -1,20 +1,21 @@
 """``compress`` / ``decompress`` of the PyTorch port, for the slice it
-covers: float32 and float64 fields of rank 2 or 3 (rank 4 folds to 3)
-through the SZ2.1 blocked-regression codec, under any error bound that
-resolves to an absolute one (ABS, REL, ABS_AND_REL, ABS_OR_REL, PSNR,
-NORM), and float32 fields through the MSST19 codec under any point-wise
-relative bound (PW_REL and the modes above it) when it is accelerated
-(``accelerate_pw_rel`` and a ratio of at least 1e-5, the reference's
-default route).
+covers: float32 and float64 fields of rank 1 to 4 under any error bound
+that resolves to an absolute one (ABS, REL, ABS_AND_REL, ABS_OR_REL,
+PSNR, NORM) through the SZ2.1 blocked-regression codec (ranks 2-4, rank
+4 folded to 3) or the classic SZ1.4 codec (rank 1, regression off, and
+rank 4 with random access); and under any point-wise relative bound
+(PW_REL and the modes above it) through the MSST19 codec (float32, when
+it is accelerated: ``accelerate_pw_rel`` and a ratio of at least 1e-5,
+the reference's default route) or the pre-log codec (the rest).
 
 ``compress`` also takes a torch tensor.  One on the compute device (a
 field a simulation holds on the card) is compressed where it lies, as
 ``sz_tpu`` compresses a ``jax.Array`` (``_try_compress_device``): the
 range scan, the optimizer's gathers and every lattice-sized stage run on
 the device, and the field crosses to the host only where the format
-needs it whole (the verbatim StoreOri fallback, or a PW_REL bound, whose
-MSST19 scans run on the host).  A tensor elsewhere is taken as a host
-array.
+needs it whole (the verbatim StoreOri fallback, a PW_REL bound, whose
+scans run on the host, or the classic codec, whose optimizer and 1-D
+recurrence run there).  A tensor elsewhere is taken as a host array.
 
 The stream framing (range scan, bound resolution, header, constant and
 verbatim fallbacks, lossless wrap, decode clamp) is ``framing.py``, the
@@ -33,12 +34,12 @@ from sz_tpu_torch import framing, native
 from sz_tpu_torch.config import (DEFAULT_CONFIG, MIN_NUM_OF_ELEMENTS,
                                  DataType, SZConfig, data_type, float_type,
                                  np_dtype)
-from sz_tpu_torch.core import pwr
+from sz_tpu_torch.core import classic, pwr
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
 from sz_tpu_torch.format import tdps as tdps_mod
 from sz_tpu_torch.gpu import device as devmod
-from sz_tpu_torch.gpu import engine, msst19_engine
+from sz_tpu_torch.gpu import classic_engine, engine, msst19_engine
 
 
 def _check_slice(dtype, ndim: int, cfg: SZConfig = None) -> None:
@@ -48,32 +49,28 @@ def _check_slice(dtype, ndim: int, cfg: SZConfig = None) -> None:
             "integer data is not ported yet (ROADMAP 1.10)")
     if dt not in (np.float32, np.float64):
         raise TypeError(f"unsupported dtype {dt}")
-    if ndim == 1:
-        raise NotImplementedError(
-            "1-D data (classic codec) is not ported yet (ROADMAP 1.4)")
     if cfg is None:
         return
     if cfg.error_bound_mode.is_pw_rel:
-        if not framing.accelerated_pw_rel(cfg):
-            raise NotImplementedError(
-                "pre-log PW_REL (accelerate_pw_rel=False or a ratio below "
-                "1e-5) is not ported yet (ROADMAP 1.4)")
-        if dt == np.float64:
+        if framing.accelerated_pw_rel(cfg) and dt == np.float64:
             raise NotImplementedError(
                 "MSST19 PW_REL on float64 data is not ported yet "
                 "(ROADMAP 1.3)")
         return
-    if not cfg.with_regression:
-        raise NotImplementedError(
-            "the classic codec (with_regression=False) is not ported yet "
-            "(ROADMAP 1.4)")
-    if cfg.random_access:
-        if ndim == 4:   # the reference takes the classic codec on 3-D
-            raise NotImplementedError(
-                "4-D data with random_access=True (the classic codec on "
-                "the folded lattice) is not ported yet (ROADMAP 1.4)")
+    if cfg.random_access and ndim < 4:
+        # rank 4 ignores the flag (the classic codec on the folded
+        # lattice, below)
         raise NotImplementedError(
             "random-access streams are not ported yet (ROADMAP 1.6)")
+
+
+def _regression_route(cfg: SZConfig, ndim: int) -> bool:
+    """The SZ2.1 regression codec takes ranks 2-4 with regression on and
+    random access off (sz_tpu/api.py:350-392); the classic codec the
+    rest of the absolute bounds: rank 1, regression off, and rank 4
+    with random access (on its folded 3-D lattice)."""
+    return (not cfg.error_bound_mode.is_pw_rel and cfg.with_regression
+            and not cfg.random_access and ndim >= 2)
 
 
 def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
@@ -82,7 +79,7 @@ def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
     to ``sz_tpu.compress(data, cfg)``, with the device stages on
     ``device`` ('cuda' runs the Hopper kernels).  ``data`` is a numpy
     array or a torch tensor; a tensor on ``device`` stays there (made
-    contiguous there if it is not)."""
+    contiguous there if it is not) on the regression codec's route."""
     dev = devmod.resolve(device)
     native.tune_malloc()
     on_dev = torch.is_tensor(data) and data.device == dev
@@ -93,42 +90,52 @@ def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
     if n <= MIN_NUM_OF_ELEMENTS:
         # SZ_skip_compress_float: raw bytes
         return framing._host(data).tobytes()
-    if on_dev and cfg.error_bound_mode.is_pw_rel:
-        # MSST19's range, sign and zero scans run on the host (as in
-        # sz_tpu, which materializes a jax.Array here)
+    if on_dev and not _regression_route(cfg, len(dims)):
+        # the PW_REL scans, the classic optimizer and the 1-D recurrence
+        # run on the host (sz_tpu materializes a jax.Array here too)
         data, on_dev = framing._host(data), False
     if on_dev:
         data = data.contiguous()   # copied where it lies, if at all
     data = data.reshape(dims)
     dt = data_type(data.dtype)
+    T = float_type(data.dtype)
     flat = data.reshape(-1)
     (fmin, fmax, value_range, rp, _mode, hdr_cfg,
      range_info) = framing._fp_stream_params(data, cfg, dt)
     if value_range <= rp:
         return framing._constant_stream(hdr_cfg, dt, fmin, fmax,
                                         framing._host(flat[:1])[0], n)
-    if data.ndim == 4:
-        # both codecs fold 4-D to 3-D (sz_float.c:2989-2992, :3010)
+    if data.ndim == 4 and (cfg.error_bound_mode.is_pw_rel
+                           or cfg.with_regression):
+        # fold 4-D to 3-D (sz_float.c:2989-2997, :3010); the classic
+        # codec without regression has a 4-D kernel
         d = data.shape
         data = data.reshape(d[0] * d[1], d[2], d[3])
+    kw = dict(max_range_radius=cfg.max_range_radius,
+              sample_distance=cfg.sample_distance,
+              pred_threshold=np.float32(cfg.pred_threshold),
+              opt_quant_mode=cfg.opt_quant_mode,
+              fixed_intervals=cfg.quantization_intervals, device=dev)
     if cfg.error_bound_mode.is_pw_rel:
-        tdps = pwr.compress_pwrel(
-            data, cfg.pw_rel_bound_ratio, range_info=range_info,
-            encode=msst19_engine.compress,
-            max_range_radius=cfg.max_range_radius,
-            sample_distance=cfg.sample_distance,
-            pred_threshold=np.float32(cfg.pred_threshold),
-            plus_bits=cfg.plus_bits, opt_quant_mode=cfg.opt_quant_mode,
-            fixed_intervals=cfg.quantization_intervals, device=dev)
+        if range_info is not None:   # the accelerated codec, MSST19
+            tdps = pwr.compress_pwrel(
+                data, cfg.pw_rel_bound_ratio, range_info=range_info,
+                encode=msst19_engine.compress, plus_bits=cfg.plus_bits,
+                **kw)
+        else:
+            tdps = pwr.compress_prelog(data, cfg.pw_rel_bound_ratio, fmin,
+                                       fmax, **kw)
         return framing._frame_pwrel_stream(cfg, hdr_cfg, dt, fmin, fmax,
                                            flat, n, tdps)
-    res = engine.compress(
-        data, rp, max_range_radius=cfg.max_range_radius,
-        sample_distance=cfg.sample_distance,
-        pred_threshold=np.float32(cfg.pred_threshold),
-        opt_quant_mode=1 if cfg.quantization_intervals == 0 else 0,
-        fixed_intervals=cfg.quantization_intervals,
-        size_type=cfg.size_type, device=dev)
+    if not _regression_route(cfg, data.ndim):
+        # classic SZ1.4 (sz_float.c:353/610/946/1479)
+        median = T(fmin + value_range / T(2))
+        body = (classic.compress_1d if data.ndim == 1
+                else classic_engine.compress)
+        tdps = body(data, rp, value_range, median, **kw)
+        return framing._frame_classic_stream(cfg, hdr_cfg, dt, fmin, fmax,
+                                             flat, n, tdps)
+    res = engine.compress(data, rp, size_type=cfg.size_type, **kw)
     return framing._frame_regression_stream(cfg, hdr_cfg, dt, fmin, fmax, flat,
                                          n, res)
 
@@ -145,9 +152,10 @@ def _clamp_tensor(out: torch.Tensor, hdr) -> torch.Tensor:
 
 def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
                as_tensor: bool = False):
-    """Decode an SZ2 float32 or float64 regression stream, or a float32
-    MSST19 PW_REL one, bit-equal to ``sz_tpu.decompress``.  Returns
-    numpy, or a tensor on ``device`` when ``as_tensor``."""
+    """Decode an SZ2 float32 or float64 stream, bit-equal to
+    ``sz_tpu.decompress``: the regression codec's, the classic codec's
+    (1-D to 4-D), and PW_REL's (MSST19 on float32, pre-log on both).
+    Returns numpy, or a tensor on ``device`` when ``as_tensor``."""
     dev = devmod.resolve(device)
     native.tune_malloc()
     dims = framing._filter_dims(shape)
@@ -181,29 +189,34 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
     if hdr.same:
         v = np.frombuffer(inner, dtype=f">f{esize}", count=1, offset=off)[0]
         return finish(framing._protect_clamp(np.full(n, v, dtype=T), hdr, T))
-    dims3 = (dims[0] * dims[1], dims[2], dims[3]) if len(dims) == 4 else dims
-    if hdr.pw_rel:
-        if not hdr.msst19:
-            raise NotImplementedError(
-                "pre-log PW_REL streams are not ported yet (ROADMAP 1.4)")
-        if T is np.float64:
-            raise NotImplementedError(
-                "MSST19 PW_REL streams of float64 data are not ported yet "
-                "(ROADMAP 1.3)")
-        t = tdps_mod.from_bytes(memoryview(inner)[off:], dt, is_pwr=True,
-                                msst19=True, size_type=hdr.size_type)
-        out = msst19_engine.decompress(t, dims3, device=dev,
-                                       as_tensor=as_tensor)
-    elif not hdr.regression:
-        raise NotImplementedError(
-            "classic (SZ1.4) streams are not ported yet (ROADMAP 1.4)")
-    elif hdr.random_access:
+    if hdr.regression and hdr.random_access:
         raise NotImplementedError(
             "random-access streams are not ported yet (ROADMAP 1.6)")
-    else:
-        out = engine.decompress(memoryview(inner)[off:], dims3, T,
-                                size_type=hdr.size_type,
+    body = memoryview(inner)[off:]
+    dims3 = (dims[0] * dims[1], dims[2], dims[3]) if len(dims) == 4 else dims
+    if hdr.regression and len(dims) > 1:
+        out = engine.decompress(body, dims3, T, size_type=hdr.size_type,
                                 device=dev, as_tensor=as_tensor)
-    if as_tensor:
+    else:
+        # classic, and 1-D data in a regression-flagged stream
+        # (sz_tpu/api.py:540-548)
+        t = tdps_mod.from_bytes(body, dt, is_pwr=hdr.pw_rel,
+                                msst19=hdr.pw_rel and hdr.msst19,
+                                size_type=hdr.size_type)
+        if hdr.pw_rel and hdr.msst19:
+            if T is np.float64:
+                raise NotImplementedError(
+                    "MSST19 PW_REL streams of float64 data are not ported "
+                    "yet (ROADMAP 1.3)")
+            out = msst19_engine.decompress(t, dims3, device=dev,
+                                           as_tensor=as_tensor)
+        elif hdr.pw_rel:
+            out = pwr.decompress_prelog(t, dims3, T, device=dev)
+        elif len(dims) == 1:
+            out = classic.decompress_1d(t, n, T, device=dev)
+        else:
+            out = classic_engine.decompress(t, dims, T, device=dev,
+                                            as_tensor=as_tensor)
+    if torch.is_tensor(out):
         return finish(_clamp_tensor(out, hdr))
     return finish(framing._protect_clamp(out, hdr, T))

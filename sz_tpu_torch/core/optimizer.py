@@ -170,6 +170,25 @@ def _finish(cur, pred, mean, rp, sample_count, max_range_radius,
     return int(pow2), dense_pos, max_freq, mean_freq
 
 
+def intervals_from_errors(pred_err: np.ndarray, total: int, rp: float,
+                          max_range_radius: int, pred_threshold) -> int:
+    """The classic codec's interval count (optimize_intervals_float_*_opt,
+    sz_float.c:298/4644/5015/5070): the histogram of the radius indices
+    of the sampled prediction errors (float64), and the smallest power of
+    two, at least 32, whose bins hold more than ``pred_threshold`` of
+    ``total`` samples."""
+    radius_index = ((pred_err / rp + 1.0) / 2.0).astype(np.int64)
+    np.minimum(radius_index, max_range_radius - 1, out=radius_index)
+    # C casts the quotient through (uint64_t): negatives (a tiny PW_REL
+    # ratio can make realPrecision negative) wrap and clamp to the last
+    # bin
+    radius_index[radius_index < 0] = max_range_radius - 1
+    hist = np.bincount(radius_index, minlength=max_range_radius)
+    over = np.flatnonzero(np.cumsum(hist) > int(total * pred_threshold))
+    i = int(over[0]) if len(over) else max_range_radius - 1
+    return max(round_up_to_power_of_2(2 * (i + 1)), 32)
+
+
 def walks(shape, sample_distance: int):
     """(mean walk, sample walk) flat indices of a rank-2/3 field: pure
     integer arithmetic, cached per shape."""

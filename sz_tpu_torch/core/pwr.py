@@ -10,10 +10,16 @@ are the state the encoder and the decoder must share bit for bit, so
 both are built here exactly as the reference builds them: libm ``pow``
 per entry, and the cache table's state machine in the host runtime.
 
+The other PW_REL codec, pre-log (``accelerate_pw_rel`` off, or a ratio
+below 1e-5), maps the magnitudes through log2 on the host and runs the
+classic codec on the log field: ``compress_prelog`` /
+``decompress_prelog``.
+
 Reference: SZ_compress_args_float_NoCkRngeNoGzip_3D_pwr_pre_log_MSST19
 (sz_float_pwr.c:1965-2000), computeRangeSize_float_MSST19
 (dataCompression.c:121), the opt_MSST19 interval optimizers
-(sz_float.c).
+(sz_float.c), the pre-log entry points (sz_float_pwr.c:1792-1915,
+szd_float_pwr.c:1331).
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ import numpy as np
 
 from sz_tpu_torch import native
 from sz_tpu_torch.config import Lossless
+from sz_tpu_torch.core import classic
 from sz_tpu_torch.core.optimizer import round_up_to_power_of_2
 from sz_tpu_torch.format import lossless as ll
+from sz_tpu_torch.gpu import classic_engine
 
 
 def range_size_msst19(data: np.ndarray):
@@ -125,7 +133,9 @@ def _walk_positions(shape, sample_distance: int) -> list:
     for r in shape:
         n *= r
     out = []
-    if len(shape) == 2:
+    if len(shape) == 1:
+        out = list(range(2, n, sample_distance))
+    elif len(shape) == 2:
         r1, r2 = shape
         offset_count = sample_distance - 1
         pos = r2 + offset_count
@@ -194,7 +204,11 @@ def _optimize_intervals_msst19_fast(data, ratio, max_range_radius,
     if bool((cur == 0).any()):
         return None
     with np.errstate(all="ignore"):
-        if data.ndim == 2:
+        if data.ndim == 1:
+            perr = np.abs(cur.astype(np.float64)
+                          / f[pos - 1].astype(np.float64))
+            v = np.abs(np.log2(perr) / divider + 0.5)
+        elif data.ndim == 2:
             r2 = data.shape[1]
             pred = f[pos - 1] + f[pos - r2] - f[pos - r2 - 1]
             perr = np.abs(pred.astype(np.float64)
@@ -231,7 +245,19 @@ def _optimize_intervals_msst19(data: np.ndarray, ratio: float,
     f32 = data.reshape(-1)
     n = f32.size
     with np.errstate(all="ignore"):
-        if data.ndim == 2:
+        if data.ndim == 1:
+            pos = 2
+            while pos < n:
+                cur = np.float64(f32[pos])
+                if cur == 0:
+                    pos += sample_distance
+                    continue
+                total += 1
+                perr = abs(cur / np.float64(f32[pos - 1]))
+                hist[_radius_index(abs(np.log2(perr) / divider + 0.5),
+                                   max_range_radius)] += 1
+                pos += sample_distance
+        elif data.ndim == 2:
             r1, r2 = data.shape
             offset_count = sample_distance - 1
             pos = r2 + offset_count
@@ -326,3 +352,87 @@ def compress_pwrel(data: np.ndarray, pw_ratio: float, *, range_info,
         tdps.pwr_err_bound_bytes = ll.compress(signs.tobytes(),
                                                Lossless.ZSTD, 3)
     return tdps
+
+
+# ---------------------------------------------------------------------------
+# Pre-log PW_REL (sz_float_pwr.c:1792/1853/1915; szd_float_pwr.c:1331)
+# ---------------------------------------------------------------------------
+
+def compress_prelog(data: np.ndarray, pw_ratio: float, fmin, fmax, *,
+                    max_range_radius: int, sample_distance: int,
+                    pred_threshold, opt_quant_mode: int = 1,
+                    fixed_intervals: int = 0, device):
+    """Pre-log PW_REL: log2 of the magnitudes on the host (glibc, per
+    element: ``native.v_log2``; CUDA's log2 differs in the last ulp, and
+    float64 streams serialize these values), zeros flushed below the
+    smallest log, then the classic codec on the log field (1-D on the
+    host, ranks 2-3 through K10), ``min_log_value`` and, for a field with
+    negative values, the zstd-3 sign bitmap.  The TDPS is byte-equal to
+    ``sz_tpu.core.pwr.compress_prelog``'s."""
+    T = np.float32 if data.dtype == np.float32 else np.float64
+    flat = np.ascontiguousarray(data, dtype=T).reshape(-1)
+    signs = (flat < 0).astype(np.uint8)
+    positive = not bool(signs.any())
+    # max_abs_log seed from min/max (sz_float_pwr.c:1799-1802)
+    if fmin == 0:
+        max_abs = abs(math.log2(abs(float(fmax))))
+    elif fmax == 0:
+        max_abs = abs(math.log2(abs(float(fmin))))
+    else:
+        max_abs = max(abs(math.log2(abs(float(fmin)))),
+                      abs(math.log2(abs(float(fmax)))))
+    max_abs = T(max_abs)
+    min_log = max_abs
+    log_data = np.abs(flat)
+    pos_mask = log_data > 0
+    log_data[pos_mask] = native.v_log2(log_data[pos_mask]).astype(T)
+    if pos_mask.any():
+        max_abs = max(max_abs, log_data[pos_mask].max())
+        min_log = min(min_log, log_data[pos_mask].min())
+    # the log field's range, before the zero flush
+    lmin = T(log_data.min())
+    lrange = T(T(log_data.max()) - lmin)
+    lmedian = T(lmin + lrange / T(2))
+    if abs(np.float64(min_log)) > max_abs:
+        max_abs = T(abs(np.float64(min_log)))
+    # float kernels subtract maxAbsLog*1.2e-7 (sz_float_pwr.c:1927), the
+    # double kernels 2.23e-16 (sz_double_pwr.c:1939)
+    eps = 1.2e-7 if T is np.float32 else 2.23e-16
+    rp = float(math.log2(1.0 + pw_ratio) - np.float64(max_abs) * eps)
+    log_data[flat == 0] = T(np.float64(min_log) - 2.0001 * rp)
+    shaped = log_data.reshape(data.shape)
+    kw = dict(max_range_radius=max_range_radius,
+              sample_distance=sample_distance, pred_threshold=pred_threshold,
+              opt_quant_mode=opt_quant_mode, fixed_intervals=fixed_intervals,
+              device=device)
+    if data.ndim == 1:
+        tdps = classic.compress_1d(shaped, rp, lrange, lmedian, **kw)
+    else:
+        tdps = classic_engine.compress(shaped, rp, lrange, lmedian, **kw)
+    tdps.is_pwr = True
+    tdps.min_log_value = float(T(np.float64(min_log) - 1.0001 * rp))
+    if not positive:
+        tdps.pwr_err_bound_bytes = ll.compress(signs.tobytes(),
+                                               Lossless.ZSTD, 3)
+    return tdps
+
+
+def decompress_prelog(tdps, shape, dtype, *, device) -> np.ndarray:
+    """The pre-log decode: the classic body, then on the host glibc exp2,
+    the zeros below ``min_log_value`` and the signs; bit-equal to
+    ``sz_tpu.core.pwr.decompress_pwrel``'s pre-log branch."""
+    T = np.float32 if np.dtype(dtype) == np.float32 else np.float64
+    n = int(np.prod(shape))
+    if len(shape) == 1:
+        out = classic.decompress_1d(tdps, n, T, device=device)
+    else:
+        out = classic_engine.decompress(tdps, shape, T, device=device)
+    out = np.asarray(out).reshape(-1)
+    zero = out < T(tdps.min_log_value)
+    res = np.where(zero, T(0), native.v_exp2(out).astype(T))
+    if len(tdps.pwr_err_bound_bytes):
+        signs = np.frombuffer(
+            ll.decompress(bytes(tdps.pwr_err_bound_bytes), expected_size=n),
+            dtype=np.uint8, count=n)
+        res = np.where(signs.astype(bool), -res, res)
+    return res.reshape(shape)

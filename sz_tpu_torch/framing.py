@@ -158,6 +158,16 @@ def _frame_pwrel_stream(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
                    + tdps_mod.to_bytes(tdps, cfg.size_type))
 
 
+def _frame_classic_stream(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
+                          tdps) -> bytes:
+    """The same tail around a classic (SZ1.4) TDPS body
+    (sz_float.c:3016-3039): a header without the regression flag."""
+    header = md.make_header(hdr_cfg, dt, fmin, fmax)
+    return _finish(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
+                   header + bu.size_be(n, cfg.size_type)
+                   + tdps_mod.to_bytes(tdps, cfg.size_type))
+
+
 def _finish(cfg, hdr_cfg, dt, fmin, fmax, flat, n, body) -> bytes:
     """The StoreOriData fallback and the lossless wrap of a framed
     body."""

@@ -23,25 +23,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sz_tpu_torch import state as state_mod
+from sz_tpu_torch import native
 from sz_tpu_torch.config import DataType
 from sz_tpu_torch.core import classic
 from sz_tpu_torch.core import pwr
 from sz_tpu_torch.format import bytes_util as bu
-from sz_tpu_torch.format import huffman
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format.tdps import TDPS
 from sz_tpu_torch.gpu import device as devmod
-from sz_tpu_torch.gpu import fsm_kernel, hist_kernel, msst19_kernel
-from sz_tpu_torch.gpu import pack_kernel
+from sz_tpu_torch.gpu import msst19_kernel
 from sz_tpu_torch.utils import trace as _tr
 
 
 def req_length(ratio: float, rank: int) -> int:
     """The escapes' kept bits: computeReqLength_float_MSST19 (9 - expo)
-    for rank 3, but the float 2-D kernel calls the double variant
+    for ranks 1 and 3, but the float 2-D kernel calls the double variant
     (12 - expo; sz_float.c quirk, kept)."""
-    if rank == 3:
+    if rank != 2:
         return 9 - classic.get_exponent(np.float32(ratio), np.float32)
     return 12 - classic.get_exponent(np.float64(ratio), np.float64)
 
@@ -51,15 +49,17 @@ def compress(work: np.ndarray, pw_ratio: float, fmax, near_zero, *,
              pred_threshold: float, plus_bits: int = 3,
              opt_quant_mode: int = 1, fixed_intervals: int = 0,
              device) -> TDPS:
-    """Port of ``sz_tpu.tpu.msst19_engine.compress`` for a float32 rank-2
-    or rank-3 field whose zeros the caller has replaced; the TDPS is
-    byte-equal to ``sz_tpu.core.pwr.compress_msst19``'s."""
+    """Port of ``sz_tpu.tpu.msst19_engine.compress`` for a float32 field
+    of rank 1-3 whose zeros the caller has replaced; the TDPS is
+    byte-equal to ``sz_tpu.core.pwr.compress_msst19``'s.  Rank 1 runs the
+    serial recurrence on the host (``host.c``, as in the JAX package),
+    its type stream through K3/K4 as the others'."""
     dev = devmod.resolve(device)
     T = np.float32
     work = np.ascontiguousarray(work, dtype=T)
     rank = work.ndim
-    if rank not in (2, 3):
-        raise ValueError("the MSST19 engine takes rank-2 or rank-3 fields")
+    if rank not in (1, 2, 3):
+        raise ValueError("the MSST19 engine takes fields of rank 1-3")
     ratio = float(pw_ratio)
     if opt_quant_mode == 1:
         with _tr.trace("optimizer"):
@@ -72,46 +72,32 @@ def compress(work: np.ndarray, pw_ratio: float, fmax, near_zero, *,
     cache = pwr._cache_table(int(intervals), ratio, int(plus_bits))
     median = T(np.sqrt(np.float64(abs(T(near_zero * fmax)))))
     rl = req_length(ratio, rank)
-
-    with _tr.trace("upload"):
-        x = torch.from_numpy(work).to(dev)
-        tab = torch.from_numpy(cache.table.reshape(-1).view(np.int16)).to(dev)
-        pt = torch.from_numpy(ptable).to(dev)
-        devmod.sync(dev)
-    with _tr.trace("quantize"):
-        encode = (msst19_kernel.wavefront3d_encode if rank == 3
-                  else msst19_kernel.lines2d_encode)
-        types, _rec = encode(x, tab, pt, cache.base_index, cache.top_index,
-                             cache.bits, max(32 - rl, 0))
-        del _rec
-        types = types.reshape(-1)
-        hist = hist_kernel.histogram(types,
-                                     int(intervals) // 2).cpu().numpy()
-    n_esc = int(hist[0])
-    with _tr.trace("escapes"):
-        esc_vals = (x.reshape(-1)[types == 0].cpu().numpy() if n_esc
-                    else np.zeros(0, T))
     enc = classic.ExactEncoder(rl)
-    enc.add_batch(esc_vals)
-
-    state_num = 2 * intervals
-    freq = np.zeros(2 * state_num, np.int64)
-    m = min(65536, 2 * state_num)
-    freq[:m] = hist[:m]
-    with _tr.trace("huffman_tree"):
-        tables = huffman.build_tables(None, state_num, freq=freq)
-    max_len = int(tables.code_len.max())
-    total_bits = int((freq[:len(tables.code_len)]
-                      * tables.code_len.astype(np.int64)).sum())
-    tt = state_mod.table_tensors(tables, dev)
-    with _tr.trace("bitpack_device"):
-        packed = pack_kernel.pack_bits(types, tt["code_hi"], tt["code_lo"],
-                                       tt["code_len"], total_bits)
-        devmod.sync(dev)
-    with _tr.trace("stream_download"):
-        body = packed.cpu().numpy().tobytes()
-    type_array = (bu.u32_be(tables.node_count) + bu.u32_be(state_num // 2)
-                  + tables.tree_bytes + body)
+    if rank == 1:
+        with _tr.trace("quantize"):
+            types, lead, mid, resi, _ = native.msst19_encode1d(
+                work, cache.table, cache.base_index, cache.top_index,
+                cache.bits, ptable, rl)
+        enc.add_parts(lead, mid, resi)
+    else:
+        with _tr.trace("upload"):
+            x = torch.from_numpy(work).to(dev)
+            tab = torch.from_numpy(cache.table.reshape(-1).view(np.int16)).to(
+                dev)
+            pt = torch.from_numpy(ptable).to(dev)
+            devmod.sync(dev)
+        with _tr.trace("quantize"):
+            encode = (msst19_kernel.wavefront3d_encode if rank == 3
+                      else msst19_kernel.lines2d_encode)
+            types, _rec = encode(x, tab, pt, cache.base_index,
+                                 cache.top_index, cache.bits, max(32 - rl, 0))
+            del _rec
+            types = types.reshape(-1)
+            devmod.sync(dev)
+        with _tr.trace("escapes"):
+            enc.add_batch(x.reshape(-1)[types == 0].cpu().numpy())
+        del x
+    type_array, max_len = classic.encode_types(types, intervals, dev)
     return TDPS(
         data_type=DataType.FLOAT, ds_length=work.size, intervals=intervals,
         median_value=float(median), req_length=rl, real_precision=ratio,
@@ -141,35 +127,22 @@ def restore(out: torch.Tensor, thr, signs) -> torch.Tensor:
 def decompress(tdps: TDPS, shape, *, device, as_tensor: bool = False):
     """Port of ``sz_tpu.tpu.msst19_engine.decompress``: the MSST19 decode
     with the sign and zero restore, bit-equal to
-    ``sz_tpu.core.pwr.decompress_pwrel``.  Returns numpy, or the device
-    tensor when ``as_tensor``."""
+    ``sz_tpu.core.pwr.decompress_pwrel``.  Rank 1 decodes its types on
+    the device and runs the recurrence on the host.  Returns numpy, or
+    the device tensor when ``as_tensor``."""
     dev = devmod.resolve(device)
     shape = tuple(int(s) for s in shape)
-    if len(shape) not in (2, 3):
-        raise ValueError("the MSST19 engine takes rank-2 or rank-3 fields")
+    if len(shape) not in (1, 2, 3):
+        raise ValueError("the MSST19 engine takes fields of rank 1-3")
     n = int(np.prod(shape))
     intervals = int(tdps.intervals)
-    with _tr.trace("stream_upload"):
-        ta = tdps.type_array
-        node_count = bu.read_u32_be(ta, 0)
-        tsize = huffman.tree_bytes_size(node_count)
-        tree = huffman.deserialize_tree(ta[8:8 + tsize], node_count)
-        coded = fsm_kernel.upload((*tree, node_count), ta[8 + tsize:], dev)
-        devmod.sync(dev)
-    with _tr.trace("huffman_device"):
-        types, scans = fsm_kernel.decode_coded(coded, n, dev)
-        del coded
-        counts = torch.stack([(types == 0).sum(),
-                              (types >= intervals).sum()]).cpu()
-    _tr.count("fsm_scans", scans)
+    types = classic.decode_types(tdps.type_array, n, dev)
+    counts = torch.stack([(types == 0).sum(),
+                          (types >= intervals).sum()]).cpu()
     n_esc, n_bad = int(counts[0]), int(counts[1])
     if n_bad:
         raise ValueError(f"corrupt stream: {n_bad} types past the "
                          f"{intervals} intervals")
-    with _tr.trace("escapes"):
-        unpred = classic.ExactDecoder(tdps).next_batch(n_esc)
-        known = torch.zeros(n, dtype=torch.float32, device=dev)
-        known[types == 0] = torch.from_numpy(unpred).to(dev)
     ptable = pwr._precision_table(intervals, tdps.real_precision,
                                   tdps.plus_bits)
     signs = None
@@ -177,16 +150,32 @@ def decompress(tdps: TDPS, shape, *, device, as_tensor: bool = False):
         signs = np.frombuffer(ll.decompress(bytes(tdps.pwr_err_bound_bytes),
                                             expected_size=n),
                               dtype=np.uint8, count=n).copy()
-    with _tr.trace("decode_fixpoint"):
-        pt = torch.from_numpy(ptable).to(dev)
-        decode = (msst19_kernel.wavefront3d_decode if len(shape) == 3
-                  else msst19_kernel.lines2d_decode)
-        out = decode(types.reshape(shape), known.reshape(shape), pt)
-        del types, known
-        s_dev = None if signs is None else torch.from_numpy(
-            signs.reshape(shape)).to(dev)
-        out = restore(out, tdps.min_log_value, s_dev)
-        devmod.sync(dev)
+    if len(shape) == 1:
+        if n_esc != tdps.exact_data_num:
+            raise ValueError(f"corrupt stream: {n_esc} escapes coded, "
+                             f"{tdps.exact_data_num} stored")
+        with _tr.trace("decode_fixpoint"):
+            out = native.msst19_decode1d(
+                types.cpu().numpy(), ptable, tdps.req_length,
+                bu.unpack_bits_2(tdps.lead_num, tdps.exact_data_num),
+                tdps.exact_mid_bytes, tdps.residual_mid_bits)
+            out = torch.from_numpy(out).to(dev)
+    else:
+        with _tr.trace("escapes"):
+            unpred = classic.ExactDecoder(tdps).next_batch(n_esc)
+            known = torch.zeros(n, dtype=torch.float32, device=dev)
+            known[types == 0] = torch.from_numpy(unpred).to(dev)
+        with _tr.trace("decode_fixpoint"):
+            pt = torch.from_numpy(ptable).to(dev)
+            decode = (msst19_kernel.wavefront3d_decode if len(shape) == 3
+                      else msst19_kernel.lines2d_decode)
+            out = decode(types.reshape(shape), known.reshape(shape), pt)
+            del known
+    del types
+    s_dev = None if signs is None else torch.from_numpy(
+        signs.reshape(shape)).to(dev)
+    out = restore(out, tdps.min_log_value, s_dev)
+    devmod.sync(dev)
     if as_tensor:
         return out
     with _tr.trace("download"):

@@ -52,8 +52,21 @@ _SIGNATURES = {
     "huff_build_tree": ((_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P), _I64),
     "exact_stream_f32": ((_P, _I64, _I, ctypes.c_float, _I, _P, _P, _P, _P,
                           _P, _P), None),
+    "exact_stream_f64": ((_P, _I64, _I, ctypes.c_double, _I, _P, _P, _P,
+                          _P, _P, _P), None),
+    "classic1d_encode_f32": ((_P, _I64, ctypes.c_float, _I, _I, _I,
+                              ctypes.c_float, _P, _P, _P, _P, _P), _I64),
+    "classic1d_encode_f64": ((_P, _I64, ctypes.c_double, _I, _I, _I,
+                              ctypes.c_double, _P, _P, _P, _P, _P), _I64),
     "classic1d_decode_f32": ((_P, _I64, ctypes.c_float, _I, _I,
                               ctypes.c_float, _I, _P, _P, _P, _P), None),
+    "classic1d_decode_f64": ((_P, _I64, ctypes.c_double, _I, _I,
+                              ctypes.c_double, _I, _P, _P, _P, _P), None),
+    "msst19_encode1d_f32": ((_P, _I64, _P, _I64, _I64, _I, _I64, _P, _I,
+                             _P, _P, _P, _P, _P), _I64),
+    "msst19_decode1d_f32": ((_P, _I64, _P, _I, _P, _P, _P, _P), None),
+    "v_log2_f64": ((_P, _P, _I64), None),
+    "v_exp2_f64": ((_P, _P, _I64), None),
     "range_scan_f32": ((_P, _I64, _P, _P, _P, _P), _I),
     "msst19_build_table": ((_P, _I64, ctypes.c_double, _I, _I64, _I64, _P),
                            None),
@@ -230,43 +243,137 @@ def huff_build_tree(freq: np.ndarray, state_num: int, node_count: int):
     return code_hi, code_lo, code_len, L, R, C, T
 
 
+def _escape_buffers(n: int, req_length: int):
+    """Output buffers of an escape stream of at most n values: lead
+    (u8 a value), mid (req_length // 8 bytes a value), resi (u8 a
+    value) and the mid count."""
+    rb = req_length // 8
+    return (np.zeros(max(n, 1), np.uint8),
+            np.zeros(max(n * max(rb, 1), 1), np.uint8),
+            np.zeros(max(n, 1), np.uint8), np.zeros(1, np.int64))
+
+
+def _escape_parts(lead, mid, resi, nmid, cnt: int, req_length: int,
+                  esize: int):
+    """(lead u8[cnt], mid bytes, resi u8 entries) of a finished escape
+    stream: resi holds an entry a value only when req_length leaves a
+    partial byte."""
+    has_resi = (req_length % 8) != 0 and req_length // 8 < esize
+    return (lead[:cnt], mid[:int(nmid[0])].tobytes(),
+            resi[:cnt] if has_resi else resi[:0])
+
+
 def exact_stream(vals: np.ndarray, req_length: int, median, raw: bool,
                  prev: bytes):
-    """Batched float32 exact-value escape stream.  Returns
-    (lead u8[n], mid bytes, resi u8[<=n], recon, new_prev)."""
-    vals = np.ascontiguousarray(vals, np.float32)
+    """Batched exact-value escape stream of float32 or float64 values
+    (the dtype of ``vals``), with the median offset unless ``raw``.
+    Returns (lead u8[n], mid bytes, resi u8[<=n], recon, new_prev)."""
+    vals = np.ascontiguousarray(vals)
+    T = float_type(vals.dtype)
+    esize = np.dtype(T).itemsize
     n = vals.size
-    rb = req_length // 8
-    lead = np.zeros(max(n, 1), np.uint8)
-    mid = np.zeros(max(n * max(rb, 1), 1), np.uint8)
-    resi = np.zeros(max(n, 1), np.uint8)
-    recon = np.zeros(n, np.float32)
+    lead, mid, resi, nmid = _escape_buffers(n, req_length)
+    recon = np.zeros(n, T)
     prev_io = np.zeros(8, np.uint8)
     prev_io[:len(prev)] = np.frombuffer(prev, np.uint8)
-    nmid = np.zeros(1, np.int64)
-    lib().exact_stream_f32(_ptr(vals), n, req_length, float(median),
-                           1 if raw else 0, _ptr(prev_io), _ptr(lead),
-                           _ptr(mid), _ptr(nmid), _ptr(resi), _ptr(recon))
-    has_resi = (req_length % 8) != 0 and rb < 4
-    return (lead[:n], mid[:int(nmid[0])].tobytes(),
-            resi[:n] if has_resi else resi[:0], recon, prev_io[:4].tobytes())
+    getattr(lib(), f"exact_stream_{_suffix(T)}")(
+        _ptr(vals), n, req_length, float(median), 1 if raw else 0,
+        _ptr(prev_io), _ptr(lead), _ptr(mid), _ptr(nmid), _ptr(resi),
+        _ptr(recon))
+    return (*_escape_parts(lead, mid, resi, nmid, n, req_length, esize),
+            recon, prev_io[:esize].tobytes())
 
 
-def classic1d_decode(types: np.ndarray, interval2, radius: int,
-                     req_length: int, median, raw: bool, lead: np.ndarray,
-                     mid: bytes, resi: bytes) -> np.ndarray:
-    """The float32 classic 1-D decoder (escapes from the exact-value
-    stream, the rest from the types)."""
-    types = np.ascontiguousarray(types, np.int32)
-    n = types.size
+def classic1d_encode(x: np.ndarray, rp, intervals: int, radius: int,
+                     req_length: int, median):
+    """The classic 1-D encode of a float32 or float64 field (the dtype of
+    ``x``).  Returns (types i32[n], lead u8, mid bytes, resi u8 entries,
+    escape count)."""
+    x = np.ascontiguousarray(x)
+    T = float_type(x.dtype)
+    n = x.size
+    types = np.zeros(n, np.int32)
+    lead, mid, resi, nmid = _escape_buffers(n, req_length)
+    cnt = int(getattr(lib(), f"classic1d_encode_{_suffix(T)}")(
+        _ptr(x), n, float(rp), int(intervals), int(radius), req_length,
+        float(median), _ptr(types), _ptr(lead), _ptr(mid), _ptr(nmid),
+        _ptr(resi)))
+    return (types, *_escape_parts(lead, mid, resi, nmid, cnt, req_length,
+                                  np.dtype(T).itemsize), cnt)
+
+
+def _stream_arrays(lead, mid: bytes, resi: bytes):
     lead = np.ascontiguousarray(lead, np.uint8)
     midb = np.frombuffer(mid, np.uint8) if len(mid) else np.zeros(1, np.uint8)
     resb = (np.frombuffer(resi, np.uint8) if len(resi)
             else np.zeros(1, np.uint8))
-    out = np.zeros(n, np.float32)
-    lib().classic1d_decode_f32(_ptr(types), n, float(interval2), radius,
-                               req_length, float(median), 1 if raw else 0,
-                               _ptr(lead), _ptr(midb), _ptr(resb), _ptr(out))
+    return lead, midb, resb
+
+
+def classic1d_decode(types: np.ndarray, interval2, radius: int,
+                     req_length: int, median, raw: bool, lead: np.ndarray,
+                     mid: bytes, resi: bytes, T=np.float32) -> np.ndarray:
+    """The classic 1-D decoder in ``T`` (escapes from the exact-value
+    stream, the rest from the types); with every type 0 it decodes the
+    escape stream alone."""
+    types = np.ascontiguousarray(types, np.int32)
+    n = types.size
+    lead, midb, resb = _stream_arrays(lead, mid, resi)
+    out = np.zeros(n, T)
+    getattr(lib(), f"classic1d_decode_{_suffix(T)}")(
+        _ptr(types), n, float(interval2), radius, req_length, float(median),
+        1 if raw else 0, _ptr(lead), _ptr(midb), _ptr(resb), _ptr(out))
+    return out
+
+
+def msst19_encode1d(x: np.ndarray, table: np.ndarray, base_index: int,
+                    top_index: int, bits: int, ptable: np.ndarray,
+                    req_length: int):
+    """The 1-D MSST19 encode of a float32 field whose zeros the caller
+    replaced.  Returns (types, lead u8, mid bytes, resi u8 entries,
+    escape count)."""
+    x = np.ascontiguousarray(x, np.float32)
+    n = x.size
+    table = np.ascontiguousarray(table, np.uint16)
+    ptable = np.ascontiguousarray(ptable, np.float64)
+    types = np.zeros(n, np.int32)
+    lead, mid, resi, nmid = _escape_buffers(n, req_length)
+    cnt = int(lib().msst19_encode1d_f32(
+        _ptr(x), n, _ptr(table), base_index, top_index, bits,
+        table.shape[1], _ptr(ptable), req_length, _ptr(types), _ptr(lead),
+        _ptr(mid), _ptr(nmid), _ptr(resi)))
+    return (types, *_escape_parts(lead, mid, resi, nmid, cnt, req_length,
+                                  4), cnt)
+
+
+def msst19_decode1d(types: np.ndarray, ptable: np.ndarray, req_length: int,
+                    lead: np.ndarray, mid: bytes, resi: bytes) -> np.ndarray:
+    """The 1-D MSST19 decode (float32): before the zero and sign
+    restore."""
+    types = np.ascontiguousarray(types, np.int32)
+    ptable = np.ascontiguousarray(ptable, np.float64)
+    lead, midb, resb = _stream_arrays(lead, mid, resi)
+    out = np.zeros(types.size, np.float32)
+    lib().msst19_decode1d_f32(_ptr(types), types.size, _ptr(ptable),
+                              req_length, _ptr(lead), _ptr(midb),
+                              _ptr(resb), _ptr(out))
+    return out
+
+
+def v_log2(x: np.ndarray) -> np.ndarray:
+    """glibc log2 per element, in float64 (numpy's SIMD log2 differs in
+    the last ulp, which float64 pre-log streams serialize)."""
+    x = np.ascontiguousarray(x, np.float64)
+    out = np.empty_like(x)
+    lib().v_log2_f64(_ptr(x), _ptr(out), x.size)
+    return out
+
+
+def v_exp2(x: np.ndarray) -> np.ndarray:
+    """glibc exp2 per element, in float64."""
+    x = np.ascontiguousarray(x, np.float64)
+    out = np.empty_like(x)
+    lib().v_exp2_f64(_ptr(x), _ptr(out), x.size)
     return out
 
 

@@ -12,6 +12,14 @@
  *     szd_float.c:185), the range/sign scan (dataCompression.c:121),
  *     the cache-table build (MultiLevelCacheTableWideInterval.c:47-186)
  *     and the fixed-width bit pack (TypeManager.c:377)
+ *   - the classic (SZ1.4) 1-D codec in float and double, and the 1-D
+ *     MSST19 codec in float: serial recurrences, host-only as in the
+ *     JAX package (sz_float.c:353, sz_double.c:260, szd_float.c:185;
+ *     sz_float.c MSST19 1-D, szd_float.c decompressDataSeries_float_1D_
+ *     MSST19)
+ *   - glibc log2/exp2 per element, the pre-log PW_REL transform
+ *     (sz_float_pwr.c:1792-1860): numpy's SIMD forms differ in the last
+ *     ulp, and double streams serialize these values
  *
  * Built with `cc -O3 -ffp-contract=off` (no FMA contraction, no
  * -march, no fast-math) by sz_tpu_torch/native/__init__.py; bound with
@@ -350,6 +358,27 @@ static inline float xenc_add_f32(xenc *E, float value, float median,
     return recon;
 }
 
+static inline double xenc_add_f64(xenc *E, double value, double median,
+                                  int raw, uint64_t mask) {
+    double norm = raw ? value : value - median;
+    uint64_t ival;
+    memcpy(&ival, &norm, 8);
+    uint8_t cur[8];
+    for (int b = 0; b < 8; b++) cur[b] = (uint8_t)(ival >> (56 - 8 * b));
+    uint64_t rbits = ival & mask;
+    double recon;
+    memcpy(&recon, &rbits, 8);
+    if (!raw) recon = recon + median;
+    int lead = 0;
+    while (lead < 3 && cur[lead] == E->prev[lead]) lead++;
+    E->lead[E->nlead++] = (uint8_t)lead;
+    for (int b = lead; b < E->req_bytes; b++) E->mid[E->nmid++] = cur[b];
+    if (E->resi_len && E->req_bytes < 8)
+        E->resi[E->nresi++] = cur[E->req_bytes] >> (8 - E->resi_len);
+    memcpy(E->prev, cur, 8);
+    return recon;
+}
+
 static inline uint64_t xenc_mask(int esize, int req_length) {
     int ign = esize * 8 - req_length;
     if (ign < 0) ign = 0;
@@ -380,43 +409,286 @@ void exact_stream_f32(const float *vals, int64_t n, int req_length,
     *nmid = E.nmid;
 }
 
+void exact_stream_f64(const double *vals, int64_t n, int req_length,
+                      double median, int raw, uint8_t *prev_io,
+                      uint8_t *lead, uint8_t *mid, int64_t *nmid,
+                      uint8_t *resi, double *recon) {
+    xenc E;
+    E.esize = 8; E.req_bytes = req_length / 8; E.resi_len = req_length % 8;
+    if (E.req_bytes > 8) E.req_bytes = 8;
+    memcpy(E.prev, prev_io, 8);
+    E.lead = lead; E.nlead = 0;
+    E.mid = mid; E.nmid = 0;
+    E.resi = resi; E.nresi = 0;
+    uint64_t mask = xenc_mask(8, req_length);
+    for (int64_t i = 0; i < n; i++) {
+        double r = xenc_add_f64(&E, vals[i], median, raw, mask);
+        if (recon) recon[i] = r;
+    }
+    memcpy(prev_io, E.prev, 8);
+    *nmid = E.nmid;
+}
+
+/* Classic 1D MDQ encode (SZ_compress_float_1D_MDQ sz_float.c:353-524):
+ * previous-reconstruction predictor, the float quantizer with its
+ * machine-epsilon recheck.  Returns the exact-value count. */
+int64_t classic1d_encode_f32(const float *x, int64_t n, float rp,
+                             int intervals, int radius, int req_length,
+                             float median, int32_t *types, uint8_t *lead,
+                             uint8_t *mid, int64_t *nmid, uint8_t *resi) {
+    xenc E;
+    E.esize = 4; E.req_bytes = req_length / 8; E.resi_len = req_length % 8;
+    if (E.req_bytes > 4) E.req_bytes = 4;
+    memset(E.prev, 0, 8);
+    E.lead = lead; E.nlead = 0; E.mid = mid; E.nmid = 0;
+    E.resi = resi; E.nresi = 0;
+    uint32_t mask = (uint32_t)xenc_mask(4, req_length);
+    float pred = 0.0f;
+    for (int i = 0; i < 2 && i < n; i++) {
+        pred = xenc_add_f32(&E, x[i], median, 0, mask);
+        types[i] = 0;
+    }
+    float check_radius = (float)(intervals - 1) * rp;
+    float interval2 = 2.0f * rp;
+    float recip = 1.0f / rp;
+    for (int64_t i = 2; i < n; i++) {
+        float cur = x[i];
+        float err = fabsf(cur - pred);
+        if (err < check_radius) {
+            int state = ((int)(err * recip + 1.0f)) >> 1;
+            if (cur >= pred) {
+                types[i] = radius + state;
+                pred = pred + (float)state * interval2;
+            } else {
+                types[i] = radius - state;
+                pred = pred - (float)state * interval2;
+            }
+            if (fabsf(cur - pred) > rp) {
+                types[i] = 0;
+                pred = xenc_add_f32(&E, cur, median, 0, mask);
+            }
+        } else {
+            types[i] = 0;
+            pred = xenc_add_f32(&E, cur, median, 0, mask);
+        }
+    }
+    *nmid = E.nmid;
+    return E.nlead;
+}
+
+/* The double twin (SZ_compress_double_1D_MDQ sz_double.c:260-395):
+ * state = (int)((err*recip + 1) * 0.5), no epsilon recheck. */
+int64_t classic1d_encode_f64(const double *x, int64_t n, double rp,
+                             int intervals, int radius, int req_length,
+                             double median, int32_t *types, uint8_t *lead,
+                             uint8_t *mid, int64_t *nmid, uint8_t *resi) {
+    xenc E;
+    E.esize = 8; E.req_bytes = req_length / 8; E.resi_len = req_length % 8;
+    if (E.req_bytes > 8) E.req_bytes = 8;
+    memset(E.prev, 0, 8);
+    E.lead = lead; E.nlead = 0; E.mid = mid; E.nmid = 0;
+    E.resi = resi; E.nresi = 0;
+    uint64_t mask = xenc_mask(8, req_length);
+    double pred = 0.0;
+    for (int i = 0; i < 2 && i < n; i++) {
+        pred = xenc_add_f64(&E, x[i], median, 0, mask);
+        types[i] = 0;
+    }
+    double check_radius = (double)(intervals - 1) * rp;
+    double interval2 = 2.0 * rp;
+    double recip = 1.0 / rp;
+    for (int64_t i = 2; i < n; i++) {
+        double cur = x[i];
+        double err = fabs(cur - pred);
+        if (err < check_radius) {
+            int state = (int)((err * recip + 1.0) * 0.5);
+            if (cur >= pred) {
+                types[i] = radius + state;
+                pred = pred + (double)state * interval2;
+            } else {
+                types[i] = radius - state;
+                pred = pred - (double)state * interval2;
+            }
+        } else {
+            types[i] = 0;
+            pred = xenc_add_f64(&E, cur, median, 0, mask);
+        }
+    }
+    *nmid = E.nmid;
+    return E.nlead;
+}
+
+/* The escape stream's decoder (one value a call), shared by the 1-D
+ * decoders below. */
+typedef struct {
+    int esize, req_bytes, resi_len;
+    uint8_t prev[8];
+    const uint8_t *lead;  int64_t k;
+    const uint8_t *mid;   int64_t midp;
+    const uint8_t *resi;  int64_t bitp;
+} xdec;
+
+static inline void xdec_init(xdec *D, int esize, int req_length,
+                             const uint8_t *lead, const uint8_t *mid,
+                             const uint8_t *resi) {
+    D->esize = esize;
+    D->req_bytes = req_length / 8;
+    D->resi_len = req_length % 8;
+    if (D->req_bytes > esize) D->req_bytes = esize;
+    memset(D->prev, 0, 8);
+    D->lead = lead; D->k = 0; D->mid = mid; D->midp = 0;
+    D->resi = resi; D->bitp = 0;
+}
+
+/* The next value's big-endian bytes, into D->prev. */
+static inline void xdec_bytes(xdec *D) {
+    uint8_t b[8] = {0};
+    int ln = D->lead[D->k++];
+    for (int j = 0; j < ln; j++) b[j] = D->prev[j];
+    for (int j = ln; j < D->req_bytes; j++) b[j] = D->mid[D->midp++];
+    if (D->resi_len && D->req_bytes < D->esize) {
+        int v = 0;
+        for (int w = 0; w < D->resi_len; w++) {
+            v = (v << 1)
+              | ((D->resi[D->bitp >> 3] >> (7 - (D->bitp & 7))) & 1);
+            D->bitp++;
+        }
+        b[D->req_bytes] = (uint8_t)(v << (8 - D->resi_len));
+    }
+    memcpy(D->prev, b, D->esize);
+}
+
+static inline float xdec_next_f32(xdec *D, float median, int raw) {
+    xdec_bytes(D);
+    const uint8_t *b = D->prev;
+    uint32_t ival = ((uint32_t)b[0] << 24) | ((uint32_t)b[1] << 16)
+                  | ((uint32_t)b[2] << 8) | b[3];
+    float val;
+    memcpy(&val, &ival, 4);
+    return raw ? val : val + median;
+}
+
+static inline double xdec_next_f64(xdec *D, double median, int raw) {
+    xdec_bytes(D);
+    uint64_t ival = 0;
+    for (int j = 0; j < 8; j++) ival = (ival << 8) | D->prev[j];
+    double val;
+    memcpy(&val, &ival, 8);
+    return raw ? val : val + median;
+}
+
 /* Classic 1D decode (decompressDataSeries_float_1D szd_float.c:185).
  * lead: unpacked 2-bit values; resi consumed as a bit cursor. */
 void classic1d_decode_f32(const int32_t *types, int64_t n, float interval2,
                           int radius, int req_length, float median, int raw,
                           const uint8_t *lead, const uint8_t *mid,
                           const uint8_t *resi, float *out) {
-    int req_bytes = req_length / 8, resi_len = req_length % 8;
-    if (req_bytes > 4) req_bytes = 4;
-    uint8_t prev[4] = {0};
-    int64_t midp = 0, bitp = 0;
+    xdec D;
+    xdec_init(&D, 4, req_length, lead, mid, resi);
     float cur = 0.0f;
-    for (int64_t i = 0, k = 0; i < n; i++) {
+    for (int64_t i = 0; i < n; i++) {
         int t = types[i];
-        if (t == 0) {
-            uint8_t b[4] = {0};
-            int ln = lead[k++];
-            for (int j = 0; j < ln; j++) b[j] = prev[j];
-            for (int j = ln; j < req_bytes; j++) b[j] = mid[midp++];
-            if (resi_len && req_bytes < 4) {
-                int v = 0;
-                for (int w = 0; w < resi_len; w++) {
-                    v = (v << 1) | ((resi[bitp >> 3] >> (7 - (bitp & 7))) & 1);
-                    bitp++;
-                }
-                b[req_bytes] = (uint8_t)(v << (8 - resi_len));
-            }
-            memcpy(prev, b, 4);
-            uint32_t ival = ((uint32_t)b[0] << 24) | ((uint32_t)b[1] << 16)
-                          | ((uint32_t)b[2] << 8) | b[3];
-            float val;
-            memcpy(&val, &ival, 4);
-            cur = raw ? val : val + median;
-        } else {
+        if (t == 0)
+            cur = xdec_next_f32(&D, median, raw);
+        else
             cur = cur + (float)(t - radius) * interval2;
-        }
         out[i] = cur;
     }
+}
+
+void classic1d_decode_f64(const int32_t *types, int64_t n, double interval2,
+                          int radius, int req_length, double median, int raw,
+                          const uint8_t *lead, const uint8_t *mid,
+                          const uint8_t *resi, double *out) {
+    xdec D;
+    xdec_init(&D, 8, req_length, lead, mid, resi);
+    double cur = 0.0;
+    for (int64_t i = 0; i < n; i++) {
+        int t = types[i];
+        if (t == 0)
+            cur = xdec_next_f64(&D, median, raw);
+        else
+            cur = cur + (double)(t - radius) * interval2;
+        out[i] = cur;
+    }
+}
+
+/* The MSST19 cache-table lookup of a prediction ratio: 0 outside. */
+static inline int msst19_lookup(double ratio, const uint16_t *table,
+                                int64_t base_index, int64_t top_index,
+                                int bits, int64_t row_size) {
+    uint64_t b;
+    memcpy(&b, &ratio, 8);
+    int64_t expo = (int64_t)((b & 0x7FFFFFFFFFFFFFFFull) >> 52)
+                   - base_index;
+    if (expo < 0 || expo > top_index - base_index) return 0;
+    uint64_t manti = (b & 0x000FFFFFFFFFFFFFull) >> (52 - bits);
+    return table[expo * row_size + manti];
+}
+
+/* 1-D MSST19 encode (SZ_compress_float_1D_MDQ_MSST19): the first two
+ * values escape, then the state of cur/pred multiplies the previous
+ * reconstruction (no fabs in 1-D).  Returns the escape count. */
+int64_t msst19_encode1d_f32(const float *x, int64_t n,
+                            const uint16_t *table, int64_t base_index,
+                            int64_t top_index, int bits, int64_t row_size,
+                            const double *ptable, int req_length,
+                            int32_t *types, uint8_t *lead, uint8_t *mid,
+                            int64_t *nmid, uint8_t *resi) {
+    xenc E;
+    E.esize = 4; E.req_bytes = req_length / 8; E.resi_len = req_length % 8;
+    if (E.req_bytes > 4) E.req_bytes = 4;
+    memset(E.prev, 0, 8);
+    E.lead = lead; E.nlead = 0; E.mid = mid; E.nmid = 0;
+    E.resi = resi; E.nresi = 0;
+    uint32_t mask = (uint32_t)xenc_mask(4, req_length);
+    float pred = 0.0f;
+    for (int i = 0; i < 2 && i < n; i++) {
+        types[i] = 0;
+        pred = xenc_add_f32(&E, x[i], 0.0f, 1, mask);
+    }
+    for (int64_t i = 2; i < n; i++) {
+        float cur = x[i];
+        float ratio = cur / pred;
+        int st = msst19_lookup((double)ratio, table, base_index,
+                               top_index, bits, row_size);
+        if (st) {
+            types[i] = st;
+            pred = (float)((double)pred * ptable[st]);
+        } else {
+            types[i] = 0;
+            pred = xenc_add_f32(&E, cur, 0.0f, 1, mask);
+        }
+    }
+    *nmid = E.nmid;
+    return E.nlead;
+}
+
+/* 1-D MSST19 decode (decompressDataSeries_float_1D_MSST19): a state
+ * multiplies |previous value| by its precision factor. */
+void msst19_decode1d_f32(const int32_t *types, int64_t n,
+                         const double *ptable, int req_length,
+                         const uint8_t *lead, const uint8_t *mid,
+                         const uint8_t *resi, float *out) {
+    xdec D;
+    xdec_init(&D, 4, req_length, lead, mid, resi);
+    float prev = 0.0f;
+    for (int64_t i = 0; i < n; i++) {
+        int t = types[i];
+        prev = t ? (float)(fabs((double)prev) * ptable[t])
+                 : xdec_next_f32(&D, 0.0f, 1);
+        out[i] = prev;
+    }
+}
+
+/* glibc log2/exp2, one element at a time (the pre-log PW_REL transform:
+ * sz_float_pwr.c:1810, szd_float_pwr.c:1340). */
+void v_log2_f64(const double *x, double *out, int64_t n) {
+    for (int64_t i = 0; i < n; i++) out[i] = log2(x[i]);
+}
+
+void v_exp2_f64(const double *x, double *out, int64_t n) {
+    for (int64_t i = 0; i < n; i++) out[i] = exp2(x[i]);
 }
 
 /* One-pass MSST19 range/sign scan (computeRangeSize_*_MSST19).

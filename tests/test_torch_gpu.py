@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: each CUDA kernel bit-equal to its
-plain torch version (K5-K7 also on the decoded symbols, K8/K9's decode
-also rebuilding their encode's reconstruction), and the main path and
-the MSST19 PW_REL path byte-equal to the numpy oracle, on the GPU.  They skip where
+plain torch version (K5-K7 also on the decoded symbols, K8/K9's and
+K10/K11's decode also rebuilding their encode's reconstruction), and the
+main path, the MSST19 PW_REL path and the classic codec byte-equal to
+the numpy oracle, on the GPU.  They skip where
 torch.cuda.is_available() is false.
 
 This file imports no jax, so it also runs on a machine without it; there
@@ -454,3 +455,52 @@ def test_tensor_input_bounds_on_card_match_oracle(cuda, T, mode, value):
         sz_tpu_torch.ErrorBoundMode[mode], value)
     assert sz_tpu_torch.compress(torch.from_numpy(data).to(cuda), cfg,
                                  device=cuda) == ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,rp,noise", [
+    ((1, 5, 7), np.float32, 1e-3, 0.3), ((5, 7, 1), np.float32, 1e-3, 0.3),
+    ((2, 65), np.float32, 1e-3, 0.3), ((6, 2, 2), np.float32, 1e-3, 0.3),
+    ((777, 1031), np.float32, 1e-4, 0.1), ((33, 17, 300), np.float32, 1e-3,
+                                            0.1),
+    ((3, 5, 4100), np.float32, 1e-3, 0.1),
+    ((5, 9, 12, 10), np.float32, 1e-4, 0.1),
+    ((3, 2, 2, 2), np.float64, 1e-4, 0.1),
+    ((40, 70, 130), np.float64, 1e-6, 0.1), ((700, 300), np.float64, 1e-6,
+                                             0.1),
+    ((64, 64, 64), np.float32, 1e-7, None)])
+def test_classic_kernels_match_plain(cuda, shape, dtype, rp, noise):
+    """K10/K11 against their plain versions: the three numeric forms, the
+    degenerate shapes, ragged tiles, the first row's k-2 hand-off, 4-D
+    volumes and random data that escapes nearly everywhere; K11 rebuilds
+    K10's reconstruction."""
+    from sz_tpu_torch.gpu import classic_kernel as ck
+    x, p = SMOKE.classic_field(shape, dtype, rp, 3, noise)
+    args = (p.rp, p.recip, p.intervals, p.radius, p.median, p.req_length)
+    xt = torch.from_numpy(x)
+    t_p, R_p = ck.classic_quantize(xt, *args)
+    t_k, R_k = ck.classic_quantize(xt.to(cuda), *args)
+    assert torch.equal(t_k.cpu(), t_p) and _bits_equal(R_k.cpu(), R_p)
+    known = torch.where(t_k == 0, R_k, torch.zeros_like(R_k))
+    o_k = ck.classic_decode(t_k, known, p.rp, p.radius)
+    o_p = ck.classic_decode(t_p, known.cpu(), p.rp, p.radius)
+    assert _bits_equal(o_k.cpu(), o_p) and _bits_equal(o_k, R_k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["classic_cesm_atm_1800x3600",
+                                  "classic_4d_4x64x64x64",
+                                  "random_access_4d_4x64x64x64",
+                                  "pwrel_1e-6_cesm_atm_1800x3600"])
+def test_classic_on_card_matches_oracle(cuda, name):
+    """The classic codec (K10/K11), the 4-D random-access route and
+    PW_REL 1e-6 (pre-log) through sz_tpu_torch on the card: the stream
+    and the decode hash to chip_smoke's oracle constants."""
+    maker, shape, seed, bnd, over, want_stream, want_recon = \
+        SMOKE.ORACLE_CLASSIC[name]
+    x = SMOKE.classic_input(maker, shape, seed)
+    blob = sz_tpu_torch.compress(x, SMOKE.classic_config(bnd, over),
+                                 device=cuda)
+    assert SMOKE.sha256(blob) == want_stream
+    out = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=cuda)
+    assert SMOKE.sha256(out.tobytes()) == want_recon

@@ -113,54 +113,99 @@ _ABS = SZConfig().with_bound(ErrorBoundMode.ABS, 1e-3)
 _PW = SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)
 
 
+# the configurations that named ROADMAP 1.4 are ported: there the case
+# holds the port to sz_tpu's stream and decode (item None); the others
+# still raise naming their item
 @pytest.mark.parametrize("data,cfg,item", [
     (_X3.astype(np.float64), SZConfig(with_regression=False).with_bound(
-        ErrorBoundMode.ABS, 1e-3), "1.4"),
+        ErrorBoundMode.ABS, 1e-3), None),
     (_X3, SZConfig(accelerate_pw_rel=False).with_bound(ErrorBoundMode.PW_REL,
-                                                       1e-3), "1.4"),
-    (_X3, SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-6), "1.4"),
+                                                       1e-3), None),
+    (_X3, SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-6), None),
     (_X3, SZConfig(with_regression=False).with_bound(
-        ErrorBoundMode.ABS, 1e-3), "1.4"),
+        ErrorBoundMode.ABS, 1e-3), None),
     (_X3, SZConfig(random_access=True).with_bound(ErrorBoundMode.ABS, 1e-3),
      "1.6"),
     (_X3.reshape(2, 5, 11, 12), SZConfig(random_access=True).with_bound(
-        ErrorBoundMode.ABS, 1e-3), "1.4"),
-    (_X3.reshape(-1), _ABS, "1.4"),
+        ErrorBoundMode.ABS, 1e-3), None),
+    (_X3.reshape(-1), _ABS, None),
     ((_X3 * 100).astype(np.int32), _ABS, "1.10"),
-    (_X3.reshape(-1), _PW, "1.4"),
+    (_X3.reshape(-1), _PW, None),
     (_X3.astype(np.float64), _PW, "1.3"),
     (_X3.astype(np.float64), SZConfig(accelerate_pw_rel=False).with_bound(
-        ErrorBoundMode.PW_REL, 1e-3), "1.4"),
-    (_X3.astype(np.float64).reshape(-1), _ABS, "1.4"),
+        ErrorBoundMode.PW_REL, 1e-3), None),
+    (_X3.astype(np.float64).reshape(-1), _ABS, None),
 ], ids=["f64", "pw_rel", "pw_rel_1e-6", "classic", "random_access",
         "random_access_4d", "1d", "int", "pw_rel_1d", "pw_rel_f64",
         "pw_rel_prelog_f64", "1d_f64"])
 def test_out_of_slice_raises(data, cfg, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
-        sz_tpu_torch.compress(data, cfg, device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
+            sz_tpu_torch.compress(data, cfg, device="cpu")
+        return
+    import dataclasses
+    import sz_tpu
+    from sz_tpu import config as jcfg
+    jc = jcfg.SZConfig(**{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(cfg)
+                          if hasattr(jcfg.SZConfig, f.name)})
+    jc = dataclasses.replace(jc, engine="numpy")
+    blob = sz_tpu.compress(data, jc)
+    assert sz_tpu_torch.compress(data, cfg, device="cpu") == blob
+    want = sz_tpu.decompress(blob, data.shape, data.dtype, engine="numpy")
+    got = sz_tpu_torch.decompress(blob, data.shape, data.dtype, device="cpu")
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
+def _stream_of(dtype, shape):
+    """sz_tpu's ABS 1e-3 stream of _X3's values in ``dtype`` and
+    ``shape``."""
+    import sz_tpu
+    from sz_tpu.config import ErrorBoundMode as JMode
+    from sz_tpu.config import SZConfig as JConfig
+    x = _X3.astype(dtype).reshape(shape)
+    return x, sz_tpu.compress(x, JConfig(engine="numpy").with_bound(
+        JMode.ABS, 1e-3))
+
+
+# 1-D streams are ported (ROADMAP 1.4): those cases decode bit-equal to
+# sz_tpu; integers still raise
 @pytest.mark.parametrize("dtype,shape,item", [
-    (np.float64, (1320,), "1.4"),
-    (np.float32, (1320,), "1.4"),
+    (np.float64, (1320,), None),
+    (np.float32, (1320,), None),
     (np.int16, (10, 11, 12), "1.10"),
 ], ids=["f64", "1d", "int"])
 def test_out_of_slice_decompress_raises(dtype, shape, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
-        sz_tpu_torch.decompress(b"\0" * 64, shape, dtype, device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
+            sz_tpu_torch.decompress(b"\0" * 64, shape, dtype, device="cpu")
+        return
+    import sz_tpu
+    x, blob = _stream_of(dtype, shape)
+    got = sz_tpu_torch.decompress(blob, shape, dtype, device="cpu")
+    want = sz_tpu.decompress(blob, shape, dtype, engine="numpy")
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
 def test_prelog_pw_rel_stream_decode_raises():
     """A stream of the pre-log PW_REL codec (the MSST19 flag off) is
-    refused, not decoded by another codec."""
+    decoded by the pre-log codec (ported, ROADMAP 1.4), bit-equal to
+    sz_tpu, not by another codec; a float64 MSST19 stream still raises
+    (ROADMAP 1.3)."""
     import sz_tpu
     from sz_tpu.config import ErrorBoundMode as JMode
     from sz_tpu.config import SZConfig as JConfig
     cfg = JConfig(accelerate_pw_rel=False, engine="numpy").with_bound(
         JMode.PW_REL, 1e-3)
     blob = sz_tpu.compress(_X3 + 1, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.4\\)"):
-        sz_tpu_torch.decompress(blob, _X3.shape, device="cpu")
+    got = sz_tpu_torch.decompress(blob, _X3.shape, device="cpu")
+    want = sz_tpu.decompress(blob, _X3.shape, engine="numpy")
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    blob64 = sz_tpu.compress((_X3 + 1).astype(np.float64),
+                             JConfig(engine="numpy").with_bound(
+                                 JMode.PW_REL, 1e-3))
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.3\\)"):
+        sz_tpu_torch.decompress(blob64, _X3.shape, np.float64, device="cpu")
 
 
 def _msst19_meta():
@@ -277,7 +322,7 @@ def test_kernel_build_keeps_ieee_floats():
     assert "fast_math" not in flags and "fast-math" not in flags
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"lorenzo.cu", "hist.cu", "pack.cu",
-                                      "fsm.cu", "msst19.cu"}
+                                      "fsm.cu", "msst19.cu", "classic.cu"}
     assert {p.name for p in _build.headers()} == {"tiles.cuh",
                                                   "lookback.cuh"}
     for p in srcs + _build.headers():
@@ -299,7 +344,7 @@ def test_kernel_digest_follows_headers(tmp_path, monkeypatch):
     for p in _build.sources() + _build.headers():
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.suffix for p in _build.sources()] == [".cu"] * 5
+    assert [p.suffix for p in _build.sources()] == [".cu"] * 6
     before = _build.library_path()
     header = csrc / "tiles.cuh"
     header.write_text(header.read_text() + "\n// edited\n")

@@ -487,3 +487,94 @@ def test_tune_malloc_keeps_freed_buffers_mapped():
                          cwd=pathlib.Path(__file__).resolve().parents[1])
     first, *again = json.loads(out.stdout)
     assert first > 0 and max(again) <= first // 20, (first, again)
+
+
+@pytest.mark.parametrize("dtype,req_length", [(np.float32, 13),
+                                              (np.float32, 32),
+                                              (np.float64, 21),
+                                              (np.float64, 44),
+                                              (np.float64, 64)])
+def test_exact_stream_with_median_matches(dtype, req_length):
+    """The classic form of the escape stream (offset by the median), in
+    float32 and float64, batched twice, and its decode."""
+    rng = np.random.default_rng(req_length)
+    vals = (rng.standard_normal(4000) * 3).astype(dtype)
+    vals[::5] = vals[::5] * dtype(1.000001)
+    med = dtype(0.75)
+    a = tclassic.ExactEncoder(req_length, med, dtype)
+    b = jclassic.ExactEncoder(req_length, med, dtype)
+    ra = np.concatenate([a.add_batch(vals[:999]), a.add_batch(vals[999:])])
+    rb = np.concatenate([b.add_batch(vals[:999]), b.add_batch(vals[999:])])
+    u = np.uint32 if dtype is np.float32 else np.uint64
+    np.testing.assert_array_equal(ra.view(u), rb.view(u))
+    assert (a.lead_packed(), bytes(a.mid_bytes), a.resi_packed()) == \
+        (b.lead_packed(), bytes(b.mid_bytes), b.resi_packed())
+    t = ttdps.TDPS(data_type=tcfg.data_type(dtype), ds_length=0,
+                   intervals=0, median_value=float(med),
+                   req_length=req_length, real_precision=0.0,
+                   type_array=b"", lead_num=a.lead_packed(),
+                   exact_mid_bytes=bytes(a.mid_bytes),
+                   residual_mid_bits=a.resi_packed(),
+                   exact_data_num=a.exact_count())
+    got = tclassic.ExactDecoder(t, dtype, raw=False).next_batch(vals.size)
+    want = jclassic.ExactDecoder(t, dtype).next_batch(vals.size)
+    np.testing.assert_array_equal(got.view(u), want.view(u))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("rp", [1e-2, 1e-5])
+def test_classic1d_encode_and_decode_match(dtype, rp):
+    """host.c's 1-D recurrences against sz_tpu.native's, types and escape
+    stream, then the decode of those types."""
+    rng = np.random.default_rng(int(rp * 1e5))
+    x = np.cumsum(rng.standard_normal(30000) * 0.01).astype(dtype)
+    T = dtype
+    rpT = T(rp)
+    intervals, radius, rl = 1024, 512, 20 if dtype is np.float32 else 40
+    med = T(x.min() + (x.max() - x.min()) / 2)
+    got = tnative.classic1d_encode(x, rpT, intervals, radius, rl, med)
+    want = jnative.classic1d_encode(x, rpT, float(rpT), intervals, radius,
+                                    rl, med, False)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2] and got[4] == want[4]
+    np.testing.assert_array_equal(got[3], want[3])
+    resi = tnative.pack_w_bits(got[3], rl % 8) if rl % 8 else b""
+    i2 = T(rpT * T(2))
+    dec_t = tnative.classic1d_decode(got[0], i2, radius, rl, med, False,
+                                     got[1], got[2], resi, T)
+    dec_j = jnative.classic1d_decode(want[0], i2, radius, rl, med, False,
+                                     want[1], want[2], resi, T)
+    np.testing.assert_array_equal(dec_t, dec_j)
+
+
+def test_msst19_1d_encode_and_decode_match():
+    """host.c's 1-D MSST19 recurrences against sz_tpu.native's rank-1
+    forms, on signed data with replaced zeros."""
+    rng = np.random.default_rng(9)
+    x = (np.sin(np.linspace(0, 30, 20000)) * 5
+         + 0.01 * rng.standard_normal(20000)).astype(np.float32)
+    x[x == 0] = np.float32(1e-6)
+    ratio = 1e-3
+    iv = jpwr._optimize_intervals_msst19(x, ratio, 32768, 100,
+                                         np.float32(0.99))
+    assert tpwr._optimize_intervals_msst19(x, ratio, 32768, 100,
+                                           np.float32(0.99)) == iv
+    cache = tpwr._cache_table(iv, ratio, 3)
+    pt = tpwr._precision_table(iv, ratio, 3)
+    rl = 19
+    got = tnative.msst19_encode1d(x, cache.table, cache.base_index,
+                                  cache.top_index, cache.bits, pt, rl)
+    want = jnative.msst19_encode(x, cache.table, cache.base_index,
+                                 cache.top_index, cache.bits, pt, rl)
+    for g, w in zip(got, want):
+        if isinstance(g, np.ndarray):
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert g == w
+    resi = tnative.pack_w_bits(got[3], rl % 8)
+    dec_t = tnative.msst19_decode1d(got[0], pt, rl, got[1], got[2], resi)
+    dec_j = jnative.msst19_decode(want[0], (x.size,), pt, rl, want[1],
+                                  want[2], resi, np.float32)
+    np.testing.assert_array_equal(dec_t.view(np.uint32),
+                                  dec_j.view(np.uint32))
