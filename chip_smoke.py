@@ -39,6 +39,12 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      4-D fields (one launch a volume), float64 and random data that
      nearly always escapes, and timed with their launches a call at
      256^3 (float32 and float64), 1800x3600, 8x128x256x256 and 512^3;
+     K8d/K9d (MSST19 on float64 data) on K8/K9's shapes, the 1e-4 and
+     1e-5 tables, timed at 256^3, 1800x3600 and 512^3; K12/K13 (the
+     random-access codec's per-block scans) on fields whose edge blocks
+     are padded, fields of one block and less, fields with the mean
+     flush on, random data under 1e-6, timed at 256^3, 1800x3600, 2^24
+     (1-D) and 512^3 (the plain versions on the first 2^16 blocks);
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
      1e-3 (float32 and float64) and PW_REL 1e-3 streams and
      reconstructions hash to the SHA-256 of the host oracle's (sz_tpu,
@@ -53,8 +59,14 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      accelerate_pw_rel off, 1e-6) hash to the oracle's
      (tests/test_torch_smoke_oracle_classic.py) and hold their bound,
      the reference's classic, 1-D and pre-log goldens decode bit-equal
-     and synth_signed.dat compresses to sz_tpu's stream; the launch
-     counters of K1-K11 and K1d/K2d must all rise; run under torch.profiler: each kernel's device time summed
+     and synth_signed.dat compresses to sz_tpu's stream; PW_REL 1e-3 on
+     float64 data (signed 256^3 with zeros, 1800x3600) and the
+     random-access codec (ABS 1e-3 at 256^3, 1800x3600 and 2^24 in 1-D,
+     and decompress_region of a 64^3 corner) hash to the oracle's
+     (tests/test_torch_smoke_oracle_pwrel64.py,
+     tests/test_torch_smoke_oracle_ra.py) and hold their bounds; the
+     launch counters of K1-K13, K1d/K2d and K8d/K9d must all rise; run
+     under torch.profiler: each kernel's device time summed
      over the phase, and the device's idle share; then, under its own
      profile, the host<->device copies of a compress from a 256^3 tensor
      (no copy of the field up; down, besides the packed stream, under
@@ -71,7 +83,10 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      1800x3600 and 8x128x256x256 (without regression and with random
      access), the 1-D codec on 2^27 values, pre-log PW_REL 1e-3 on the
      signed 512^3 field and PW_REL 1e-6 on 1800x3600 float32 and 256^3
-     float64: the bound, MB/s, spans and launches; then K5-K7 timed
+     float64: the bound, MB/s, spans and launches; PW_REL 1e-3 on 512^3
+     float64 (|field64|, 1.07 GB) and the random-access codec on 512^3
+     float32 (and a 64^3 region of it): the bound, MB/s, spans and
+     launches; then K5-K7 timed
      against their plain versions on the type streams
      of 512^3 ABS, 512^3 PW_REL and 1800x3600 PW_REL (node count,
      longest code and codeword-table bits of each; K6 also at each tile
@@ -198,6 +213,55 @@ ORACLE_PWREL = {
         "81f7c4fac7853065db71e776501ec0ebb1af9a996fd5450289bf6fd14b33bca2",
         "fc1270fe9591bad2c4cfb40e1f28efa1ee5684ee21c78d362a25dce38ba9b1bf"),
 }
+
+
+def pwrel_field64(kind: str, shape, seed: int) -> np.ndarray:
+    """The float64 PW_REL inputs: ``field64`` signed, zero where ``field``
+    is (the sign bitmap and the zero flush), or its magnitude plus 2^-6
+    (positive, no zeros); exact in float64."""
+    x = field64(shape, seed)
+    if kind == "signed":
+        x[field(shape, seed) == 0] = 0.0
+        return x
+    return np.abs(x) + 2.0 ** -6
+
+
+# name -> (kind, shape, seed, SHA-256 of the oracle's stream, of its
+# decode), PW_REL 1e-3 on float64 data (MSST19: K8d / K9d)
+ORACLE_PWREL64 = {
+    "pwrel64_signed_256": (
+        "signed", (256, 256, 256), 42,
+        "80e3132663cb2947c18d0b91b9499b86d31879045dcfcef605cc377d1302b34f",
+        "2e53630ca59c8373bf3539de38d8a5ba27467b3c19b4fc2ca485158686291dc5"),
+    "pwrel64_cesm_atm_1800x3600": (
+        "abs", (1800, 3600), 6,
+        "fc3434c9be4da2655210a603fb456f01419c0e86a78e81cd83bed091808c387a",
+        "8603539a41bc870d051b38ef923e924950893cf4001e3cc40cbd47ea401f976f"),
+}
+
+
+# the random-access codec, ABS 1e-3 (K12 / K13): name -> (maker, shape,
+# seed, SHA-256 of the oracle's stream, of its decode); maker "field" or
+# "field_1d" (field over the shape, flattened)
+ORACLE_RA = {
+    "ra_256": (
+        "field", (256, 256, 256), 42,
+        "6147839aca2f7b68378d5c7d3a0f9824e81f784f8a0b16af4651922a879dc183",
+        "68e457d1800488b62776ddba6ca7772c070d2277a70cc828b215ab5ee900681e"),
+    "ra_cesm_atm_1800x3600": (
+        "field", (1800, 3600), 6,
+        "2cca1bd57e40c32e6e1ec1ec39232d3cb5503f026284be079345680bb9fadac0",
+        "2acc85dac06d6960b71b44f6580b0308e8ecda393d3cf35bad0fe40d29aa0999"),
+    "ra_1d_2^24": (
+        "field_1d", (256, 256, 256), 42,
+        "0fc98e2debafde0465af08b624476b0ffc068ba4defe16281719d133f815461b",
+        "966932bb7e41a1c68be858beb45a6fb3ef04fcb5c695540ce8f9f1b11c267d38"),
+}
+# decompress_region of ra_256's stream: (start, end, SHA-256 of the
+# region), the 64^3 corner (its far faces inside blocks)
+ORACLE_RA_REGION = (
+    (0, 0, 0), (64, 64, 64),
+    "d484457307f5e07dbfc51ff9c315e5f3a0b2f673bc5b2ef7bbcefc9accc5424f")
 
 
 # the classic, 1-D and pre-log main path: name -> (maker, shape, seed,
@@ -1062,42 +1126,45 @@ def phase_fsm_cases(dev) -> list:
 # --- phase 2: K8/K9 -------------------------------------------------------
 
 def msst19_inputs(x: np.ndarray, ratio: float, dev):
-    """A field's K8/K9 inputs as the PW_REL path makes them: zeros
-    replaced by nearZero * (1 + ratio)^-3.0001, the optimizer's interval
-    count, the two tables.  Returns (intervals, (work, table, pt, base,
-    top, bits, ign))."""
+    """A field's K8/K9 (float32) or K8d/K9d (float64) inputs as the
+    PW_REL path makes them: zeros replaced by nearZero *
+    (1 + ratio)^-3.0001, the optimizer's interval count, the two tables.
+    Returns (intervals, (work, table, pt, base, top, bits, ign))."""
     import torch
     from sz_tpu_torch.core import pwr
     from sz_tpu_torch.gpu import msst19_engine
+    T = x.dtype.type
     near = pwr.range_size_msst19(x)[5]
     work = x.copy()
-    work[work == 0] = np.float32(near * np.float32(
-        np.power(1.0 + ratio, -3.0001)))
+    work[work == 0] = T(near * T(np.power(1.0 + ratio, -3.0001)))
     iv = pwr._optimize_intervals_msst19(work, ratio, 32768, 100,
                                         np.float32(0.99))
     cache = pwr._cache_table(iv, ratio, 3)
-    rl = msst19_engine.req_length(ratio, x.ndim)
+    rl = msst19_engine.req_length(ratio, x.ndim, T)
     return iv, (torch.from_numpy(work).to(dev),
                 torch.from_numpy(cache.table.reshape(-1).view(np.int16)).to(
                     dev),
                 torch.from_numpy(pwr._precision_table(iv, ratio, 3)).to(dev),
                 cache.base_index, cache.top_index, cache.bits,
-                max(32 - rl, 0))
+                max(8 * x.itemsize - rl, 0))
 
 
-def msst19_ops(shape, escapes: int, decode: bool) -> tuple:
+def msst19_ops(shape, escapes: int, decode: bool, f64: bool = False) -> tuple:
     """(32-bit, 64-bit) operations of one K8/K9 call on this shape: the
     predictor's products and quotient by position (the C's shorter forms
     on the first plane, row and column; counted at every point, escapes
     too), the encode's ratio division, and one f64 product per point
-    that is not an escape."""
+    that is not an escape.  For float64 data (K8d/K9d) all of them are
+    64-bit."""
     n = int(np.prod(shape))
     ratio = 0 if decode else n - 1
     recon = n - escapes
     if len(shape) == 2:
         r2, r3 = shape
         pred = 2 * (r2 - 1) * (r3 - 1) + 2 * max(r3 - 2, 0)
-        return pred + ratio, recon
+        return (0, pred + ratio + recon) if f64 else (pred + ratio, recon)
+    if f64:
+        return (0, sum(msst19_ops(shape, escapes, decode)))
     r1, r2, r3 = shape
     pred = (6 * (r1 - 1) * (r2 - 1) * (r3 - 1)
             + 2 * ((r1 - 1) * (r3 - 1) + (r1 - 1) * (r2 - 1)
@@ -1116,8 +1183,12 @@ def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
     import torch
     from sz_tpu_torch.gpu import msst19_kernel as mk
     iv, args = msst19_inputs(x, ratio, dev)
+    f64 = x.dtype == np.float64
+    sfx = "_f64" if f64 else ""
     pre = "wavefront3d" if len(shape) == 3 else "lines2d"
-    enc, dec = getattr(mk, pre + "_encode"), getattr(mk, pre + "_decode")
+    enc = getattr(mk, pre + "_encode" + sfx)
+    dec = getattr(mk, pre + "_decode" + sfx)
+    # the plain versions take either dtype
     enc_p = getattr(mk, pre + "_encode_plain")
     dec_p = getattr(mk, pre + "_decode_plain")
     whole = int(np.prod(shape)) <= PLAIN_MAX_POINTS
@@ -1131,9 +1202,8 @@ def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
     e_err = max(max_abs_err(t_k[sub], t_p), max_abs_err(R_k[sub], R_p))
     plain_on = list(t_p.shape)
     del t_p, R_p
-    mask = mk._mask_i32(args[-1])
-    known = torch.where(t_k == 0, (args[0].view(torch.int32) & mask).view(
-        torch.float32), torch.zeros_like(args[0]))
+    known = torch.where(t_k == 0, mk._trunc_plain(args[0], args[-1]),
+                        torch.zeros_like(args[0]))
     pt = args[2]
     o_k = dec(t_k, known, pt)
     d_again = bit_equal(o_k, dec(t_k, known, pt))
@@ -1142,7 +1212,8 @@ def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
     d_err = max_abs_err(o_k[sub], o_p)
     del o_p
     escapes = int((t_k == 0).sum())
-    row = dict(case=name, shape=list(shape), ratio=ratio, intervals=iv,
+    row = dict(case=name, shape=list(shape), dtype=x.dtype.name,
+               ratio=ratio, intervals=iv,
                table_states=args[1].numel(), escapes=escapes,
                plain_on=plain_on, encode_bit_equal=e_err == 0.0,
                encode_repeat_bit_equal=e_again,
@@ -1151,13 +1222,14 @@ def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
     entries = {}
     if timed:
         runs = {  # each input read once, each output written once
-            pre + "_encode": (e_err, lambda: enc(*args), enc_plain_ms,
-                              bound(nbytes(args[0], args[1], pt, t_k, R_k),
-                                    *msst19_ops(shape, escapes, False))),
-            pre + "_decode": (d_err, lambda: dec(t_k, known, pt),
-                              dec_plain_ms,
-                              bound(nbytes(t_k, known, pt, o_k),
-                                    *msst19_ops(shape, escapes, True))),
+            pre + "_encode" + sfx: (
+                e_err, lambda: enc(*args), enc_plain_ms,
+                bound(nbytes(args[0], args[1], pt, t_k, R_k),
+                      *msst19_ops(shape, escapes, False, f64))),
+            pre + "_decode" + sfx: (
+                d_err, lambda: dec(t_k, known, pt), dec_plain_ms,
+                bound(nbytes(t_k, known, pt, o_k),
+                      *msst19_ops(shape, escapes, True, f64))),
         }
         for key, (err, kern, plain_ms, (b_ms, b_by)) in runs.items():
             ms = cuda_ms(kern, 3)
@@ -1218,6 +1290,189 @@ def phase_msst19_cases(dev) -> tuple:
             raise AssertionError(f"1e-5 gave {row['intervals']} states")
         rows.append(row)
         if name.startswith("main_path"):
+            entries.update(ent)
+        del x
+        torch.cuda.empty_cache()
+    return rows, entries
+
+
+def phase_msst19_f64_cases(dev) -> tuple:
+    """Phase 2, K8d/K9d (float64 data): the K8/K9 cases' degenerate,
+    ragged, sub-tile and single-row shapes and the signed field with
+    zeros, the 1e-4 and 1e-5 tables, and timed at the main path's shapes
+    (256^3, 1800x3600) and phase 4's 512^3.  Returns (rows, timed record
+    entries at the main path's shapes)."""
+    import torch
+    rows, entries = [], {}
+    cases = [
+        ("forced_parity", (9, 11, 13), "abs", 5, 1e-3),
+        ("forced_parity_signed", (14, 10, 12), "signed", 7, 1e-3),
+        ("degenerate", (4, 3, 3), "abs", 9, 1e-3),
+        ("forced_parity", (26, 31), "abs", 11, 1e-3),
+        ("forced_parity_signed", (18, 23), "signed", 13, 1e-3),
+        ("signed_with_zeros", (64, 64, 64), "signed", 3, 1e-3),
+        ("ragged", (9, 17, 70), "signed", 15, 1e-3),
+        ("sub_tile", (3, 5, 7), "signed", 17, 1e-3),
+        ("long_first_row", (2, 3, 4097), "abs", 18, 1e-3),
+        ("single_row_2d", (1, 5000), "abs", 19, 1e-3),
+        ("single_column_2d", (5000, 1), "abs", 20, 1e-3),
+        ("ragged_2d_small", (70, 130), "signed", 21, 1e-3),
+        ("table_1e-4", (64, 64, 64), "abs", 22, 1e-4),
+        ("ragged_2d_1e-4", (777, 1031), "abs", 4, 1e-4),
+        ("past_4096_states", (128, 128, 128), "abs", 5, 1e-5),
+        ("main_path_256", (256, 256, 256), "signed", 42, PW_REL),
+        ("main_path_cesm_atm", (1800, 3600), "abs", 6, PW_REL),
+        ("full_size_512", (512, 512, 512), "abs", 42, PW_REL),
+    ]
+    for name, shape, kind, seed, ratio in cases:
+        x = pwrel_field64(kind, shape, seed)
+        if name == "full_size_512":
+            x = np.abs(field64(shape, seed))   # phase 4's field
+        kid = "K8d" if len(shape) == 3 else "K9d"
+        row, ent = msst19_vs_plain(
+            name, kid, shape, x, ratio, dev,
+            timed=name.startswith(("main_path", "full_size")))
+        if name == "signed_with_zeros" and not (x == 0).any():
+            raise AssertionError("the signed case has no zeros")
+        if name == "past_4096_states" and row["intervals"] <= 4096:
+            raise AssertionError(f"1e-5 gave {row['intervals']} states")
+        rows.append(row)
+        if name.startswith("main_path"):
+            entries.update(ent)
+        del x
+        torch.cuda.empty_cache()
+    return rows, entries
+
+
+# --- phase 2: K12/K13 -----------------------------------------------------
+
+def ra_mean_field(shape, seed: int) -> np.ndarray:
+    """``field`` with 60 % of its points set to 0.25: the optimizer then
+    turns the random-access codec's mean flush on."""
+    x = field(shape, seed)
+    x[np.random.default_rng(seed).random(shape) < 0.6] = np.float32(0.25)
+    return x
+
+
+# blocks the plain K12/K13 run on past PLAIN_MAX_POINTS (the blocks are
+# independent: the first ones are a whole computation)
+RA_PLAIN_BLOCKS = 1 << 16
+
+
+def ra_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
+                intervals: int = 0) -> tuple:
+    """K12 and K13 against their plain versions on one float32 field's
+    blocks as the random-access path makes them (rablock.prepare; with
+    ``intervals`` fixed where the optimizer samples no point), each
+    called twice, bit-equal; the decode gets the escapes' values at their
+    cells and must hold the bound.  Above PLAIN_MAX_POINTS the plain
+    versions run on the first RA_PLAIN_BLOCKS blocks.  Timed: the
+    kernels' mean time, the plain version's one call, the bound."""
+    import torch
+    from sz_tpu_torch import SZConfig
+    from sz_tpu_torch.core import rablock
+    from sz_tpu_torch.gpu import ra_kernel as rk
+    p = rablock.prepare(x, rp, SZConfig(random_access=True,
+                                        quantization_intervals=intervals))
+    nb = p.blocks.shape[0]
+    b = torch.from_numpy(p.blocks.reshape(nb, -1)).to(dev)
+    lor = torch.from_numpy(p.indicator.astype(np.uint8)).to(dev)
+    qc = torch.from_numpy(p.qc_full).to(dev)
+    rank, radius = x.ndim, p.intervals // 2
+    enc_args = (rank, p.bs, rp, p.intervals, radius, p.use_mean, p.mean)
+    dec_args = (rank, p.bs, rp, radius, p.use_mean, p.mean)
+    whole = b.numel() <= PLAIN_MAX_POINTS
+    sub = slice(None) if whole else slice(0, RA_PLAIN_BLOCKS)
+    t_k = rk.ra_encode(b, lor, qc, *enc_args)
+    e_again = bit_equal(t_k, rk.ra_encode(b, lor, qc, *enc_args))
+    t_p, enc_plain_ms = cuda_once(lambda: rk.ra_encode_plain(
+        b[sub], lor[sub], qc[sub], *enc_args))
+    e_err = max_abs_err(t_k[sub], t_p)
+    del t_p
+    escv = torch.where(t_k == 0, b, torch.zeros_like(b))
+    o_k = rk.ra_decode(t_k, escv, lor, qc, *dec_args)
+    d_again = bit_equal(o_k, rk.ra_decode(t_k, escv, lor, qc, *dec_args))
+    o_p, dec_plain_ms = cuda_once(lambda: rk.ra_decode_plain(
+        t_k[sub], escv[sub], lor[sub], qc[sub], *dec_args))
+    d_err = max_abs_err(o_k[sub], o_p)
+    del o_p
+    err = float((o_k.double() - b.double()).abs().max())
+    escapes = int((t_k == 0).sum())
+    row = dict(case=name, shape=list(x.shape), bound=rp, blocks=nb,
+               intervals=p.intervals, use_mean=p.use_mean,
+               lorenzo_blocks=int(p.indicator.sum()), escapes=escapes,
+               plain_on_blocks=nb if whole else RA_PLAIN_BLOCKS,
+               encode_bit_equal=e_err == 0.0, encode_repeat_bit_equal=e_again,
+               decode_bit_equal=d_err == 0.0, decode_repeat_bit_equal=d_again,
+               max_abs_err=err, decode_holds_bound=err <= rp)
+    entries = {}
+    if timed:
+        cells = b.numel()
+        runs = {  # each input read once, each output written once
+            "ra_encode": (e_err, lambda: rk.ra_encode(b, lor, qc, *enc_args),
+                          enc_plain_ms,
+                          bound(nbytes(b, lor, qc, t_k), 8 * cells,
+                                4 * cells)),
+            "ra_decode": (d_err, lambda: rk.ra_decode(t_k, escv, lor, qc,
+                                                      *dec_args),
+                          dec_plain_ms,
+                          bound(nbytes(t_k, escv, lor, qc, o_k), 6 * cells,
+                                2 * cells)),
+        }
+        for key, (e, kern, plain_ms, (b_ms, b_by)) in runs.items():
+            ms = cuda_ms(kern, 3)
+            plain_ms = plain_ms if whole else None
+            row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
+            entries[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None, shape=list(x.shape))
+    _log("kernel K12/K13 random access vs plain", **row)
+    if not all(row[k] for k in (
+            "encode_bit_equal", "encode_repeat_bit_equal", "decode_bit_equal",
+            "decode_repeat_bit_equal", "decode_holds_bound")):
+        raise AssertionError(f"K12/K13 differ from their plain versions or "
+                             f"from themselves on {name}: {row}")
+    return row, entries
+
+
+def phase_ra_cases(dev) -> tuple:
+    """Phase 2, K12/K13: fields whose edge blocks are padded (every rank),
+    fields of one block and less (with a fixed interval count: their
+    optimizer samples no point), a field with the mean flush on, random
+    data under 1e-6 (most points escape), and timed at the main path's
+    shapes (256^3, 1800x3600, 2^24) and phase 4's 512^3.  Returns (rows,
+    the record entries at 256^3)."""
+    import torch
+    rng = np.random.default_rng(7)
+    cases = [
+        ("padded_edges_3d", lambda: field((13, 14, 20), 3), 1e-3, 0),
+        ("padded_edges_2d", lambda: field((40, 50), 4), 1e-3, 0),
+        ("padded_edges_1d", lambda: field((3000, 7), 5).reshape(-1), 1e-3, 0),
+        ("one_block_3d", lambda: field((5, 6, 4), 6), 1e-3, 1024),
+        ("one_block_2d", lambda: field((3, 20), 7)[:, :16], 1e-3, 1024),
+        ("under_one_block_1d", lambda: field((9, 11), 8).reshape(-1)[:70],
+         1e-3, 1024),
+        ("use_mean_3d", lambda: ra_mean_field((30, 31, 32), 9), 1e-3, 0),
+        ("use_mean_2d", lambda: ra_mean_field((100, 90), 10), 1e-3, 0),
+        ("random_1e-6", lambda: rng.standard_normal((64, 64, 64)).astype(
+            np.float32), 1e-6, 0),
+        ("main_path_256", lambda: field((256, 256, 256), 42), ABS, 0),
+        ("main_path_cesm_atm", lambda: field((1800, 3600), 6), ABS, 0),
+        ("main_path_1d_2^24", lambda: field((256, 256, 256), 42).reshape(-1),
+         ABS, 0),
+        ("full_size_512", lambda: field((512, 512, 512), 42), ABS, 0),
+    ]
+    rows, entries = [], {}
+    for name, make, rp, intervals in cases:
+        x = np.ascontiguousarray(make())
+        row, ent = ra_vs_plain(name, x, rp, dev, timed=name.startswith(
+            ("main_path", "full_size")), intervals=intervals)
+        if name.startswith("use_mean") and not row["use_mean"]:
+            raise AssertionError(f"{name}: the mean flush is off")
+        if name == "random_1e-6" and row["escapes"] < x.size // 2:
+            raise AssertionError(f"{name}: {row['escapes']} escapes")
+        rows.append(row)
+        if name == "main_path_256":
             entries.update(ent)
         del x
         torch.cuda.empty_cache()
@@ -1468,7 +1723,89 @@ def phase_main_path(dev, record: dict) -> None:
     main_path_f64(dev, rows)
     main_path_tensor_input(dev, rows)
     main_path_classic(dev, rows)
+    main_path_pwrel64(dev, rows)
+    main_path_ra(dev, rows)
     record["main_path"] = rows
+
+
+def main_path_pwrel64(dev, rows: list) -> None:
+    """Phase 3, MSST19 PW_REL 1e-3 on float64 data (K8d, K9d): the
+    ORACLE_PWREL64 fields' streams and decodes hash to the oracle's and
+    hold the point-wise bound."""
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+
+    cfg = SZConfig().with_bound(ErrorBoundMode.PW_REL, PW_REL)
+    for name, (kind, shape, seed, want_stream, want_recon) in \
+            ORACLE_PWREL64.items():
+        x = pwrel_field64(kind, shape, seed)
+        t0 = time.perf_counter()
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        t1 = time.perf_counter()
+        out = sz_tpu_torch.decompress(blob, x.shape, np.float64, device=dev)
+        t2 = time.perf_counter()
+        if sha256(blob) != want_stream:
+            raise AssertionError(f"{name}: stream differs from the oracle")
+        if out.dtype != np.float64 or sha256(out.tobytes()) != want_recon:
+            raise AssertionError(f"{name}: decode differs from the oracle")
+        row = dict(case=name, dtype="float64", shape=list(shape),
+                   bound="PW_REL 1e-3", stream_sha256_equal=True,
+                   decode_sha256_equal=True, ratio=x.nbytes / len(blob),
+                   zeros=int((x == 0).sum()), negatives=int((x < 0).sum()),
+                   max_rel_err=pointwise_err(x, out),
+                   port_compress_s=t1 - t0, port_decompress_s=t2 - t1)
+        _log("main path", **row)
+        rows.append(row)
+
+
+def main_path_ra(dev, rows: list) -> None:
+    """Phase 3, the random-access codec, ABS 1e-3 (K12, K13): the
+    ORACLE_RA fields' streams and decodes hash to the oracle's and hold
+    the bound; then decompress_region of ra_256's 64^3 corner hashes to
+    ORACLE_RA_REGION and equals the whole decode's corner."""
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+
+    cfg = SZConfig(random_access=True).with_bound(ErrorBoundMode.ABS, ABS)
+    streams = {}
+    for name, (maker, shape, seed, want_stream, want_recon) in \
+            ORACLE_RA.items():
+        x = classic_input(maker, shape, seed)
+        t0 = time.perf_counter()
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        t1 = time.perf_counter()
+        out = sz_tpu_torch.decompress(blob, x.shape, np.float32, device=dev)
+        t2 = time.perf_counter()
+        if sha256(blob) != want_stream:
+            raise AssertionError(f"{name}: stream differs from the oracle")
+        if sha256(out.tobytes()) != want_recon:
+            raise AssertionError(f"{name}: decode differs from the oracle")
+        err = float(np.abs(out.astype(np.float64) - x).max())
+        if err > ABS:
+            raise AssertionError(f"{name}: error {err} above the bound")
+        row = dict(case=name, shape=list(x.shape), bound="ABS 1e-3",
+                   random_access=True, stream_sha256_equal=True,
+                   decode_sha256_equal=True, ratio=x.nbytes / len(blob),
+                   max_abs_err=err, port_compress_s=t1 - t0,
+                   port_decompress_s=t2 - t1)
+        _log("main path", **row)
+        rows.append(row)
+        streams[name] = (blob, out)
+    start, end, want = ORACLE_RA_REGION
+    blob, whole = streams["ra_256"]
+    t0 = time.perf_counter()
+    reg = sz_tpu_torch.decompress_region(blob, whole.shape, start, end,
+                                         np.float32, device=dev)
+    dt = time.perf_counter() - t0
+    corner = whole[tuple(slice(a, b) for a, b in zip(start, end))]
+    if sha256(reg.tobytes()) != want or not np.array_equal(
+            reg.view(np.uint32), corner.view(np.uint32)):
+        raise AssertionError("ra_256's region decode differs")
+    row = dict(case="ra_256_region", start=list(start), end=list(end),
+               region_sha256_equal=True, equals_whole_decode=True,
+               port_decompress_region_s=dt)
+    _log("main path", **row)
+    rows.append(row)
 
 
 def classic_err(name: str, x: np.ndarray, out: np.ndarray, bound_: tuple,
@@ -1980,6 +2317,71 @@ def phase_full_size_pwrel(dev, record: dict, wrappers: dict) -> dict:
     return blobs, calls
 
 
+def phase_full_size_pwrel64_ra(dev, record: dict, wrappers: dict) -> None:
+    """MSST19 PW_REL 1e-3 on float64 data at 512^3 (|field64|, 1.07 GB;
+    K8d) and the random-access codec, ABS 1e-3, on 512^3 float32 (K12,
+    K13), then a decompress_region of a 64^3 block in its middle: the
+    bound, compress and decompress MB/s (warm, best of 3) with spans,
+    the ratio and the kernel launches of one compress and one
+    decompress."""
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+
+    cases = [
+        ("pwrel64_512", lambda: np.abs(field64((512, 512, 512), 42)),
+         SZConfig().with_bound(ErrorBoundMode.PW_REL, PW_REL)),
+        ("ra_512", lambda: field((512, 512, 512), 42),
+         SZConfig(random_access=True).with_bound(ErrorBoundMode.ABS, ABS)),
+    ]
+    rows = {}
+    for name, make, cfg in cases:
+        x = make()
+        mb = x.nbytes / 1e6
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        out = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=dev)
+        if cfg.random_access:
+            err = dict(max_abs_err=float(np.abs(out.astype(np.float64)
+                                                - x).max()))
+            if err["max_abs_err"] > ABS:
+                raise AssertionError(f"{name}: error above the bound")
+        else:
+            err = dict(max_rel_err=pointwise_err(x, out))
+        del out
+        tc, spans_c, _ = _best_of(
+            lambda: sz_tpu_torch.compress(x, cfg, device=dev), 3)
+        td, spans_d, counts_d = _best_of(
+            lambda: sz_tpu_torch.decompress(blob, x.shape, x.dtype,
+                                            device=dev), 3)
+        launches = {}
+        for what, fn in (("compress", lambda: sz_tpu_torch.compress(
+                x, cfg, device=dev)), ("decompress", lambda: (
+                    sz_tpu_torch.decompress(blob, x.shape, x.dtype,
+                                            device=dev)))):
+            for w in wrappers.values():
+                w.launches = 0
+            fn()
+            launches[what] = {k: w.launches for k, w in wrappers.items()
+                              if w.launches}
+        row = dict(shape=list(x.shape), dtype=x.dtype.name,
+                   config=dict(random_access=cfg.random_access,
+                               bound=cfg.error_bound_mode.name),
+                   ratio=x.nbytes / len(blob), **err, compress_MBps=mb / tc,
+                   decompress_MBps=mb / td, compress_s=tc, decompress_s=td,
+                   compress_spans_s=spans_c, decompress_spans_s=spans_d,
+                   decompress_counts=counts_d, launches=launches)
+        if cfg.random_access:
+            start, end = (224, 224, 224), (288, 288, 288)
+            tr, spans_r, _ = _best_of(
+                lambda: sz_tpu_torch.decompress_region(
+                    blob, x.shape, start, end, np.float32, device=dev), 3)
+            row.update(region=[list(start), list(end)], region_s=tr,
+                       region_spans_s=spans_r)
+        _log(f"full size {name}", **row)
+        rows[name] = row
+        del x, blob
+    record["full_pwrel64_ra"] = rows
+
+
 def phase_full_size_classic(dev, record: dict, wrappers: dict) -> None:
     """The classic codec (K10/K11), the 1-D codec and pre-log PW_REL at
     full size: the bound, compress and decompress MB/s (warm, best of 3)
@@ -2190,6 +2592,13 @@ DEVICE_NAMES = (
     ("classic_decode4d_kernel", "classic_decode"),
     ("classic_decode2d_f64_kernel", "classic_decode"),
     ("classic_decode3d_f64_kernel", "classic_decode"),
+    ("wavefront3d_encode_f64_kernel", "msst19_wavefront3d_encode_f64"),
+    ("wavefront3d_decode_f64_kernel", "msst19_wavefront3d_decode_f64"),
+    ("lines2d_encode_f64_kernel", "msst19_lines2d_encode_f64"),
+    ("lines2d_decode_f64_kernel", "msst19_lines2d_decode_f64"),
+    ("ra_encode1d_kernel", "ra_encode"), ("ra_encode2d_kernel", "ra_encode"),
+    ("ra_encode3d_kernel", "ra_encode"), ("ra_decode1d_kernel", "ra_decode"),
+    ("ra_decode2d_kernel", "ra_decode"), ("ra_decode3d_kernel", "ra_decode"),
     ("Memcpy", "memcpy"), ("Memset", "memset"),
 )
 
@@ -2265,6 +2674,21 @@ KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
                          "sz_tpu/tpu/classic_engine.py:95"),
     "classic_decode": ("K11", "sz_tpu_torch/csrc/classic.cu",
                        "sz_tpu/tpu/classic_engine.py:236"),
+    # MSST19 on float64 data has no Pallas form: K8d/K9d replace the XLA
+    # scans of the JAX engine
+    "msst19_wavefront3d_encode_f64": ("K8d", "sz_tpu_torch/csrc/msst19.cu",
+                                      "sz_tpu/tpu/msst19_engine.py:553"),
+    "msst19_wavefront3d_decode_f64": ("K8d", "sz_tpu_torch/csrc/msst19.cu",
+                                      "sz_tpu/tpu/msst19_engine.py:675"),
+    "msst19_lines2d_encode_f64": ("K9d", "sz_tpu_torch/csrc/msst19.cu",
+                                  "sz_tpu/tpu/msst19_engine.py:489"),
+    "msst19_lines2d_decode_f64": ("K9d", "sz_tpu_torch/csrc/msst19.cu",
+                                  "sz_tpu/tpu/msst19_engine.py:630"),
+    # the random-access codec's per-block scans (XLA in the JAX package)
+    "ra_encode": ("K12", "sz_tpu_torch/csrc/ra.cu",
+                  "sz_tpu/tpu/ra_engine.py:86"),
+    "ra_decode": ("K13", "sz_tpu_torch/csrc/ra.cu",
+                  "sz_tpu/tpu/ra_engine.py:218"),
 }
 
 
@@ -2295,7 +2719,7 @@ def main() -> int:
     from sz_tpu_torch import native
     from sz_tpu_torch.gpu import (_build, classic_kernel, fsm_kernel,
                                   hist_kernel, lorenzo_kernel, msst19_kernel,
-                                  pack_kernel)
+                                  pack_kernel, ra_kernel)
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     t0 = time.perf_counter()
@@ -2332,6 +2756,11 @@ def main() -> int:
     entries.update(msst19_entries)
     record["classic_cases"], classic_entries = phase_classic_cases(dev)
     entries.update(classic_entries)
+    record["msst19_f64_cases"], msst19_f64_entries = \
+        phase_msst19_f64_cases(dev)
+    entries.update(msst19_f64_entries)
+    record["ra_cases"], ra_entries = phase_ra_cases(dev)
+    entries.update(ra_entries)
 
     # phase 3: the main path; the launch counters cover exactly this run
     wrappers = {"wavefront_quantize": lorenzo_kernel.wavefront_quantize,
@@ -2349,7 +2778,15 @@ def main() -> int:
                 "msst19_lines2d_encode": msst19_kernel.lines2d_encode,
                 "msst19_lines2d_decode": msst19_kernel.lines2d_decode,
                 "classic_quantize": classic_kernel.classic_quantize,
-                "classic_decode": classic_kernel.classic_decode}
+                "classic_decode": classic_kernel.classic_decode,
+                "msst19_wavefront3d_encode_f64":
+                    msst19_kernel.wavefront3d_encode_f64,
+                "msst19_wavefront3d_decode_f64":
+                    msst19_kernel.wavefront3d_decode_f64,
+                "msst19_lines2d_encode_f64": msst19_kernel.lines2d_encode_f64,
+                "msst19_lines2d_decode_f64": msst19_kernel.lines2d_decode_f64,
+                "ra_encode": ra_kernel.ra_encode,
+                "ra_decode": ra_kernel.ra_decode}
     for w in wrappers.values():
         w.launches = 0
     prof = profiled(lambda: phase_main_path(dev, record))
@@ -2369,6 +2806,7 @@ def main() -> int:
     streams, pw_calls = phase_full_size_pwrel(dev, record, wrappers)
     phase_full_size_f64(dev, record, wrappers)
     phase_full_size_classic(dev, record, wrappers)
+    phase_full_size_pwrel64_ra(dev, record, wrappers)
     streams = {"512^3 ABS": (blob, (512, 512, 512)), **streams}
     calls = {"512^3 ABS": calls, **pw_calls}
     del blob, pw_calls

@@ -8,15 +8,19 @@ and runs the device stages in torch, with the TPU's Pallas kernels
 replaced by CUDA C++ kernels for ``sm_90a`` (``csrc``, built with
 ``nvcc`` at first use).  It never imports ``jax``.
 
-Public API (the ported slice: float32 and float64 of rank 2-4 through the
-regression codec, float32 through MSST19 PW_REL; ``data`` a numpy array
-or a torch tensor, which stays on the card when it lies there); both run
-on the card unless the caller passes ``device="cpu"``:
+Public API (float32 and float64 fields of rank 1-4 through the
+regression, classic, random-access, MSST19 and pre-log codecs; integer
+data is not ported yet; ``data`` a numpy array or a torch tensor, which
+stays on the card when it lies there on the regression codec's route);
+each runs on the card unless the caller passes ``device="cpu"``:
     compress(data, cfg, device="cuda") -> bytes
     decompress(blob, shape, dtype, device="cuda", as_tensor=False)
+    decompress_region(blob, shape, start, end, dtype, device="cuda",
+                      as_tensor=False)
 """
 
-from sz_tpu_torch.api import compress, decompress
+from sz_tpu_torch.api import compress, decompress, decompress_region
 from sz_tpu_torch.config import ErrorBoundMode, SZConfig
 
-__all__ = ["compress", "decompress", "SZConfig", "ErrorBoundMode"]
+__all__ = ["compress", "decompress", "decompress_region", "SZConfig",
+           "ErrorBoundMode"]

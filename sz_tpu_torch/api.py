@@ -1,12 +1,16 @@
-"""``compress`` / ``decompress`` of the PyTorch port, for the slice it
-covers: float32 and float64 fields of rank 1 to 4 under any error bound
-that resolves to an absolute one (ABS, REL, ABS_AND_REL, ABS_OR_REL,
-PSNR, NORM) through the SZ2.1 blocked-regression codec (ranks 2-4, rank
-4 folded to 3) or the classic SZ1.4 codec (rank 1, regression off, and
-rank 4 with random access); and under any point-wise relative bound
-(PW_REL and the modes above it) through the MSST19 codec (float32, when
-it is accelerated: ``accelerate_pw_rel`` and a ratio of at least 1e-5,
-the reference's default route) or the pre-log codec (the rest).
+"""``compress`` / ``decompress`` / ``decompress_region`` of the PyTorch
+port, for the slice it covers: float32 and float64 fields of rank 1 to 4
+under any error bound that resolves to an absolute one (ABS, REL,
+ABS_AND_REL, ABS_OR_REL, PSNR, NORM) through the SZ2.1
+blocked-regression codec (ranks 2-4, rank 4 folded to 3), the
+random-access block codec (float32 with ``random_access``, ranks 1-3) or
+the classic SZ1.4 codec (rank 1, regression off, rank 4 with random
+access, and float64 with random access); and under any point-wise
+relative bound (PW_REL and the modes above it) through the MSST19 codec
+(both dtypes, when it is accelerated: ``accelerate_pw_rel`` and a ratio
+of at least 1e-5, the reference's default route) or the pre-log codec
+(the rest).  ``decompress_region`` decodes a region of a random-access
+stream from the blocks that cover it.
 
 ``compress`` also takes a torch tensor.  One on the compute device (a
 field a simulation holds on the card) is compressed where it lies, as
@@ -14,8 +18,9 @@ field a simulation holds on the card) is compressed where it lies, as
 range scan, the optimizer's gathers and every lattice-sized stage run on
 the device, and the field crosses to the host only where the format
 needs it whole (the verbatim StoreOri fallback, a PW_REL bound, whose
-scans run on the host, or the classic codec, whose optimizer and 1-D
-recurrence run there).  A tensor elsewhere is taken as a host array.
+scans run on the host, the classic codec, whose optimizer and 1-D
+recurrence run there, or the random-access codec, whose blocks are cut
+there).  A tensor elsewhere is taken as a host array.
 
 The stream framing (range scan, bound resolution, header, constant and
 verbatim fallbacks, lossless wrap, decode clamp) is ``framing.py``, the
@@ -34,7 +39,7 @@ from sz_tpu_torch import framing, native
 from sz_tpu_torch.config import (DEFAULT_CONFIG, MIN_NUM_OF_ELEMENTS,
                                  DataType, SZConfig, data_type, float_type,
                                  np_dtype)
-from sz_tpu_torch.core import classic, pwr
+from sz_tpu_torch.core import classic, pwr, rablock
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
 from sz_tpu_torch.format import tdps as tdps_mod
@@ -42,26 +47,21 @@ from sz_tpu_torch.gpu import device as devmod
 from sz_tpu_torch.gpu import classic_engine, engine, msst19_engine
 
 
-def _check_slice(dtype, ndim: int, cfg: SZConfig = None) -> None:
+def _check_slice(dtype) -> None:
     dt = np_dtype(dtype)
     if dt.kind in "iu":
         raise NotImplementedError(
             "integer data is not ported yet (ROADMAP 1.10)")
     if dt not in (np.float32, np.float64):
         raise TypeError(f"unsupported dtype {dt}")
-    if cfg is None:
-        return
-    if cfg.error_bound_mode.is_pw_rel:
-        if framing.accelerated_pw_rel(cfg) and dt == np.float64:
-            raise NotImplementedError(
-                "MSST19 PW_REL on float64 data is not ported yet "
-                "(ROADMAP 1.3)")
-        return
-    if cfg.random_access and ndim < 4:
-        # rank 4 ignores the flag (the classic codec on the folded
-        # lattice, below)
-        raise NotImplementedError(
-            "random-access streams are not ported yet (ROADMAP 1.6)")
+
+def _ra_route(cfg: SZConfig, dtype, ndim: int) -> bool:
+    """The random-access block codec takes float32 fields of rank 1-3
+    (sz_tpu/api.py:332); rank 4 ignores the flag (the classic codec on
+    the folded lattice) and float64 has no random-access codec (the
+    classic codec), as in the reference (sz_float.c:3010, sz_double.c)."""
+    return (cfg.random_access and not cfg.error_bound_mode.is_pw_rel
+            and np_dtype(dtype) == np.float32 and ndim <= 3)
 
 
 def _regression_route(cfg: SZConfig, ndim: int) -> bool:
@@ -85,7 +85,7 @@ def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
     on_dev = torch.is_tensor(data) and data.device == dev
     data = data.detach() if on_dev else framing._host(data)
     dims = framing._filter_dims(data.shape)
-    _check_slice(data.dtype, len(dims), cfg)
+    _check_slice(data.dtype)
     n = int(np.prod(dims))
     if n <= MIN_NUM_OF_ELEMENTS:
         # SZ_skip_compress_float: raw bytes
@@ -105,6 +105,7 @@ def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
     if value_range <= rp:
         return framing._constant_stream(hdr_cfg, dt, fmin, fmax,
                                         framing._host(flat[:1])[0], n)
+    ra = _ra_route(cfg, data.dtype, data.ndim)   # before the 4-D fold
     if data.ndim == 4 and (cfg.error_bound_mode.is_pw_rel
                            or cfg.with_regression):
         # fold 4-D to 3-D (sz_float.c:2989-2997, :3010); the classic
@@ -127,6 +128,10 @@ def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
                                        fmax, **kw)
         return framing._frame_pwrel_stream(cfg, hdr_cfg, dt, fmin, fmax,
                                            flat, n, tdps)
+    if ra:
+        res = rablock.compress_ra(data, rp, cfg, device=dev)
+        return framing._frame_ra_stream(cfg, hdr_cfg, dt, fmin, fmax, n,
+                                        res.body)
     if not _regression_route(cfg, data.ndim):
         # classic SZ1.4 (sz_float.c:353/610/946/1479)
         median = T(fmin + value_range / T(2))
@@ -159,7 +164,7 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
     dev = devmod.resolve(device)
     native.tune_malloc()
     dims = framing._filter_dims(shape)
-    _check_slice(dtype, len(dims))
+    _check_slice(dtype)
     n = int(np.prod(dims))
     T = np_dtype(dtype).type
 
@@ -189,10 +194,12 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
     if hdr.same:
         v = np.frombuffer(inner, dtype=f">f{esize}", count=1, offset=off)[0]
         return finish(framing._protect_clamp(np.full(n, v, dtype=T), hdr, T))
-    if hdr.regression and hdr.random_access:
-        raise NotImplementedError(
-            "random-access streams are not ported yet (ROADMAP 1.6)")
     body = memoryview(inner)[off:]
+    if hdr.regression and hdr.random_access:
+        # the reference's random-access entry has no decode clamp
+        return finish(rablock.decompress_ra(body, dims,
+                                            size_type=hdr.size_type,
+                                            device=dev, as_tensor=as_tensor))
     dims3 = (dims[0] * dims[1], dims[2], dims[3]) if len(dims) == 4 else dims
     if hdr.regression and len(dims) > 1:
         out = engine.decompress(body, dims3, T, size_type=hdr.size_type,
@@ -204,11 +211,7 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
                                 msst19=hdr.pw_rel and hdr.msst19,
                                 size_type=hdr.size_type)
         if hdr.pw_rel and hdr.msst19:
-            if T is np.float64:
-                raise NotImplementedError(
-                    "MSST19 PW_REL streams of float64 data are not ported "
-                    "yet (ROADMAP 1.3)")
-            out = msst19_engine.decompress(t, dims3, device=dev,
+            out = msst19_engine.decompress(t, dims3, T, device=dev,
                                            as_tensor=as_tensor)
         elif hdr.pw_rel:
             out = pwr.decompress_prelog(t, dims3, T, device=dev)
@@ -220,3 +223,34 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
     if torch.is_tensor(out):
         return finish(_clamp_tensor(out, hdr))
     return finish(framing._protect_clamp(out, hdr, T))
+
+
+def decompress_region(blob: bytes, shape, start, end, dtype=np.float32, *,
+                      device="cuda", as_tensor: bool = False):
+    """Decode the region [start, end) (end exclusive, in the field's
+    dimensions after size-1 ones are dropped) of a random-access stream
+    from the blocks that cover it alone (SZ_decompress_args_randomaccess,
+    szd_float.c:7597), bit-equal to ``sz_tpu.decompress_region``.  Raises
+    ValueError for any other stream, as the reference does
+    (szd_float.c:7681)."""
+    dev = devmod.resolve(device)
+    native.tune_malloc()
+    dims = framing._filter_dims(shape)
+    _check_slice(dtype)
+    n = int(np.prod(dims))
+    dt = data_type(dtype)
+    mlen = md.meta_length(dt)
+    if len(blob) not in (8 + 4 + mlen, 8 + 8 + mlen):
+        inner = ll.decompress(
+            blob, expected_size=n * np_dtype(dtype).itemsize + 4 + mlen + 8)
+    else:
+        inner = blob
+    hdr = md.parse_header(inner, dt)
+    if not (hdr.regression and hdr.random_access):
+        raise ValueError(
+            "region decode requires a random-access stream "
+            "(compress with SZConfig(random_access=True))")
+    off = hdr.body_offset + hdr.size_type
+    return rablock.decompress_ra(memoryview(inner)[off:], dims, start, end,
+                                 size_type=hdr.size_type, device=dev,
+                                 as_tensor=as_tensor)

@@ -1,8 +1,9 @@
-"""Quantization-interval optimizer (the port's copy of the 2-D/3-D part
-of ``sz_tpu.core.optimizer``).
+"""Quantization-interval optimizer (the port's copy of
+``sz_tpu.core.optimizer``).
 
-Replicates optimize_intervals_float_{2D,3D}_with_freq_and_dense_pos
-(sz_float.c:6396/5405): strided sampling walks whose index sequences are
+Replicates optimize_intervals_float_{1D,2D,3D}_with_freq_and_dense_pos
+(sz_float.c:5307/6396/5405; the 1-D form serves the random-access
+codec): strided sampling walks whose index sequences are
 pure integer arithmetic (independent of the data), a histogram of
 Lorenzo prediction errors in units of 2*eb, and a value-frequency
 histogram that locates the densest value ("dense_pos") for the
@@ -240,6 +241,19 @@ def optimize_intervals_3d_freq_dense(flat, r1, r2, r3, real_precision,
     pred = pred + d[sidx - r3 - r23 - 1]
     return _finish(cur, pred, mean, float(real_precision), len(sidx),
                    max_range_radius, pred_threshold, T)
+
+
+def optimize_intervals_1d_freq_dense(flat, r1, real_precision,
+                                     max_range_radius, sample_distance,
+                                     pred_threshold, T=np.float32):
+    """optimize_intervals_float_1D_with_freq_and_dense_pos
+    (sz_float.c:5307): mean walk stride floor(sqrt(len)), sample walk
+    stride sample_distance from index 1, previous-value predictor."""
+    midx = np.arange(0, r1, max(int(np.sqrt(r1)), 1), dtype=np.int64)
+    sidx = np.arange(1, r1, sample_distance, dtype=np.int64)
+    return _finish(flat[sidx], flat[sidx - 1], _walk_mean(flat[midx], T),
+                   float(real_precision), len(sidx), max_range_radius,
+                   pred_threshold, T)
 
 
 def optimize_intervals_2d_freq_dense(flat, r1, r2, real_precision,

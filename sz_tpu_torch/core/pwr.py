@@ -39,12 +39,12 @@ from sz_tpu_torch.gpu import classic_engine
 
 def range_size_msst19(data: np.ndarray):
     """(min, value_range, median, signs u8[n], positive, nearZero) of a
-    float32 field.
+    float32 or float64 field, in its dtype.
 
     Literal semantics: signs/positive consider only i>=1 (the reference
     loop starts at 1), nearZero starts at data[0] and updates on strictly
     smaller nonzero magnitudes."""
-    T = np.float32
+    T = data.dtype.type
     fmin, fmax, near, signs, positive = native.range_scan(data.reshape(-1))
     vrange = T(fmax - fmin)
     median = T(fmin + vrange / T(2))
@@ -336,8 +336,8 @@ def compress_pwrel(data: np.ndarray, pw_ratio: float, *, range_info,
     fmax, near_zero, **kw)`` -> TDPS, the device engine), then
     ``min_log_value`` and, for a field with negative values, the
     zstd-3 sign bitmap.  ``range_info`` is the
-    :func:`range_size_msst19` tuple."""
-    T = np.float32
+    :func:`range_size_msst19` tuple; float32 or float64 data."""
+    T = np.float32 if data.dtype == np.float32 else np.float64
     fmin, vrange, _median, signs, positive, near_zero = range_info
     fmax = T(fmin + vrange)
     # multiplier is a float variable assigned from double pow()

@@ -9,6 +9,11 @@ A field may be a torch tensor on the compute device: its range is then
 scanned there (min and max do not depend on order, so the result is
 exact), and it is downloaded only where a fallback needs its values (the
 constant stream's first value, the StoreOri verbatim copy).
+
+The 1-D integer streams that the random-access body nests are framed
+here too (``_compress_int`` / ``_decompress_int``, SZ_compress_args_int32
+sz_int32.c:1193 and its decoder); the public entry points still refuse
+integer data (ROADMAP 1.10).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 
 from sz_tpu_torch.config import DataType, ErrorBoundMode, SZConfig, SZMode
-from sz_tpu_torch.core import pwr
+from sz_tpu_torch.core import intc, pwr
 from sz_tpu_torch.format import bytes_util as bu
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
@@ -168,6 +173,18 @@ def _frame_classic_stream(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
                    + tdps_mod.to_bytes(tdps, cfg.size_type))
 
 
+def _frame_ra_stream(cfg, hdr_cfg, dt, fmin, fmax, n, body) -> bytes:
+    """Header (the regression and random-access flags), element count and
+    a random-access body, and the lossless wrap; the reference's RA path
+    has no StoreOriData fallback (sz_float.c:2913-2985)."""
+    out = (md.make_header(hdr_cfg, dt, fmin, fmax, regression=True,
+                          random_access=True)
+           + bu.size_be(n, cfg.size_type) + body)
+    if cfg.sz_mode == SZMode.BEST_SPEED:
+        return out
+    return ll.compress(out, cfg.lossless, cfg.lossless_level)
+
+
 def _finish(cfg, hdr_cfg, dt, fmin, fmax, flat, n, body) -> bytes:
     """The StoreOriData fallback and the lossless wrap of a framed
     body."""
@@ -206,3 +223,52 @@ def _protect_clamp(out, hdr, T):
         return out
     mn, mx = T(hdr.params.fmin), T(hdr.params.fmax)
     return np.where(out < mn, mn, np.where(out > mx, mx, out))
+
+
+def _compress_int(data: np.ndarray, cfg: SZConfig, device) -> bytes:
+    """sz_tpu.compress of a 1-D integer array: SZ_compress_args_int32
+    (sz_int32.c:1193) and its twins; the constant stream, the integer
+    codec, the StoreOriData fallback and the lossless wrap."""
+    data = np.ascontiguousarray(data).reshape(_filter_dims(data.shape))
+    spec = intc.SPECS[data.dtype]
+    mn, vrange = intc.range_size_int(data.reshape(-1))
+    if cfg.error_bound_mode == ErrorBoundMode.PSNR:
+        pt = float(np.float32(cfg.pred_threshold))
+        rp = vrange * (10.0 ** ((cfg.psnr + 10 * math.log10(
+            1 - 2.0 / 3.0 * pt)) / -20.0))
+    else:
+        rp, _ = _resolve_precision(cfg, float(vrange), data.size)
+    hdr_cfg = dataclasses.replace(cfg, abs_err_bound=rp)
+    params = md.serialize_params(hdr_cfg, spec.dt, 0.0, 0.0)
+    if vrange == 0:
+        body = intc.same_int(data, params, int(cfg.sz_mode), cfg.size_type)
+    else:
+        t = intc.compress_int(
+            data, rp, max_range_radius=cfg.max_range_radius,
+            sample_distance=cfg.sample_distance,
+            pred_threshold=np.float32(cfg.pred_threshold),
+            opt_quant_mode=1 if cfg.quantization_intervals == 0 else 0,
+            fixed_intervals=cfg.quantization_intervals, device=device)
+        body = intc.itdps_to_bytes(t, data.dtype, params, int(cfg.sz_mode),
+                                   cfg.size_type)
+        if len(body) > data.size * spec.esize:
+            body = intc.store_ori_int(data, params, cfg.size_type)
+    if cfg.sz_mode == SZMode.BEST_SPEED:
+        return body
+    return ll.compress(body, cfg.lossless, cfg.lossless_level)
+
+
+def _decompress_int(blob: bytes, n: int, dtype, device) -> np.ndarray:
+    """sz_tpu.decompress of a 1-D integer stream of ``n`` values."""
+    dtype = np.dtype(dtype)
+    inner = ll.decompress(blob, expected_size=n * dtype.itemsize * 2 + 128)
+    flag = inner[3]
+    off = 4 + md.meta_length(DataType.FLOAT) + (8 if flag & 0x40 else 4)
+    be = dtype.newbyteorder(">")
+    if flag & 0x10:   # StoreOriData, verbatim (sz_uint16.c:320)
+        return np.frombuffer(inner, be, count=n, offset=off).astype(dtype)
+    if flag & 0x01:   # allSameData (TightDataPointStorageI.c:356)
+        v = np.frombuffer(inner, be, count=1, offset=off)[0]
+        return np.full(n, v, dtype=dtype)
+    t = intc.itdps_from_bytes(inner, md.meta_length(DataType.FLOAT))
+    return intc.decompress_int(t, n, dtype, device=device)

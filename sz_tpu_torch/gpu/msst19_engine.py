@@ -14,8 +14,11 @@ szd_float_pwr.c:1425), all on the device.
 
 The chain is native IEEE f64 on the card, so every table runs there:
 the TPU engine's envelope (4096 boundary states), its host bail-out past
-it and its decode-verify fallback have no counterpart.  Span names
-follow the JAX engine; each device span ends with a synchronize.
+it and its decode-verify fallback have no counterpart.  Float64 data
+runs the same stages through the double forms of the recurrence (K8d,
+K9d; the 1-D recurrence in ``host.c``), which the JAX package runs as
+XLA scans on its CPU backend.  Span names follow the JAX engine; each
+device span ends with a synchronize.
 """
 
 from __future__ import annotations
@@ -35,13 +38,23 @@ from sz_tpu_torch.gpu import msst19_kernel
 from sz_tpu_torch.utils import trace as _tr
 
 
-def req_length(ratio: float, rank: int) -> int:
+def req_length(ratio: float, rank: int, dtype=np.float32) -> int:
     """The escapes' kept bits: computeReqLength_float_MSST19 (9 - expo)
-    for ranks 1 and 3, but the float 2-D kernel calls the double variant
-    (12 - expo; sz_float.c quirk, kept)."""
-    if rank != 2:
+    for float data of ranks 1 and 3, but the float 2-D kernel calls the
+    double variant (12 - expo; sz_float.c quirk, kept), as does every
+    rank of double data."""
+    if rank != 2 and np.dtype(dtype) == np.float32:
         return 9 - classic.get_exponent(np.float32(ratio), np.float32)
     return 12 - classic.get_exponent(np.float64(ratio), np.float64)
+
+
+# the recurrence's wrappers by (rank, data type): K8/K9 and their
+# float64 forms K8d/K9d
+_ENCODE = {(3, np.float32): "wavefront3d_encode",
+           (2, np.float32): "lines2d_encode",
+           (3, np.float64): "wavefront3d_encode_f64",
+           (2, np.float64): "lines2d_encode_f64"}
+_DECODE = {k: v.replace("encode", "decode") for k, v in _ENCODE.items()}
 
 
 def compress(work: np.ndarray, pw_ratio: float, fmax, near_zero, *,
@@ -49,13 +62,13 @@ def compress(work: np.ndarray, pw_ratio: float, fmax, near_zero, *,
              pred_threshold: float, plus_bits: int = 3,
              opt_quant_mode: int = 1, fixed_intervals: int = 0,
              device) -> TDPS:
-    """Port of ``sz_tpu.tpu.msst19_engine.compress`` for a float32 field
-    of rank 1-3 whose zeros the caller has replaced; the TDPS is
-    byte-equal to ``sz_tpu.core.pwr.compress_msst19``'s.  Rank 1 runs the
-    serial recurrence on the host (``host.c``, as in the JAX package),
-    its type stream through K3/K4 as the others'."""
+    """Port of ``sz_tpu.tpu.msst19_engine.compress`` for a float32 or
+    float64 field of rank 1-3 whose zeros the caller has replaced; the
+    TDPS is byte-equal to ``sz_tpu.core.pwr.compress_msst19``'s.  Rank 1
+    runs the serial recurrence on the host (``host.c``, as in the JAX
+    package), its type stream through K3/K4 as the others'."""
     dev = devmod.resolve(device)
-    T = np.float32
+    T = np.float64 if work.dtype == np.float64 else np.float32
     work = np.ascontiguousarray(work, dtype=T)
     rank = work.ndim
     if rank not in (1, 2, 3):
@@ -71,8 +84,8 @@ def compress(work: np.ndarray, pw_ratio: float, fmax, near_zero, *,
     ptable = pwr._precision_table(intervals, ratio, plus_bits)
     cache = pwr._cache_table(int(intervals), ratio, int(plus_bits))
     median = T(np.sqrt(np.float64(abs(T(near_zero * fmax)))))
-    rl = req_length(ratio, rank)
-    enc = classic.ExactEncoder(rl)
+    rl = req_length(ratio, rank, T)
+    enc = classic.ExactEncoder(rl, None, T)
     if rank == 1:
         with _tr.trace("quantize"):
             types, lead, mid, resi, _ = native.msst19_encode1d(
@@ -87,10 +100,10 @@ def compress(work: np.ndarray, pw_ratio: float, fmax, near_zero, *,
             pt = torch.from_numpy(ptable).to(dev)
             devmod.sync(dev)
         with _tr.trace("quantize"):
-            encode = (msst19_kernel.wavefront3d_encode if rank == 3
-                      else msst19_kernel.lines2d_encode)
+            encode = getattr(msst19_kernel, _ENCODE[rank, T])
             types, _rec = encode(x, tab, pt, cache.base_index,
-                                 cache.top_index, cache.bits, max(32 - rl, 0))
+                                 cache.top_index, cache.bits,
+                                 max(8 * np.dtype(T).itemsize - rl, 0))
             del _rec
             types = types.reshape(-1)
             devmod.sync(dev)
@@ -99,7 +112,8 @@ def compress(work: np.ndarray, pw_ratio: float, fmax, near_zero, *,
         del x
     type_array, max_len = classic.encode_types(types, intervals, dev)
     return TDPS(
-        data_type=DataType.FLOAT, ds_length=work.size, intervals=intervals,
+        data_type=DataType.FLOAT if T is np.float32 else DataType.DOUBLE,
+        ds_length=work.size, intervals=intervals,
         median_value=float(median), req_length=rl, real_precision=ratio,
         type_array=type_array, lead_num=enc.lead_packed(),
         exact_mid_bytes=bytes(enc.mid_bytes),
@@ -113,24 +127,30 @@ def restore(out: torch.Tensor, thr, signs) -> torch.Tensor:
     """decompress_pwrel's MSST19 epilogue (szd_float_pwr.c:1425): values
     below ``thr`` (min_log_value) flush to zero (only non-negative ones
     when there is a sign bitmap), then the bitmap's sign bits are set on
-    the rest.  ``signs``: uint8 tensor, or None."""
-    thr = torch.tensor(np.float32(thr), device=out.device)
+    the rest.  ``signs``: uint8 tensor, or None.  ``out``: float32 or
+    float64 (the threshold in its type, the sign bit 31 or 63)."""
+    f64 = out.dtype == torch.float64
+    thr = torch.tensor((np.float64 if f64 else np.float32)(thr),
+                       device=out.device)
     if signs is None:
         return torch.where(out < thr, torch.zeros_like(out), out)
     zero = (out < thr) & (out >= 0)
     out = torch.where(zero, torch.zeros_like(out), out)
-    u = out.view(torch.int32)
+    bits, width = (torch.int64, 64) if f64 else (torch.int32, 32)
+    u = out.view(bits)
     flip = (signs != 0) & ~zero
-    return torch.where(flip, u | -2 ** 31, u).view(torch.float32)
+    return torch.where(flip, u | -2 ** (width - 1), u).view(out.dtype)
 
 
-def decompress(tdps: TDPS, shape, *, device, as_tensor: bool = False):
+def decompress(tdps: TDPS, shape, dtype=np.float32, *, device,
+               as_tensor: bool = False):
     """Port of ``sz_tpu.tpu.msst19_engine.decompress``: the MSST19 decode
-    with the sign and zero restore, bit-equal to
-    ``sz_tpu.core.pwr.decompress_pwrel``.  Rank 1 decodes its types on
+    of float32 or float64 data with the sign and zero restore, bit-equal
+    to ``sz_tpu.core.pwr.decompress_pwrel``.  Rank 1 decodes its types on
     the device and runs the recurrence on the host.  Returns numpy, or
     the device tensor when ``as_tensor``."""
     dev = devmod.resolve(device)
+    T = np.float64 if np.dtype(dtype) == np.float64 else np.float32
     shape = tuple(int(s) for s in shape)
     if len(shape) not in (1, 2, 3):
         raise ValueError("the MSST19 engine takes fields of rank 1-3")
@@ -158,19 +178,20 @@ def decompress(tdps: TDPS, shape, *, device, as_tensor: bool = False):
             out = native.msst19_decode1d(
                 types.cpu().numpy(), ptable, tdps.req_length,
                 bu.unpack_bits_2(tdps.lead_num, tdps.exact_data_num),
-                tdps.exact_mid_bytes, tdps.residual_mid_bits)
+                tdps.exact_mid_bytes, tdps.residual_mid_bits, T)
             out = torch.from_numpy(out).to(dev)
     else:
         with _tr.trace("escapes"):
-            unpred = classic.ExactDecoder(tdps).next_batch(n_esc)
-            known = torch.zeros(n, dtype=torch.float32, device=dev)
+            unpred = classic.ExactDecoder(tdps, T).next_batch(n_esc)
+            known = torch.zeros(n, dtype=torch.from_numpy(unpred).dtype,
+                                device=dev)
             known[types == 0] = torch.from_numpy(unpred).to(dev)
         with _tr.trace("decode_fixpoint"):
             pt = torch.from_numpy(ptable).to(dev)
-            decode = (msst19_kernel.wavefront3d_decode if len(shape) == 3
-                      else msst19_kernel.lines2d_decode)
+            decode = getattr(msst19_kernel, _DECODE[len(shape), T])
             out = decode(types.reshape(shape), known.reshape(shape), pt)
             del known
+            devmod.sync(dev)
     del types
     s_dev = None if signs is None else torch.from_numpy(
         signs.reshape(shape)).to(dev)

@@ -1,6 +1,7 @@
 """K8 ``wavefront3d_encode``/``wavefront3d_decode`` and K9
 ``lines2d_encode``/``lines2d_decode``: the multiplicative recurrence of
-the MSST19 PW_REL codec, encode and decode.
+the MSST19 PW_REL codec, encode and decode; K8d/K9d, the same names with
+``_f64``, their forms for float64 data.
 
 CUDA kernels in ``csrc/msst19.cu``.  K8 replaces T11,
 ``sz_tpu/tpu/msst19_kernel.py::_make_wf_kernel`` (``encode``/``decode``
@@ -9,7 +10,12 @@ CUDA kernels in ``csrc/msst19.cu``.  K8 replaces T11,
 TPU forms computed the f64 chain in software and found the state with a
 stairstep search limited to 4096 boundary states; here the chain is
 native IEEE f64 and the state one indexed load of the cache table, so
-every table runs on the card (the 1e-4 and 1e-5 bounds included).  Each
+every table runs on the card (the 1e-4 and 1e-5 bounds included).
+K8d/K9d replace the JAX engine's XLA scans on float64 data
+(``sz_tpu/tpu/msst19_engine.py`` ``_wf3_encode_fn``/``_wf3_decode_fn``,
+``_wf2_encode_fn``/``_wf2_decode_fn``): the chain in double throughout,
+nothing rounded to float, on double tiles (``TILE3_F64``, ``TILE2_F64``).
+Each
 call is one persistent launch on the tile machinery of
 ``csrc/tiles.cuh`` (shared with K1/K2), with a k-halo two deep for the
 first row's (k-2) neighbour; the claim order is made here
@@ -28,9 +34,10 @@ CPU tensors; for CUDA tensors they launch the kernel or raise.
 Tables: ``table`` is the cache table flattened, its uint16 states carried
 as int16 bit patterns; ``pt`` the float64 precision table; ``base``,
 ``top`` and ``bits`` the cache table's exponent window and mantissa
-bits (``core.pwr.CacheTable``); ``ign`` = max(32 - req_length, 0), the
-low bits an escape's reconstruction clears.  The encoders return the
-int32 types and the float32 magnitude reconstruction; the decoders take
+bits (``core.pwr.CacheTable``); ``ign`` = max(32 - req_length, 0)
+(float64 data: 64 - req_length), the low bits an escape's
+reconstruction clears.  The encoders return the int32 types and the
+magnitude reconstruction in the data's type; the decoders take
 the types and ``known`` (the escapes' signed values in place, anything
 elsewhere) and return the reconstruction: escapes signed, the rest
 magnitudes.
@@ -70,33 +77,36 @@ def _diag(d: int, r1: int, r2: int, r3: int, dev):
     return i, j, d - i - j
 
 
-def _pred_plain(R, fg, i, j, k, r3: int, r23: int, dbl: bool):
+def _pred_plain(R, fg, i, j, k, r3: int, r23: int, rank: int):
     """The predictor of the cells of one diagonal from the magnitudes of
     their neighbours in the guard-padded flat lattice R (``fg``: their
-    padded indices).  Every case is computed for every cell and the
-    cell's own case is selected; the cases a cell does not use may read
-    anything."""
+    padded indices), in R's dtype.  Every case is computed for every cell
+    and the cell's own case is selected; the cases a cell does not use
+    may read anything.  The chain is double (rounded once to R's dtype)
+    for float 3-D fields and for float64 data of either rank, float for
+    float 2-D fields."""
+    V = R.dtype
     A, B = R[fg - 1].abs(), R[fg - r3].abs()
     Dg, A2 = R[fg - r3 - 1].abs(), R[fg - 2].abs()
     j0, k0, k1 = j == 0, k == 0, k == 1
     zero = torch.zeros_like(A)
-    if dbl:
+    if rank == 3 or V == _F64:
         a, b, dg, a2 = (t.to(_F64) for t in (A, B, Dg, A2))
-        lin = (a * a / a2).to(_F32)
-        p2 = (a * b / dg).to(_F32)
+        lin = (a * a / a2).to(V)
+        p2 = (a * b / dg).to(V)
     else:
         lin = A * A / A2
         p2 = A * B / Dg
     pred0 = torch.where(j0 & k0, zero, torch.where(
         j0 & k1, A, torch.where(j0, lin, torch.where(k0, B, p2))))
-    if not dbl:
+    if rank == 2:
         return pred0
     C, E = R[fg - r23].abs(), R[fg - r23 - r3].abs()
     F, G = R[fg - r23 - 1].abs(), R[fg - r23 - r3 - 1].abs()
     c, e, f, g = (t.to(_F64) for t in (C, E, F, G))
-    rw = (a * c / f).to(_F32)
-    cl = (b * c / e).to(_F32)
-    p3 = (a * b * c * g / (dg * e * f)).to(_F32)
+    rw = (a * c / f).to(V)
+    cl = (b * c / e).to(V)
+    p3 = (a * b * c * g / (dg * e * f)).to(V)
     predk = torch.where(j0 & k0, C, torch.where(
         j0, rw, torch.where(k0, cl, p3)))
     return torch.where(i == 0, pred0, predk)
@@ -112,80 +122,84 @@ def _lookup_plain(ratio, tab, base: int, top: int, bits: int):
 
 
 def _recon_plain(pred, s, pt):
-    """f32(f64(|pred|) * pt[s]); NaN for a type past the table."""
+    """f64(|pred|) * pt[s] in pred's dtype; NaN for a type past the
+    table."""
     ok = s < pt.numel()
     ptx = torch.where(ok, pt[torch.where(ok, s, 0)], float("nan"))
-    return (pred.abs().to(_F64) * ptx).to(_F32)
+    return (pred.abs().to(_F64) * ptx).to(pred.dtype)
+
+
+def _trunc_plain(cur, ign: int):
+    """|cur| with its low ``ign`` bits cleared (an escape's
+    reconstruction)."""
+    if cur.dtype == _F32:
+        return (cur.view(_I32) & _mask_i32(ign)).view(_F32)
+    m = (~((1 << ign) - 1)) & (2 ** 64 - 1) if ign < 64 else 0
+    return (cur.view(_I64) & (m - 2 ** 64 if m >= 2 ** 63 else m)).view(_F64)
 
 
 def _vol(t):
     return t if t.dim() == 3 else t.unsqueeze(0)
 
 
-def _encode_plain(data, table, pt, base, top, bits, ign, dbl: bool):
-    shape, dev = data.shape, data.device
+def _encode_plain(data, table, pt, base, top, bits, ign):
+    shape, dev, rank = data.shape, data.device, data.dim()
     r1, r2, r3 = _vol(data).shape
     r23, n = r2 * r3, data.numel()
     guard = r23 + r3 + 2
     cur_all = data.reshape(-1).abs()
     tab = table.reshape(-1).to(_I64) & 0xFFFF
-    R = torch.zeros(guard + n, dtype=_F32, device=dev)
+    R = torch.zeros(guard + n, dtype=data.dtype, device=dev)
     types = torch.zeros(n, dtype=_I32, device=dev)
-    mask = _mask_i32(ign)
     for d in range(r1 + r2 + r3 - 2):
         i, j, k = _diag(d, r1, r2, r3, dev)
         fi = (i * r2 + j) * r3 + k
-        pred = _pred_plain(R, fi + guard, i, j, k, r3, r23, dbl)
+        pred = _pred_plain(R, fi + guard, i, j, k, r3, r23, rank)
         cur = cur_all[fi]
         s = _lookup_plain(cur / pred, tab, base, top, bits)
         if d == 0:
             s = torch.zeros_like(s)          # the first point escapes
-        esc = (cur.view(_I32) & mask).view(_F32)
-        R[fi + guard] = torch.where(s != 0, _recon_plain(pred, s, pt), esc)
+        R[fi + guard] = torch.where(s != 0, _recon_plain(pred, s, pt),
+                                    _trunc_plain(cur, ign))
         types[fi] = s.to(_I32)
     return types.reshape(shape), R[guard:].reshape(shape)
 
 
-def _decode_plain(types, known, pt, dbl: bool):
-    shape, dev = types.shape, types.device
+def _decode_plain(types, known, pt):
+    shape, dev, rank = types.shape, types.device, types.dim()
     r1, r2, r3 = _vol(types).shape
     r23, n = r2 * r3, types.numel()
     guard = r23 + r3 + 2
     t_all, kv_all = types.reshape(-1).to(_I64), known.reshape(-1)
-    out = torch.zeros(guard + n, dtype=_F32, device=dev)
+    out = torch.zeros(guard + n, dtype=known.dtype, device=dev)
     for d in range(r1 + r2 + r3 - 2):
         i, j, k = _diag(d, r1, r2, r3, dev)
         fi = (i * r2 + j) * r3 + k
-        pred = _pred_plain(out, fi + guard, i, j, k, r3, r23, dbl)
+        pred = _pred_plain(out, fi + guard, i, j, k, r3, r23, rank)
         s = t_all[fi]
         out[fi + guard] = torch.where(s != 0, _recon_plain(pred, s, pt),
                                       kv_all[fi])
     return out[guard:].reshape(shape)
 
 
-def wavefront3d_encode_plain(data, table, pt, base, top, bits, ign):
-    return _encode_plain(data, table, pt, base, top, bits, ign, True)
+# one plain version each way for K8, K9 and their float64 forms: the
+# rank and the dtype come from the tensors
+wavefront3d_encode_plain = lines2d_encode_plain = _encode_plain
+wavefront3d_decode_plain = lines2d_decode_plain = _decode_plain
 
-
-def wavefront3d_decode_plain(types, known, pt):
-    return _decode_plain(types, known, pt, True)
-
-
-def lines2d_encode_plain(data, table, pt, base, top, bits, ign):
-    return _encode_plain(data, table, pt, base, top, bits, ign, False)
-
-
-def lines2d_decode_plain(types, known, pt):
-    return _decode_plain(types, known, pt, False)
 
 
 # --- wrappers -------------------------------------------------------------
 
 # the tiles (bi, bj, bk) of K8 (any r1) and K9 (r1 = 1), as msst19.cu
-# compiles them (Msst19Tile<3>, Msst19Tile<2>): one thread a k-row, k the
-# contiguous axis; K1/K2's shapes (lorenzo_kernel.TILE3 / TILE2)
+# compiles them (Msst19Tile<3, V>, Msst19Tile<2, V>): one thread a k-row, k
+# the contiguous axis; K1/K2's shapes (lorenzo_kernel.TILE3 / TILE2).  The
+# float64 forms K8d / K9d hold doubles: the 2-D tile is shorter on k to
+# fit a block's shared memory
 TILE3 = (8, 16, 32)
 TILE2 = (1, 64, 96)
+TILE3_F64 = (8, 16, 32)
+TILE2_F64 = (1, 64, 64)
 
 
 def _check(name: str, rank: int, lattice, *more):
@@ -228,79 +242,106 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _encode(wrapper, rank: int, V, tile, plain, data, table, pt, base: int,
+            top: int, bits: int, ign: int):
+    """An encode wrapper's body: check, then the plain version on the
+    CPU or one launch of the kernel behind ``sz_<wrapper name>``."""
+    name = wrapper.__name__
+    kind = _check(name, rank, [(data, V)], (table, torch.int16), (pt, _F64))
+    _check_window(name, table, base, top, bits)
+    if kind == "cpu":
+        return plain(data, table, pt, base, top, bits, ign)
+    types = torch.empty(data.shape, dtype=_I32, device=data.device)
+    R = torch.empty(data.shape, dtype=V, device=data.device)
+    shape3 = data.shape if rank == 3 else (1, *data.shape)
+    targs, flags = tiles.tiled(shape3, tile, data.device)
+    rc = getattr(_build.lib(), "sz_msst19_" + name)(
+        _p(data), _p(table), _p(pt), pt.numel(), base, top, bits, ign,
+        _p(types), _p(R), *data.shape, *targs, _stream(data))
+    _build.check(rc, name)
+    wrapper.launches += 1
+    return types, R
+
+
+def _decode(wrapper, rank: int, V, tile, plain, types, known, pt):
+    """A decode wrapper's body, as :func:`_encode`."""
+    name = wrapper.__name__
+    kind = _check(name, rank, [(types, _I32), (known, V)], (pt, _F64))
+    if kind == "cpu":
+        return plain(types, known, pt)
+    out = torch.empty(types.shape, dtype=V, device=types.device)
+    shape3 = types.shape if rank == 3 else (1, *types.shape)
+    targs, flags = tiles.tiled(shape3, tile, types.device)
+    rc = getattr(_build.lib(), "sz_msst19_" + name)(
+        _p(types), _p(known), _p(pt), pt.numel(), _p(out), *types.shape,
+        *targs, _stream(types))
+    _build.check(rc, name)
+    wrapper.launches += 1
+    return out
+
+
 def wavefront3d_encode(data, table, pt, base: int, top: int, bits: int,
                        ign: int):
     """K8 encode: states of a rank-3 float32 field (int32) and its
     magnitude reconstruction (float32)."""
-    kind = _check("wavefront3d_encode", 3, [(data, _F32)], (table, torch.int16),
-                  (pt, _F64))
-    _check_window("wavefront3d_encode", table, base, top, bits)
-    if kind == "cpu":
-        return wavefront3d_encode_plain(data, table, pt, base, top, bits, ign)
-    types = torch.empty(data.shape, dtype=_I32, device=data.device)
-    R = torch.empty(data.shape, dtype=_F32, device=data.device)
-    targs, flags = tiles.tiled(data.shape, TILE3, data.device)
-    rc = _build.lib().sz_msst19_wavefront3d_encode(
-        _p(data), _p(table), _p(pt), pt.numel(), base, top, bits, ign,
-        _p(types), _p(R), *data.shape, *targs, _stream(data))
-    _build.check(rc, "wavefront3d_encode")
-    wavefront3d_encode.launches += 1
-    return types, R
+    return _encode(wavefront3d_encode, 3, _F32, TILE3,
+                   wavefront3d_encode_plain, data, table, pt, base, top,
+                   bits, ign)
 
 
 def wavefront3d_decode(types, known, pt):
     """K8 decode: the rank-3 reconstruction from the types and the
     escapes' values."""
-    kind = _check("wavefront3d_decode", 3, [(types, _I32), (known, _F32)],
-                  (pt, _F64))
-    if kind == "cpu":
-        return wavefront3d_decode_plain(types, known, pt)
-    out = torch.empty(types.shape, dtype=_F32, device=types.device)
-    targs, flags = tiles.tiled(types.shape, TILE3, types.device)
-    rc = _build.lib().sz_msst19_wavefront3d_decode(
-        _p(types), _p(known), _p(pt), pt.numel(), _p(out), *types.shape,
-        *targs, _stream(types))
-    _build.check(rc, "wavefront3d_decode")
-    wavefront3d_decode.launches += 1
-    return out
+    return _decode(wavefront3d_decode, 3, _F32, TILE3,
+                   wavefront3d_decode_plain, types, known, pt)
 
 
 def lines2d_encode(data, table, pt, base: int, top: int, bits: int,
                    ign: int):
     """K9 encode: states of a rank-2 float32 field (int32) and its
     magnitude reconstruction (float32)."""
-    kind = _check("lines2d_encode", 2, [(data, _F32)], (table, torch.int16),
-                  (pt, _F64))
-    _check_window("lines2d_encode", table, base, top, bits)
-    if kind == "cpu":
-        return lines2d_encode_plain(data, table, pt, base, top, bits, ign)
-    types = torch.empty(data.shape, dtype=_I32, device=data.device)
-    R = torch.empty(data.shape, dtype=_F32, device=data.device)
-    targs, flags = tiles.tiled((1, *data.shape), TILE2, data.device)
-    rc = _build.lib().sz_msst19_lines2d_encode(
-        _p(data), _p(table), _p(pt), pt.numel(), base, top, bits, ign,
-        _p(types), _p(R), *data.shape, *targs, _stream(data))
-    _build.check(rc, "lines2d_encode")
-    lines2d_encode.launches += 1
-    return types, R
+    return _encode(lines2d_encode, 2, _F32, TILE2, lines2d_encode_plain,
+                   data, table, pt, base, top, bits, ign)
 
 
 def lines2d_decode(types, known, pt):
     """K9 decode: the rank-2 reconstruction from the types and the
     escapes' values."""
-    kind = _check("lines2d_decode", 2, [(types, _I32), (known, _F32)],
-                  (pt, _F64))
-    if kind == "cpu":
-        return lines2d_decode_plain(types, known, pt)
-    out = torch.empty(types.shape, dtype=_F32, device=types.device)
-    targs, flags = tiles.tiled((1, *types.shape), TILE2, types.device)
-    rc = _build.lib().sz_msst19_lines2d_decode(
-        _p(types), _p(known), _p(pt), pt.numel(), _p(out), *types.shape,
-        *targs, _stream(types))
-    _build.check(rc, "lines2d_decode")
-    lines2d_decode.launches += 1
-    return out
+    return _decode(lines2d_decode, 2, _F32, TILE2, lines2d_decode_plain,
+                   types, known, pt)
+
+
+def wavefront3d_encode_f64(data, table, pt, base: int, top: int, bits: int,
+                           ign: int):
+    """K8d encode: states of a rank-3 float64 field and its magnitude
+    reconstruction (float64); ``ign`` = max(64 - req_length, 0)."""
+    return _encode(wavefront3d_encode_f64, 3, _F64, TILE3_F64,
+                   wavefront3d_encode_plain, data, table, pt, base, top,
+                   bits, ign)
+
+
+def wavefront3d_decode_f64(types, known, pt):
+    """K8d decode: the rank-3 float64 reconstruction."""
+    return _decode(wavefront3d_decode_f64, 3, _F64, TILE3_F64,
+                   wavefront3d_decode_plain, types, known, pt)
+
+
+def lines2d_encode_f64(data, table, pt, base: int, top: int, bits: int,
+                       ign: int):
+    """K9d encode: states of a rank-2 float64 field and its magnitude
+    reconstruction (float64)."""
+    return _encode(lines2d_encode_f64, 2, _F64, TILE2_F64,
+                   lines2d_encode_plain, data, table, pt, base, top,
+                   bits, ign)
+
+
+def lines2d_decode_f64(types, known, pt):
+    """K9d decode: the rank-2 float64 reconstruction."""
+    return _decode(lines2d_decode_f64, 2, _F64, TILE2_F64,
+                   lines2d_decode_plain, types, known, pt)
 
 
 wavefront3d_encode.launches = wavefront3d_decode.launches = 0
 lines2d_encode.launches = lines2d_decode.launches = 0
+wavefront3d_encode_f64.launches = wavefront3d_decode_f64.launches = 0
+lines2d_encode_f64.launches = lines2d_decode_f64.launches = 0

@@ -65,9 +65,23 @@ _SIGNATURES = {
     "msst19_encode1d_f32": ((_P, _I64, _P, _I64, _I64, _I, _I64, _P, _I,
                              _P, _P, _P, _P, _P), _I64),
     "msst19_decode1d_f32": ((_P, _I64, _P, _I, _P, _P, _P, _P), None),
+    "msst19_encode1d_f64": ((_P, _I64, _P, _I64, _I64, _I, _I64, _P, _I,
+                             _P, _P, _P, _P, _P), _I64),
+    "msst19_decode1d_f64": ((_P, _I64, _P, _I, _P, _P, _P, _P), None),
     "v_log2_f64": ((_P, _P, _I64), None),
     "v_exp2_f64": ((_P, _P, _I64), None),
     "range_scan_f32": ((_P, _I64, _P, _P, _P, _P), _I),
+    "range_scan_f64": ((_P, _I64, _P, _P, _P, _P), _I),
+    "ra_coeff_chain_f32": ((_P, _I64, _I, _P, _I, _I, _P, _P, _P, _P), None),
+    "ra_coeff_chain_decode_f32": ((_P, _I64, _I, _P, _P, _P, _P, _P), None),
+    "huff_block_sizes": ((_P, _I64, _I64, _P, _P), _I64),
+    "huff_encode_blocks": ((_P, _I64, _I64, _P, _P, _P, _P, _P), None),
+    "huff_tree_decode_blocks": ((_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P),
+                                None),
+    "int1d_encode": ((_P, _I, _I, _I64, ctypes.c_double, _I, _I, _I, _I,
+                      _I64, _I, _I, _P, _P), _I64),
+    "int1d_decode": ((_P, _I64, ctypes.c_double, _I, _I, _I, _I64, _I, _I,
+                      _P, _P), None),
     "msst19_build_table": ((_P, _I64, ctypes.c_double, _I, _I64, _I64, _P),
                            None),
     "pack_w_bits": ((_P, _I64, _I, _P), None),
@@ -329,34 +343,36 @@ def classic1d_decode(types: np.ndarray, interval2, radius: int,
 def msst19_encode1d(x: np.ndarray, table: np.ndarray, base_index: int,
                     top_index: int, bits: int, ptable: np.ndarray,
                     req_length: int):
-    """The 1-D MSST19 encode of a float32 field whose zeros the caller
-    replaced.  Returns (types, lead u8, mid bytes, resi u8 entries,
-    escape count)."""
-    x = np.ascontiguousarray(x, np.float32)
+    """The 1-D MSST19 encode of a float32 or float64 field (the dtype of
+    ``x``) whose zeros the caller replaced.  Returns (types, lead u8, mid
+    bytes, resi u8 entries, escape count)."""
+    x = np.ascontiguousarray(x)
+    T = float_type(x.dtype)
     n = x.size
     table = np.ascontiguousarray(table, np.uint16)
     ptable = np.ascontiguousarray(ptable, np.float64)
     types = np.zeros(n, np.int32)
     lead, mid, resi, nmid = _escape_buffers(n, req_length)
-    cnt = int(lib().msst19_encode1d_f32(
+    cnt = int(getattr(lib(), f"msst19_encode1d_{_suffix(T)}")(
         _ptr(x), n, _ptr(table), base_index, top_index, bits,
         table.shape[1], _ptr(ptable), req_length, _ptr(types), _ptr(lead),
         _ptr(mid), _ptr(nmid), _ptr(resi)))
     return (types, *_escape_parts(lead, mid, resi, nmid, cnt, req_length,
-                                  4), cnt)
+                                  np.dtype(T).itemsize), cnt)
 
 
 def msst19_decode1d(types: np.ndarray, ptable: np.ndarray, req_length: int,
-                    lead: np.ndarray, mid: bytes, resi: bytes) -> np.ndarray:
-    """The 1-D MSST19 decode (float32): before the zero and sign
-    restore."""
+                    lead: np.ndarray, mid: bytes, resi: bytes,
+                    T=np.float32) -> np.ndarray:
+    """The 1-D MSST19 decode in ``T`` (float32 or float64): before the
+    zero and sign restore."""
     types = np.ascontiguousarray(types, np.int32)
     ptable = np.ascontiguousarray(ptable, np.float64)
     lead, midb, resb = _stream_arrays(lead, mid, resi)
-    out = np.zeros(types.size, np.float32)
-    lib().msst19_decode1d_f32(_ptr(types), types.size, _ptr(ptable),
-                              req_length, _ptr(lead), _ptr(midb),
-                              _ptr(resb), _ptr(out))
+    out = np.zeros(types.size, T)
+    getattr(lib(), f"msst19_decode1d_{_suffix(T)}")(
+        _ptr(types), types.size, _ptr(ptable), req_length, _ptr(lead),
+        _ptr(midb), _ptr(resb), _ptr(out))
     return out
 
 
@@ -378,16 +394,17 @@ def v_exp2(x: np.ndarray) -> np.ndarray:
 
 
 def range_scan(flat: np.ndarray):
-    """(fmin, fmax, near, signs u8[n], positive) of a float32 field in
-    one pass (computeRangeSize_float_MSST19)."""
-    flat = np.ascontiguousarray(flat, np.float32)
+    """(fmin, fmax, near, signs u8[n], positive) of a float32 or float64
+    field (its dtype) in one pass (computeRangeSize_*_MSST19)."""
+    flat = np.ascontiguousarray(flat)
+    T = float_type(flat.dtype)
+    c = ctypes.c_float if T is np.float32 else ctypes.c_double
     signs = np.zeros(flat.size, np.uint8)
-    mn, mx, nr = ctypes.c_float(0), ctypes.c_float(0), ctypes.c_float(0)
-    pos = lib().range_scan_f32(_ptr(flat), flat.size, _ptr(signs),
-                               ctypes.byref(mn), ctypes.byref(mx),
-                               ctypes.byref(nr))
-    f32 = np.float32
-    return f32(mn.value), f32(mx.value), f32(nr.value), signs, bool(pos)
+    mn, mx, nr = c(0), c(0), c(0)
+    pos = getattr(lib(), f"range_scan_{_suffix(T)}")(
+        _ptr(flat), flat.size, _ptr(signs), ctypes.byref(mn),
+        ctypes.byref(mx), ctypes.byref(nr))
+    return T(mn.value), T(mx.value), T(nr.value), signs, bool(pos)
 
 
 def msst19_build_table(pt: np.ndarray, precision: float, bits: int,
@@ -398,6 +415,112 @@ def msst19_build_table(pt: np.ndarray, precision: float, bits: int,
     lib().msst19_build_table(_ptr(pt), pt.size, precision, bits, base_index,
                              nsub, _ptr(table))
     return table
+
+
+def ra_coeff_chain(coeffs: np.ndarray, prec, cap: int, radius: int):
+    """The random-access codec's coefficient chain (float32 coefficients,
+    double division).  Returns (ctypes (nc, nreg), escape values per
+    coefficient, qcoeffs (nreg, nc))."""
+    coeffs = np.ascontiguousarray(coeffs, np.float32)
+    nreg, nc = coeffs.shape
+    ct = np.zeros((nc, max(nreg, 1)), np.int32)
+    unpred = np.zeros((nc, max(nreg, 1)), np.float32)
+    ucnt = np.zeros(nc, np.int64)
+    qc = np.zeros((nreg, nc), np.float32)
+    lib().ra_coeff_chain_f32(
+        _ptr(coeffs), nreg, nc, _ptr(np.ascontiguousarray(prec, np.float64)),
+        cap, radius, _ptr(ct), _ptr(unpred), _ptr(ucnt), _ptr(qc))
+    return ct[:, :nreg], [unpred[e, :ucnt[e]].copy() for e in range(nc)], qc
+
+
+def ra_coeff_chain_decode(ctypes_arr: np.ndarray, prec, cradius,
+                          unpred_list, nreg: int) -> np.ndarray:
+    """Its decode: qcoeffs (nreg, nc)."""
+    ct = np.ascontiguousarray(np.asarray(ctypes_arr)[:, :nreg], np.int32)
+    nc = ct.shape[0]
+    lens = [len(u) for u in unpred_list]
+    off = np.zeros(nc, np.int64)
+    np.cumsum(lens[:-1], out=off[1:])
+    flat = (np.concatenate([np.asarray(u, np.float32) for u in unpred_list])
+            if sum(lens) else np.zeros(1, np.float32))
+    qc = np.zeros((nreg, nc), np.float32)
+    lib().ra_coeff_chain_decode_f32(
+        _ptr(ct), nreg, nc, _ptr(np.ascontiguousarray(prec, np.float64)),
+        _ptr(np.ascontiguousarray(cradius, np.int32)), _ptr(flat), _ptr(off),
+        _ptr(qc))
+    return qc
+
+
+def huff_encode_blocks(syms: np.ndarray, code_hi: np.ndarray,
+                       code_lo: np.ndarray, code_len: np.ndarray):
+    """(nb, ncell) int32 symbols coded with one shared table into
+    byte-aligned per-block streams.  Returns (sizes u32[nb], bytes)."""
+    syms = np.ascontiguousarray(syms, np.int32)
+    nb, ncell = syms.shape
+    lens = np.ascontiguousarray(code_len, np.uint8)
+    sizes = np.zeros(nb, np.uint32)
+    total = int(lib().huff_block_sizes(_ptr(syms), nb, ncell, _ptr(lens),
+                                       _ptr(sizes)))
+    out = np.zeros(total, np.uint8)
+    if total:
+        lib().huff_encode_blocks(
+            _ptr(syms), nb, ncell,
+            _ptr(np.ascontiguousarray(code_hi, np.uint64)),
+            _ptr(np.ascontiguousarray(code_lo, np.uint64)), _ptr(lens),
+            _ptr(sizes), _ptr(out))
+    return sizes, out.tobytes()
+
+
+def huff_tree_decode_blocks(L, R, C, T, data, offsets: np.ndarray,
+                            sizes: np.ndarray, count: int) -> np.ndarray:
+    """Decode len(offsets) per-block streams of ``count`` symbols each:
+    block b's ``sizes[b]`` bytes at ``data[offsets[b]:]``."""
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    nsel = offsets.size
+    buf = np.frombuffer(data, np.uint8)
+    out = np.zeros((nsel, count), np.int32)
+    if nsel and count:
+        lib().huff_tree_decode_blocks(
+            _ptr(np.ascontiguousarray(L, np.int32)),
+            _ptr(np.ascontiguousarray(R, np.int32)),
+            _ptr(np.ascontiguousarray(C, np.int32)),
+            _ptr(np.ascontiguousarray(T, np.uint8)), _ptr(buf),
+            _ptr(offsets), _ptr(np.ascontiguousarray(sizes, np.int64)),
+            nsel, count, _ptr(out))
+    return out
+
+
+def int1d_encode(data: np.ndarray, rp: float, intervals: int, radius: int,
+                 a1_dtype, min_value: int, byte_size: int, store_esize: int):
+    """The 1-D integer encode: the previous-value chain wrapped to
+    ``a1_dtype``.  Returns (types, exact bytes, escape count)."""
+    x = np.ascontiguousarray(data)
+    n = x.size
+    a1 = np.dtype(a1_dtype)
+    types = np.zeros(n, np.int32)
+    exact = np.zeros(max(n * byte_size, 1), np.uint8)
+    cnt = int(lib().int1d_encode(
+        _ptr(x), x.dtype.itemsize, 1 if x.dtype.kind == "i" else 0, n,
+        float(rp), int(intervals), int(radius), a1.itemsize * 8,
+        1 if a1.kind == "i" else 0, int(min_value), byte_size, store_esize,
+        _ptr(types), _ptr(exact)))
+    return types, exact[:cnt * byte_size].tobytes(), cnt
+
+
+def int1d_decode(types: np.ndarray, interval2: float, radius: int,
+                 out_dtype, min_value: int, byte_size: int, store_esize: int,
+                 exact: bytes) -> np.ndarray:
+    """Its decode, in ``out_dtype``."""
+    types = np.ascontiguousarray(types, np.int32)
+    dt = np.dtype(out_dtype)
+    eb = (np.frombuffer(exact, np.uint8) if len(exact)
+          else np.zeros(1, np.uint8))
+    out = np.zeros(types.size, np.int64)
+    lib().int1d_decode(
+        _ptr(types), types.size, float(interval2), int(radius),
+        dt.itemsize * 8, 1 if dt.kind == "i" else 0, int(min_value),
+        byte_size, store_esize, _ptr(eb), _ptr(out))
+    return out.astype(dt)
 
 
 def pack_w_bits(vals: np.ndarray, w: int) -> bytes:

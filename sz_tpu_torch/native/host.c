@@ -20,6 +20,14 @@
  *   - glibc log2/exp2 per element, the pre-log PW_REL transform
  *     (sz_float_pwr.c:1792-1860): numpy's SIMD forms differ in the last
  *     ulp, and double streams serialize these values
+ *   - the double forms of the range/sign scan and of the 1-D MSST19
+ *     codec (sz_double.c MSST19 1-D, szd_double.c)
+ *   - the random-access codec's host stages: its coefficient chain and
+ *     decode (sz_float.c:9677-9712), the per-block Huffman streams with
+ *     one shared table and their decode (sz_float.c:10020-10050,
+ *     szd_float.c:7213), and the 1-D integer codec of the nested
+ *     streams (SZ_compress_int32_1D_MDQ sz_int32.c:228, sz_uint16.c;
+ *     their decoders)
  *
  * Built with `cc -O3 -ffp-contract=off` (no FMA contraction, no
  * -march, no fast-math) by sz_tpu_torch/native/__init__.py; bound with
@@ -767,4 +775,354 @@ void pack_w_bits(const uint8_t *vals, int64_t n, int w, uint8_t *out) {
         }
     }
     if (accbits) out[ob++] = (uint8_t)(acc << (8 - accbits));
+}
+
+/* ------------------------------------------------------------------ */
+/* float64 data: the range/sign scan and the 1-D MSST19 codec          */
+/* ------------------------------------------------------------------ */
+
+int range_scan_f64(const double *x, int64_t n, uint8_t *signs,
+                   double *fmin, double *fmax, double *near) {
+    int positive = 1;
+    double mn = x[0], mx = x[0], nr = x[0];
+    signs[0] = 0;
+    for (int64_t i = 1; i < n; i++) {
+        double v = x[i];
+        int s = v < 0;
+        signs[i] = (uint8_t)s;
+        if (s) positive = 0;
+        if (v < mn) mn = v;
+        if (v > mx) mx = v;
+        if (v != 0 && fabs(v) < fabs(nr)) nr = v;
+    }
+    *fmin = mn; *fmax = mx; *near = nr;
+    return positive;
+}
+
+/* 1-D MSST19 encode of double data: the float form's chain in double
+ * (no rounding of the prediction).  Returns the escape count. */
+int64_t msst19_encode1d_f64(const double *x, int64_t n,
+                            const uint16_t *table, int64_t base_index,
+                            int64_t top_index, int bits, int64_t row_size,
+                            const double *ptable, int req_length,
+                            int32_t *types, uint8_t *lead, uint8_t *mid,
+                            int64_t *nmid, uint8_t *resi) {
+    xenc E;
+    E.esize = 8; E.req_bytes = req_length / 8; E.resi_len = req_length % 8;
+    if (E.req_bytes > 8) E.req_bytes = 8;
+    memset(E.prev, 0, 8);
+    E.lead = lead; E.nlead = 0; E.mid = mid; E.nmid = 0;
+    E.resi = resi; E.nresi = 0;
+    uint64_t mask = xenc_mask(8, req_length);
+    double pred = 0.0;
+    for (int i = 0; i < 2 && i < n; i++) {
+        types[i] = 0;
+        pred = xenc_add_f64(&E, x[i], 0.0, 1, mask);
+    }
+    for (int64_t i = 2; i < n; i++) {
+        double cur = x[i];
+        int st = msst19_lookup(cur / pred, table, base_index, top_index,
+                               bits, row_size);
+        if (st) {
+            types[i] = st;
+            pred = pred * ptable[st];
+        } else {
+            types[i] = 0;
+            pred = xenc_add_f64(&E, cur, 0.0, 1, mask);
+        }
+    }
+    *nmid = E.nmid;
+    return E.nlead;
+}
+
+/* 1-D MSST19 decode of double data. */
+void msst19_decode1d_f64(const int32_t *types, int64_t n,
+                         const double *ptable, int req_length,
+                         const uint8_t *lead, const uint8_t *mid,
+                         const uint8_t *resi, double *out) {
+    xdec D;
+    xdec_init(&D, 8, req_length, lead, mid, resi);
+    double prev = 0.0;
+    for (int64_t i = 0; i < n; i++) {
+        int t = types[i];
+        prev = t ? fabs(prev) * ptable[t] : xdec_next_f64(&D, 0.0, 1);
+        out[i] = prev;
+    }
+}
+
+/* ------------------------------------------------------------------ */
+/* The random-access codec's coefficient chain (sz_float.c:9677-9712): */
+/* double division with float last values, distinct from the           */
+/* regression codec's float chain above.                               */
+/* ------------------------------------------------------------------ */
+
+void ra_coeff_chain_f32(const float *coeffs, int64_t nreg, int nc,
+                        const double *prec, int cap, int radius,
+                        int32_t *ctypes, float *unpred, int64_t *ucnt,
+                        float *qcoeffs) {
+    float last[8] = {0};
+    for (int e = 0; e < nc; e++) ucnt[e] = 0;
+    for (int64_t n = 0; n < nreg; n++) {
+        for (int e = 0; e < nc; e++) {
+            float cur = coeffs[n * nc + e];
+            double diff = (double)(cur - last[e]);
+            double itv = fabs(diff) / prec[e] + 1.0;
+            if (itv < (double)cap) {
+                if (diff < 0) itv = -itv;
+                int t = (int)(itv / 2) + radius;
+                float rec = (float)((double)last[e]
+                                    + (double)(2 * (t - radius)) * prec[e]);
+                if (fabs((double)(cur - rec)) > prec[e]) {
+                    ctypes[e * nreg + n] = 0;
+                    last[e] = cur;
+                    unpred[e * nreg + ucnt[e]++] = cur;
+                } else {
+                    ctypes[e * nreg + n] = t;
+                    last[e] = rec;
+                }
+            } else {
+                ctypes[e * nreg + n] = 0;
+                last[e] = cur;
+                unpred[e * nreg + ucnt[e]++] = cur;
+            }
+            qcoeffs[n * nc + e] = last[e];
+        }
+    }
+}
+
+void ra_coeff_chain_decode_f32(const int32_t *ctypes, int64_t nreg, int nc,
+                               const double *prec, const int32_t *radius,
+                               const float *unpred_flat, const int64_t *off,
+                               float *qcoeffs) {
+    float last[8] = {0};
+    int64_t cur[8];
+    for (int e = 0; e < nc; e++) cur[e] = off[e];
+    for (int64_t n = 0; n < nreg; n++) {
+        for (int e = 0; e < nc; e++) {
+            int32_t t = ctypes[e * nreg + n];
+            if (t != 0)
+                last[e] = (float)((double)last[e]
+                                  + (double)(2 * (t - radius[e])) * prec[e]);
+            else
+                last[e] = unpred_flat[cur[e]++];
+            qcoeffs[n * nc + e] = last[e];
+        }
+    }
+}
+
+/* ------------------------------------------------------------------ */
+/* Per-block Huffman streams with one shared table (the random-access  */
+/* format): each block's bitstream MSB-first, padded to a byte, and    */
+/* its decode by a walk of the serialized tree.                        */
+/* ------------------------------------------------------------------ */
+
+static inline int64_t put_bits(uint64_t word, int len, uint64_t *acc,
+                               int *accbits, uint8_t *out, int64_t ob) {
+    int room = 64 - *accbits;
+    int placed = len < room ? len : room;
+    *acc |= word >> *accbits;
+    *accbits += placed;
+    while (*accbits >= 8) {
+        out[ob++] = (uint8_t)(*acc >> 56);
+        *acc <<= 8;
+        *accbits -= 8;
+    }
+    int rem = len - placed;
+    if (rem > 0) {
+        *acc |= (word << placed) >> *accbits;
+        *accbits += rem;
+        while (*accbits >= 8) {
+            out[ob++] = (uint8_t)(*acc >> 56);
+            *acc <<= 8;
+            *accbits -= 8;
+        }
+    }
+    return ob;
+}
+
+static int64_t huff_encode(const int32_t *syms, int64_t n,
+                           const uint64_t *code_hi, const uint64_t *code_lo,
+                           const uint8_t *code_len, uint8_t *out) {
+    uint64_t acc = 0;
+    int accbits = 0;
+    int64_t ob = 0;
+    for (int64_t i = 0; i < n; i++) {
+        int32_t s = syms[i];
+        int len = code_len[s];
+        if (len <= 64) {
+            ob = put_bits(code_hi[s], len, &acc, &accbits, out, ob);
+        } else {
+            ob = put_bits(code_hi[s], 64, &acc, &accbits, out, ob);
+            ob = put_bits(code_lo[s], len - 64, &acc, &accbits, out, ob);
+        }
+    }
+    if (accbits > 0) out[ob++] = (uint8_t)(acc >> 56);
+    return ob;
+}
+
+/* Per-block byte sizes; returns the total byte count. */
+int64_t huff_block_sizes(const int32_t *syms, int64_t nb, int64_t ncell,
+                         const uint8_t *code_len, uint32_t *sizes) {
+    int64_t total = 0;
+    for (int64_t b = 0; b < nb; b++) {
+        const int32_t *s = syms + b * ncell;
+        int64_t bits = 0;
+        for (int64_t i = 0; i < ncell; i++) bits += code_len[s[i]];
+        sizes[b] = (uint32_t)((bits + 7) / 8);
+        total += sizes[b];
+    }
+    return total;
+}
+
+/* Encode all blocks into `out` (sized by huff_block_sizes). */
+void huff_encode_blocks(const int32_t *syms, int64_t nb, int64_t ncell,
+                        const uint64_t *code_hi, const uint64_t *code_lo,
+                        const uint8_t *code_len, const uint32_t *sizes,
+                        uint8_t *out) {
+    int64_t off = 0;
+    for (int64_t b = 0; b < nb; b++) {
+        huff_encode(syms + b * ncell, ncell, code_hi, code_lo, code_len,
+                    out + off);
+        off += sizes[b];
+    }
+}
+
+/* Bit walk over the preorder tree (decode, Huffman.c:310-343). */
+static int64_t huff_tree_decode(const int32_t *L, const int32_t *R,
+                                const int32_t *C, const uint8_t *T,
+                                const uint8_t *data, int64_t nbytes,
+                                int32_t *out, int64_t count) {
+    int64_t k = 0;
+    int32_t n = 0;
+    for (int64_t i = 0; i < nbytes && k < count; i++) {
+        uint8_t byte = data[i];
+        for (int bit = 7; bit >= 0; bit--) {
+            n = (byte >> bit) & 1 ? R[n] : L[n];
+            if (T[n]) {
+                out[k++] = C[n];
+                if (k >= count) break;
+                n = 0;
+            }
+        }
+    }
+    return k;
+}
+
+/* nsel per-block bitstreams of `count` symbols: block b's at
+ * data + offsets[b], sizes[b] bytes. */
+void huff_tree_decode_blocks(const int32_t *L, const int32_t *R,
+                             const int32_t *C, const uint8_t *T,
+                             const uint8_t *data, const int64_t *offsets,
+                             const int64_t *sizes, int64_t nsel,
+                             int64_t count, int32_t *out) {
+    for (int64_t b = 0; b < nsel; b++)
+        huff_tree_decode(L, R, C, T, data + offsets[b], sizes[b],
+                         out + b * count, count);
+}
+
+/* ------------------------------------------------------------------ */
+/* The 1-D integer codec (SZ_compress_intXX_1D_MDQ, e.g. sz_int32.c:   */
+/* 228; decompressDataSeries_intXX_1D): the previous-value chain in    */
+/* the width a1_bits, escapes stored as big-endian (value - min) in    */
+/* byte_size bytes.  The first two values always escape.               */
+/* ------------------------------------------------------------------ */
+
+static inline int64_t wrap_bits(int64_t v, int bits, int sgn) {
+    if (bits >= 64) return v;
+    uint64_t m = (~0ull) >> (64 - bits);
+    uint64_t u = (uint64_t)v & m;
+    if (sgn && (u >> (bits - 1))) return (int64_t)(u | ~m);
+    return (int64_t)u;
+}
+
+static inline int64_t ld_int(const uint8_t *p, int esize, int sgn) {
+    switch (esize) {
+        case 1: return sgn ? (int64_t)*(const int8_t *)p
+                           : (int64_t)*(const uint8_t *)p;
+        case 2: return sgn ? (int64_t)*(const int16_t *)p
+                           : (int64_t)*(const uint16_t *)p;
+        case 4: return sgn ? (int64_t)*(const int32_t *)p
+                           : (int64_t)*(const uint32_t *)p;
+        default: return *(const int64_t *)p;
+    }
+}
+
+static inline void int_store(uint8_t *exact, int64_t *ecnt, int64_t value,
+                             int64_t min_value, int byte_size,
+                             int store_esize) {
+    uint64_t m = (store_esize >= 8) ? ~0ull
+                 : ((~0ull) >> (64 - 8 * store_esize));
+    uint64_t d = ((uint64_t)(value - min_value)) & m;
+    for (int b = 0; b < byte_size; b++)
+        exact[*ecnt * byte_size + b] =
+            (uint8_t)(d >> (8 * (byte_size - 1 - b)));
+    (*ecnt)++;
+}
+
+/* Returns the escape count. */
+int64_t int1d_encode(const uint8_t *x, int in_esize, int in_sgn,
+                     int64_t n, double rp, int intervals, int radius,
+                     int a1_bits, int a1_sgn, int64_t min_value,
+                     int byte_size, int store_esize, int32_t *types,
+                     uint8_t *exact) {
+    int64_t ecnt = 0;
+    double check_radius = (intervals - 1) * rp;
+    double interval2 = 2.0 * rp;
+    types[0] = 0;
+    int_store(exact, &ecnt, ld_int(x, in_esize, in_sgn), min_value,
+              byte_size, store_esize);
+    if (n < 2) return ecnt;
+    types[1] = 0;
+    int64_t v1 = ld_int(x + in_esize, in_esize, in_sgn);
+    int_store(exact, &ecnt, v1, min_value, byte_size, store_esize);
+    int64_t pred = wrap_bits(v1, a1_bits, a1_sgn);
+    for (int64_t i = 2; i < n; i++) {
+        int64_t cur = ld_int(x + i * in_esize, in_esize, in_sgn);
+        int64_t d = cur - pred;
+        int64_t pae = wrap_bits(d < 0 ? -d : d, a1_bits, a1_sgn);
+        if ((double)pae < check_radius) {
+            int state = (int)(((double)pae / rp + 1.0) / 2.0);
+            if (cur >= pred) {
+                types[i] = radius + state;
+                pred = wrap_bits((int64_t)trunc((double)pred
+                                                + state * interval2),
+                                 a1_bits, a1_sgn);
+            } else {
+                types[i] = radius - state;
+                pred = wrap_bits((int64_t)trunc((double)pred
+                                                - state * interval2),
+                                 a1_bits, a1_sgn);
+            }
+        } else {
+            types[i] = 0;
+            int_store(exact, &ecnt, cur, min_value, byte_size, store_esize);
+            pred = wrap_bits(cur, a1_bits, a1_sgn);
+        }
+    }
+    return ecnt;
+}
+
+void int1d_decode(const int32_t *types, int64_t n, double interval2,
+                  int radius, int t_bits, int t_sgn, int64_t min_value,
+                  int byte_size, int store_esize, const uint8_t *exact,
+                  int64_t *out) {
+    int64_t epos = 0;
+    uint64_t mask = (store_esize >= 8) ? ~0ull
+                    : ((~0ull) >> (64 - 8 * store_esize));
+    int64_t prev = 0;
+    for (int64_t i = 0; i < n; i++) {
+        int t = types[i];
+        if (t == 0) {
+            uint64_t v = 0;
+            for (int b = 0; b < byte_size; b++)
+                v = (v << 8) | exact[epos++];
+            v = (v + (uint64_t)min_value) & mask;
+            prev = wrap_bits((int64_t)v, t_bits, t_sgn);
+        } else {
+            prev = wrap_bits(
+                (int64_t)trunc((double)prev + (t - radius) * interval2),
+                t_bits, t_sgn);
+        }
+        out[i] = prev;
+    }
 }

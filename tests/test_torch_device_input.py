@@ -159,22 +159,29 @@ def test_tensor_is_not_modified():
 
 
 def test_tensor_out_of_slice_raises():
-    """Tensors name the same ROADMAP items as arrays: integers 1.10,
-    float64 under PW_REL 1.3, random access on rank 3 1.6.  A 1-D tensor
-    (ROADMAP 1.4, ported) compresses to the host array's bytes."""
+    """Tensors name the same ROADMAP items as arrays: integers 1.10.
+    Float64 under PW_REL (1.3), float64 with random access (3.4, the
+    classic codec), float32 with random access (1.6) and a 1-D tensor
+    (1.4), all ported, compress to the host array's bytes."""
     pw = tcfg.SZConfig().with_bound(tcfg.ErrorBoundMode.PW_REL, 1e-3)
     ab = tcfg.SZConfig().with_bound(tcfg.ErrorBoundMode.ABS, 1e-3)
     ra = tcfg.SZConfig(random_access=True).with_bound(
         tcfg.ErrorBoundMode.ABS, 1e-3)
-    for t, cfg, item in (
-            (torch.ones((10, 11, 12), dtype=torch.int32), ab, "1.10"),
-            (torch.ones((10, 11, 12), dtype=torch.float64), pw, "1.3"),
-            (torch.ones((10, 11, 12), dtype=torch.float64), ra, "1.6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
-            sz_tpu_torch.compress(t, cfg, device="cpu")
-    x = np.sin(np.linspace(0, 20, 1320))
-    assert sz_tpu_torch.compress(torch.from_numpy(x), ab, device="cpu") == \
-        sz_tpu_torch.compress(x, ab, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.10\\)"):
+        sz_tpu_torch.compress(torch.ones((10, 11, 12), dtype=torch.int32),
+                              ab, device="cpu")
+    wave = _wave((10, 11, 12), 4, np.float64)
+    for x, cfg, jc in (
+            (wave, pw, SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)),
+            (wave, ra, SZConfig(random_access=True).with_bound(
+                ErrorBoundMode.ABS, 1e-3)),
+            (wave.astype(np.float32), ra, SZConfig(
+                random_access=True).with_bound(ErrorBoundMode.ABS, 1e-3)),
+            (np.sin(np.linspace(0, 20, 1320)), ab,
+             SZConfig().with_bound(ErrorBoundMode.ABS, 1e-3))):
+        blob = sz_tpu_torch.compress(torch.from_numpy(x), cfg, device="cpu")
+        assert blob == sz_tpu_torch.compress(x, cfg, device="cpu")
+        assert blob == sz_tpu.compress(x, jc)
     with pytest.raises(TypeError):
         sz_tpu_torch.compress(torch.ones((10, 11, 12), dtype=torch.float16),
                               ab, device="cpu")

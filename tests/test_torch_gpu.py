@@ -1,8 +1,10 @@
 """Card-only tests of the PyTorch port: each CUDA kernel bit-equal to its
-plain torch version (K5-K7 also on the decoded symbols, K8/K9's and
-K10/K11's decode also rebuilding their encode's reconstruction), and the
-main path, the MSST19 PW_REL path and the classic codec byte-equal to
-the numpy oracle, on the GPU.  They skip where
+plain torch version (K5-K7 also on the decoded symbols, K8/K9's,
+K8d/K9d's and K10/K11's decode also rebuilding their encode's
+reconstruction, K13 holding the bound on K12's types), and the main
+path, the MSST19 PW_REL path (float32 and float64), the classic codec
+and the random-access codec (with region decodes) byte-equal to the
+numpy oracle, on the GPU.  They skip where
 torch.cuda.is_available() is false.
 
 This file imports no jax, so it also runs on a machine without it; there
@@ -504,3 +506,89 @@ def test_classic_on_card_matches_oracle(cuda, name):
     assert SMOKE.sha256(blob) == want_stream
     out = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=cuda)
     assert SMOKE.sha256(out.tobytes()) == want_recon
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind,seed,ratio", [
+    ((9, 11, 13), "abs", 5, 1e-3), ((14, 10, 12), "signed", 7, 1e-3),
+    ((3, 5, 7), "signed", 17, 1e-3), ((2, 3, 4097), "abs", 18, 1e-3),
+    ((26, 31), "abs", 11, 1e-3), ((70, 130), "signed", 21, 1e-4),
+    ((1, 5000), "abs", 19, 1e-3), ((5000, 1), "abs", 20, 1e-3),
+    ((64, 64, 64), "abs", 22, 1e-5)])
+def test_msst19_f64_kernels_match_plain(cuda, shape, kind, seed, ratio):
+    """K8d (rank 3) / K9d (rank 2) both ways against their plain
+    versions, each called twice, the decode rebuilding the encode
+    (chip_smoke.msst19_vs_plain raises on any difference)."""
+    x = SMOKE.pwrel_field64(kind, shape, seed)
+    kid = "K8d" if len(shape) == 3 else "K9d"
+    row, _ = SMOKE.msst19_vs_plain("card", kid, shape, x, ratio, cuda,
+                                   timed=False)
+    assert row["dtype"] == "float64" and row["encode_bit_equal"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ratio", [((40, 48, 56), 1e-3),
+                                         ((200, 150), 1e-3),
+                                         ((30, 26, 34), 1e-5)])
+def test_pwrel64_on_card_matches_oracle(cuda, shape, ratio):
+    x = SMOKE.pwrel_field64("signed", shape, 3)
+    cfg = sz_tpu_torch.SZConfig().with_bound(
+        sz_tpu_torch.ErrorBoundMode.PW_REL, ratio)
+    blob = sz_tpu.compress(x, JConfig(engine="numpy").with_bound(
+        JMode.PW_REL, ratio))
+    launches = msst19_kernel.wavefront3d_encode_f64.launches + \
+        msst19_kernel.lines2d_encode_f64.launches
+    assert sz_tpu_torch.compress(x, cfg, device=cuda) == blob
+    assert msst19_kernel.wavefront3d_encode_f64.launches + \
+        msst19_kernel.lines2d_encode_f64.launches == launches + 1
+    got = sz_tpu_torch.decompress(blob, shape, np.float64, device=cuda)
+    want = sz_tpu.decompress(blob, shape, np.float64, engine="numpy")
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,rp,intervals,maker", [
+    ("padded_3d", (13, 14, 20), 1e-3, 0, "field"),
+    ("padded_2d", (40, 50), 1e-3, 0, "field"),
+    ("padded_1d", (3000, 7), 1e-3, 0, "flat"),
+    ("one_block_3d", (5, 6, 4), 1e-3, 1024, "field"),
+    ("mean_3d", (30, 31, 32), 1e-3, 0, "mean"),
+    ("mean_2d", (100, 90), 1e-3, 0, "mean"),
+    ("random_1e-6", (36, 36, 36), 1e-6, 0, "random")])
+def test_ra_kernels_match_plain(cuda, name, shape, rp, intervals, maker):
+    """K12/K13 against their plain versions, each called twice; the
+    decode holds the bound (chip_smoke.ra_vs_plain raises on any
+    difference)."""
+    if maker == "random":
+        x = np.random.default_rng(1).standard_normal(shape).astype(
+            np.float32)
+    elif maker == "mean":
+        x = SMOKE.ra_mean_field(shape, 9)
+    else:
+        x = SMOKE.field(shape, 3)
+        x = x.reshape(-1) if maker == "flat" else x
+    row, _ = SMOKE.ra_vs_plain(name, x, rp, cuda, timed=False,
+                               intervals=intervals)
+    assert row["use_mean"] or maker != "mean"
+    assert maker != "random" or row["escapes"] > x.size // 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,region", [
+    ((40, 48, 56), ((5, 7, 11), (29, 40, 56))),
+    ((200, 150), ((17, 0), (150, 33))),
+    ((70000,), ((300,), (40000,)))])
+def test_ra_on_card_matches_oracle(cuda, shape, region):
+    x = _field(shape, 4)
+    cfg = sz_tpu_torch.SZConfig(random_access=True).with_bound(
+        sz_tpu_torch.ErrorBoundMode.ABS, 1e-3)
+    blob = sz_tpu.compress(x, JConfig(random_access=True,
+                                      engine="numpy").with_bound(
+        JMode.ABS, 1e-3))
+    assert sz_tpu_torch.compress(x, cfg, device=cuda) == blob
+    got = sz_tpu_torch.decompress(blob, shape, np.float32, device=cuda)
+    want = sz_tpu.decompress(blob, shape, np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    reg = sz_tpu_torch.decompress_region(blob, shape, *region, device=cuda)
+    ref = sz_tpu.decompress_region(blob, shape, *region)
+    np.testing.assert_array_equal(reg.view(np.uint32), ref.view(np.uint32))

@@ -18,7 +18,7 @@ import torch
 import sz_tpu_torch
 from sz_tpu_torch.config import ErrorBoundMode, SZConfig
 from sz_tpu_torch.gpu import (_build, fsm_kernel, hist_kernel, lorenzo_kernel,
-                              msst19_kernel, pack_kernel)
+                              msst19_kernel, pack_kernel, ra_kernel)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -113,9 +113,9 @@ _ABS = SZConfig().with_bound(ErrorBoundMode.ABS, 1e-3)
 _PW = SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)
 
 
-# the configurations that named ROADMAP 1.4 are ported: there the case
-# holds the port to sz_tpu's stream and decode (item None); the others
-# still raise naming their item
+# the configurations that named ROADMAP 1.3, 1.4 and 1.6 are ported:
+# there the case holds the port to sz_tpu's stream and decode (item
+# None); integers still raise naming their item
 @pytest.mark.parametrize("data,cfg,item", [
     (_X3.astype(np.float64), SZConfig(with_regression=False).with_bound(
         ErrorBoundMode.ABS, 1e-3), None),
@@ -125,13 +125,13 @@ _PW = SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)
     (_X3, SZConfig(with_regression=False).with_bound(
         ErrorBoundMode.ABS, 1e-3), None),
     (_X3, SZConfig(random_access=True).with_bound(ErrorBoundMode.ABS, 1e-3),
-     "1.6"),
+     None),
     (_X3.reshape(2, 5, 11, 12), SZConfig(random_access=True).with_bound(
         ErrorBoundMode.ABS, 1e-3), None),
     (_X3.reshape(-1), _ABS, None),
     ((_X3 * 100).astype(np.int32), _ABS, "1.10"),
     (_X3.reshape(-1), _PW, None),
-    (_X3.astype(np.float64), _PW, "1.3"),
+    (_X3.astype(np.float64), _PW, None),
     (_X3.astype(np.float64), SZConfig(accelerate_pw_rel=False).with_bound(
         ErrorBoundMode.PW_REL, 1e-3), None),
     (_X3.astype(np.float64).reshape(-1), _ABS, None),
@@ -190,8 +190,8 @@ def test_out_of_slice_decompress_raises(dtype, shape, item):
 def test_prelog_pw_rel_stream_decode_raises():
     """A stream of the pre-log PW_REL codec (the MSST19 flag off) is
     decoded by the pre-log codec (ported, ROADMAP 1.4), bit-equal to
-    sz_tpu, not by another codec; a float64 MSST19 stream still raises
-    (ROADMAP 1.3)."""
+    sz_tpu, not by another codec; a float64 MSST19 stream (ROADMAP 1.3,
+    ported) decodes bit-equal to sz_tpu too."""
     import sz_tpu
     from sz_tpu.config import ErrorBoundMode as JMode
     from sz_tpu.config import SZConfig as JConfig
@@ -204,8 +204,10 @@ def test_prelog_pw_rel_stream_decode_raises():
     blob64 = sz_tpu.compress((_X3 + 1).astype(np.float64),
                              JConfig(engine="numpy").with_bound(
                                  JMode.PW_REL, 1e-3))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.3\\)"):
-        sz_tpu_torch.decompress(blob64, _X3.shape, np.float64, device="cpu")
+    got = sz_tpu_torch.decompress(blob64, _X3.shape, np.float64,
+                                  device="cpu")
+    want = sz_tpu.decompress(blob64, _X3.shape, np.float64, engine="numpy")
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
 
 
 def _msst19_meta():
@@ -258,6 +260,22 @@ def test_wrappers_take_no_fallback_off_cpu():
         msst19_kernel.lines2d_encode(m[0], tab, pt, 1023, 1023, 4, 10)
     with pytest.raises(ValueError, match="unsupported device"):
         msst19_kernel.lines2d_decode(t[0], m[0], pt)
+    m64 = m.double()
+    with pytest.raises(ValueError, match="unsupported device"):
+        msst19_kernel.wavefront3d_encode_f64(m64, tab, pt, 1023, 1023, 4, 42)
+    with pytest.raises(ValueError, match="unsupported device"):
+        msst19_kernel.wavefront3d_decode_f64(t, m64, pt)
+    with pytest.raises(ValueError, match="unsupported device"):
+        msst19_kernel.lines2d_encode_f64(m64[0], tab, pt, 1023, 1023, 4, 42)
+    with pytest.raises(ValueError, match="unsupported device"):
+        msst19_kernel.lines2d_decode_f64(t[0], m64[0], pt)
+    b = torch.empty((3, 216), device="meta")
+    lor = torch.empty(3, dtype=torch.uint8, device="meta")
+    qc = torch.empty((3, 4), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ra_kernel.ra_encode(b, lor, qc, 3, 6, 1e-3, 512, 256, False, 0.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ra_kernel.ra_decode(b.int(), b, lor, qc, 3, 6, 1e-3, 256, False, 0.0)
 
 
 def test_wrappers_check_shapes():
@@ -313,6 +331,24 @@ def test_wrappers_check_shapes():
         msst19_kernel.wavefront3d_decode(t3, x, pt.float())
     with pytest.raises(ValueError, match="cache table"):
         msst19_kernel.wavefront3d_encode(x, tab, pt, 1023, 1024, 4, 13)
+    with pytest.raises(ValueError, match="dtype"):     # float32 to K8d
+        msst19_kernel.wavefront3d_encode_f64(x, tab, pt, 1023, 1023, 4, 42)
+    with pytest.raises(ValueError, match="dtype"):
+        msst19_kernel.lines2d_decode_f64(t3[0], x[0], pt)
+    blk = torch.zeros((3, 216))
+    lor = torch.zeros(3, dtype=torch.uint8)
+    qc = torch.zeros((3, 4))
+    with pytest.raises(ValueError, match="216"):
+        ra_kernel.ra_encode(blk[:, :100], lor, qc, 3, 6, 1e-3, 512, 256,
+                            False, 0.0)
+    with pytest.raises(ValueError, match="lor"):
+        ra_kernel.ra_encode(blk, lor.bool(), qc, 3, 6, 1e-3, 512, 256,
+                            False, 0.0)
+    with pytest.raises(ValueError, match="qc"):
+        ra_kernel.ra_decode(blk.int(), blk, lor, qc[:, :3], 3, 6, 1e-3, 256,
+                            False, 0.0)
+    with pytest.raises(ValueError, match="rank"):
+        ra_kernel.ra_encode(blk, lor, qc, 4, 6, 1e-3, 512, 256, False, 0.0)
 
 
 def test_kernel_build_keeps_ieee_floats():
@@ -322,7 +358,8 @@ def test_kernel_build_keeps_ieee_floats():
     assert "fast_math" not in flags and "fast-math" not in flags
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"lorenzo.cu", "hist.cu", "pack.cu",
-                                      "fsm.cu", "msst19.cu", "classic.cu"}
+                                      "fsm.cu", "msst19.cu", "classic.cu",
+                                      "ra.cu"}
     assert {p.name for p in _build.headers()} == {"tiles.cuh",
                                                   "lookback.cuh"}
     for p in srcs + _build.headers():
@@ -344,7 +381,7 @@ def test_kernel_digest_follows_headers(tmp_path, monkeypatch):
     for p in _build.sources() + _build.headers():
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.suffix for p in _build.sources()] == [".cu"] * 6
+    assert [p.suffix for p in _build.sources()] == [".cu"] * 7
     before = _build.library_path()
     header = csrc / "tiles.cuh"
     header.write_text(header.read_text() + "\n// edited\n")

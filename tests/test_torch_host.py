@@ -578,3 +578,127 @@ def test_msst19_1d_encode_and_decode_match():
                                   want[2], resi, np.float32)
     np.testing.assert_array_equal(dec_t.view(np.uint32),
                                   dec_j.view(np.uint32))
+
+
+def test_range_scan_f64_matches():
+    """host.c's double range/sign scan against sz_tpu.native's, with the
+    reference's quirks (signs[0] never set, nearZero from data[0])."""
+    x = _pw_field((40, 50), 61).astype(np.float64) * np.pi
+    x[0, 0] = -0.0
+    x[3, 4] = 0.0
+    got = tnative.range_scan(x.reshape(-1))
+    want = jnative.range_scan(x.reshape(-1))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert isinstance(got[0], np.float64) and got[3][0] == 0
+    a, b = tpwr.range_size_msst19(x), jpwr.range_size_msst19(x)
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.parametrize("ratio", [1e-3, 1e-5])
+def test_msst19_1d_f64_encode_and_decode_match(ratio):
+    """host.c's double 1-D MSST19 recurrences against sz_tpu.native's
+    rank-1 double forms (12 - expo kept bits)."""
+    rng = np.random.default_rng(10)
+    x = (np.sin(np.linspace(0, 30, 20000)) * 5
+         + 0.01 * rng.standard_normal(20000))
+    x[::97] = -x[::97]
+    iv = jpwr._optimize_intervals_msst19(x, ratio, 32768, 100,
+                                         np.float32(0.99))
+    assert tpwr._optimize_intervals_msst19(x, ratio, 32768, 100,
+                                           np.float32(0.99)) == iv
+    cache = tpwr._cache_table(iv, ratio, 3)
+    pt = tpwr._precision_table(iv, ratio, 3)
+    rl = 12 - tclassic.get_exponent(np.float64(ratio), np.float64)
+    got = tnative.msst19_encode1d(x, cache.table, cache.base_index,
+                                  cache.top_index, cache.bits, pt, rl)
+    want = jnative.msst19_encode(x, cache.table, cache.base_index,
+                                 cache.top_index, cache.bits, pt, rl)
+    for g, w in zip(got, want):
+        if isinstance(g, np.ndarray):
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert g == w
+    assert got[4] > 2
+    resi = tnative.pack_w_bits(got[3], rl % 8)
+    dec_t = tnative.msst19_decode1d(got[0], pt, rl, got[1], got[2], resi,
+                                    np.float64)
+    dec_j = jnative.msst19_decode(want[0], (x.size,), pt, rl, want[1],
+                                  want[2], resi, np.float64)
+    np.testing.assert_array_equal(dec_t.view(np.uint64),
+                                  dec_j.view(np.uint64))
+
+
+@pytest.mark.parametrize("nc", [2, 3, 4])
+def test_ra_coeff_chain_and_its_decode_match(nc):
+    """The random-access coefficient chain (double division, float last
+    values) and its decode against sz_tpu.native's, escapes included."""
+    rng = np.random.default_rng(nc)
+    coeffs = (np.cumsum(rng.standard_normal((300, nc)), axis=0)
+              * 1e-3).astype(np.float32)
+    coeffs[::17] *= 1e4          # jumps past the cap: escapes
+    prec = [1e-6] * (nc - 1) + [5e-5]
+    got = tnative.ra_coeff_chain(coeffs, prec, 65536, 32768)
+    want = jnative.ra_coeff_chain(coeffs, prec, 65536, 32768)
+    np.testing.assert_array_equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got[2].view(np.uint32),
+                                  want[2].view(np.uint32))
+    assert sum(len(u) for u in got[1]) > 0
+    rad = np.full(nc, 32768)
+    dec = tnative.ra_coeff_chain_decode(got[0], prec, rad, got[1], 300)
+    ref = jnative.ra_coeff_chain_decode(want[0], prec, rad, want[1], 300)
+    np.testing.assert_array_equal(dec.view(np.uint32), ref.view(np.uint32))
+    np.testing.assert_array_equal(dec.view(np.uint32),
+                                  got[2].view(np.uint32))
+
+
+def test_huff_block_streams_match():
+    """Per-block streams under one table (byte-aligned, concatenated) and
+    their decode against sz_tpu.native's, past 64-bit codes too."""
+    rng = np.random.default_rng(3)
+    syms = rng.zipf(1.3, (500, 216)).clip(0, 250).astype(np.int32)
+    freq = np.bincount(syms.ravel(), minlength=512)
+    freq[40:60] = _fib_freq()[50:70]      # deep codes
+    t = thuff.build_tables(None, 256, freq=freq)
+    got = tnative.huff_encode_blocks(syms, t.code_hi, t.code_lo, t.code_len)
+    want = jnative.huff_encode_blocks(syms, t.code_hi, t.code_lo, t.code_len)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    off = np.concatenate([[0], np.cumsum(got[0].astype(np.int64))[:-1]])
+    sel = np.arange(500)[::3]
+    dec = tnative.huff_tree_decode_blocks(t.L, t.R, t.C, t.T, got[1],
+                                          off[sel], got[0][sel], 216)
+    ref = jnative.huff_tree_decode_blocks(t.L, t.R, t.C, t.T, want[1],
+                                          off[sel], want[0][sel], 216)
+    np.testing.assert_array_equal(dec, ref)
+    np.testing.assert_array_equal(dec, syms[sel])
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint16, np.int8, np.int64])
+def test_int1d_encode_and_decode_match(dtype):
+    """The 1-D integer recurrence (the A1 wrap width of each type) and
+    its decode against sz_tpu.native's, at ABS 0.5 and a coarser bound."""
+    rng = np.random.default_rng(5)
+    info = np.iinfo(dtype)
+    x = np.clip(np.cumsum(rng.integers(-9, 10, 3000)), max(info.min, -2000),
+                min(info.max, 2000)).astype(dtype)
+    a1 = {np.int32: np.int32, np.uint16: np.int64, np.int8: np.int64,
+          np.int64: np.int64}[dtype]
+    mn = int(x.min())
+    esize = np.dtype(dtype).itemsize
+    for rp, intervals in ((0.5, 64), (3.0, 32)):
+        got = tnative.int1d_encode(x, rp, intervals, intervals // 2, a1, mn,
+                                   2, esize)
+        want = jnative.int1d_encode(x, rp, intervals, intervals // 2, a1,
+                                    mn, 2, esize)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:] and got[2] >= 2
+        dec = tnative.int1d_decode(got[0], 2 * rp, intervals // 2, dtype, mn,
+                                   2, esize, got[1])
+        ref = jnative.int1d_decode(want[0], 2 * rp, intervals // 2, dtype,
+                                   mn, 2, esize, want[1])
+        assert dec.dtype == ref.dtype
+        np.testing.assert_array_equal(dec, ref)

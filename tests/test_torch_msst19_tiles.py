@@ -27,21 +27,55 @@ F32, F64 = np.float32, np.float64
 
 
 def test_tiles_match_the_cuda_source():
-    """TILE3 / TILE2, from which the wrappers make the claim order, are
-    the tile shapes msst19.cu compiles (Msst19Tile<3> / <2>), which it
-    hands to tiles.cuh's TileShape with a two-deep k-halo."""
+    """TILE3 / TILE2 (float data) and TILE3_F64 / TILE2_F64 (K8d/K9d),
+    from which the wrappers make the claim order, are the tile shapes
+    msst19.cu compiles (Msst19Tile<3, V> / <2, V>; a double tile may
+    differ where kWide), which it hands to tiles.cuh's TileShape with a
+    two-deep k-halo."""
     src = (pathlib.Path(msst19_kernel.__file__).resolve().parent.parent
            / "csrc" / "msst19.cu").read_text()
     dims = re.findall(
-        r"static constexpr int (b[ijk]) = kRank == 3 \? (\d+) : (\d+);", src)
+        r"static constexpr int (b[ijk]) = kRank == 3 \? (\d+) : "
+        r"(?:kWide \? (\d+) : )?(\d+);", src)
     assert [d[0] for d in dims] == ["bi", "bj", "bk"]
+    assert "static constexpr bool kWide = sizeof(V) == 8;" in src
     assert tuple(int(d[1]) for d in dims) == msst19_kernel.TILE3
-    assert tuple(int(d[2]) for d in dims) == msst19_kernel.TILE2
+    assert tuple(int(d[1]) for d in dims) == msst19_kernel.TILE3_F64
+    assert tuple(int(d[3]) for d in dims) == msst19_kernel.TILE2
+    assert tuple(int(d[2] or d[3]) for d in dims) == msst19_kernel.TILE2_F64
+    assert "using Msst19Geo = Geo<TileShape<Msst19Tile<kRank, V>, 2>>;" in src
     for rank in (3, 2):
-        assert f"Geo<TileShape<Msst19Tile<{rank}>, 2>>" in src
-    assert msst19_kernel.TILE2[0] == 1
+        for v in ("float", "double"):
+            assert f"Msst19Geo<{rank}, {v}>" in src
+    assert msst19_kernel.TILE2[0] == msst19_kernel.TILE2_F64[0] == 1
     assert all(b[0] * b[1] % 32 == 0 and b[2] >= 2
-               for b in (msst19_kernel.TILE3, msst19_kernel.TILE2))
+               for b in (msst19_kernel.TILE3, msst19_kernel.TILE2,
+                         msst19_kernel.TILE3_F64, msst19_kernel.TILE2_F64))
+
+
+def _shared_bytes(tile, value_bytes):
+    """tiles.cuh's shared_bytes for a rule with kArrays 3 and no flags:
+    the tile with its two-deep k-halo at the bank-spreading pitches."""
+    def pitch(lo, want):
+        return lo + ((want - lo) % 32 + 32) % 32
+    bi, bj, bk = tile
+    P = pitch(bk + 2, 2)
+    Q = pitch((bj + 1) * P, bj + 1)
+    return (bi + 1) * Q * (2 * value_bytes + 4)
+
+
+def test_tiles_fit_a_block():
+    """Every tile's shared memory fits a block's 232,448 bytes (the float
+    2-D tile's shape in double would not: the reason K9d is shorter on
+    k); the figures msst19.cu's note gives."""
+    limit = 232448
+    assert _shared_bytes(msst19_kernel.TILE3_F64, 8) == 106740
+    assert _shared_bytes(msst19_kernel.TILE2_F64, 8) == 172840
+    assert _shared_bytes(msst19_kernel.TILE2, 8) == 256040 > limit
+    for tile, vb in ((msst19_kernel.TILE3, 4), (msst19_kernel.TILE2, 4),
+                     (msst19_kernel.TILE3_F64, 8),
+                     (msst19_kernel.TILE2_F64, 8)):
+        assert _shared_bytes(tile, vb) <= limit
 
 
 # --- the point rules, numpy scalars in msst19.cu's op order ---------------
