@@ -41,10 +41,15 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      256^3 (float32 and float64), 1800x3600, 8x128x256x256 and 512^3;
      K8d/K9d (MSST19 on float64 data) on K8/K9's shapes, the 1e-4 and
      1e-5 tables, timed at 256^3, 1800x3600 and 512^3; K12/K13 (the
-     random-access codec's per-block scans) on fields whose edge blocks
-     are padded, fields of one block and less, fields with the mean
-     flush on, random data under 1e-6, timed at 256^3, 1800x3600, 2^24
-     (1-D) and 512^3 (the plain versions on the first 2^16 blocks);
+     random-access codec's per-block scans; K13 on the compact escapes,
+     writing the field's layout) on fields whose edge blocks are padded,
+     fields of one block and less, fields with the mean flush on, random
+     data under 1e-6, region decodes at ranks 1-3 whose faces cut
+     blocks, K13 on escape layouts (only in a rank-3 block's last staged
+     words, one in a block's last cell, one escape too many), timed at
+     256^3, 1800x3600, 2^24 (1-D) and 512^3 (the plain versions on the
+     leading 2^16 blocks), with K13's bound before and after it took
+     over the escape placement and the de-blocking;
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
      1e-3 (float32 and float64) and PW_REL 1e-3 streams and
      reconstructions hash to the SHA-256 of the host oracle's (sz_tpu,
@@ -85,8 +90,8 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      signed 512^3 field and PW_REL 1e-6 on 1800x3600 float32 and 256^3
      float64: the bound, MB/s, spans and launches; PW_REL 1e-3 on 512^3
      float64 (|field64|, 1.07 GB) and the random-access codec on 512^3
-     float32 (and a 64^3 region of it): the bound, MB/s, spans and
-     launches; then K5-K7 timed
+     float32 (and a 64^3 region of it): the bound, MB/s, spans,
+     launches and the decompress's peak device memory; then K5-K7 timed
      against their plain versions on the type streams
      of 512^3 ABS, 512^3 PW_REL and 1800x3600 PW_REL (node count,
      longest code and codeword-table bits of each; K6 also at each tile
@@ -1354,119 +1359,275 @@ def ra_mean_field(shape, seed: int) -> np.ndarray:
     return x
 
 
-# blocks the plain K12/K13 run on past PLAIN_MAX_POINTS (the blocks are
-# independent: the first ones are a whole computation)
+# K12/K13's timed launches (sub-millisecond kernels: fewer read low)
+RA_REPS = 10
+# blocks the plain K12/K13 run on past PLAIN_MAX_POINTS: the leading
+# block-planes holding at most this many (the blocks are independent, so
+# those are a whole computation)
 RA_PLAIN_BLOCKS = 1 << 16
 
 
+def ra_escapes(t, b) -> tuple:
+    """The escapes in stream order (block by block, raster order in a
+    block) and each block's first, from K12's types t and the blocks b."""
+    import torch
+    esc = t == 0
+    counts = esc.sum(dim=1)
+    return b[esc], torch.cumsum(counts, 0) - counts
+
+
+# K13's escape layouts (ra_escape_layout)
+RA_ESCAPE_KINDS = ("none", "all", "straddle", "tail", "last")
+
+
+def ra_escape_layout(t, kind: str, radius: int):
+    """K12's types t (nb, ncell; a tensor or an array) with their escapes
+    replaced, in place, by ``kind``'s: none at all, every cell of one
+    block, escapes straddling the 32-cell chunks, escapes only in cells
+    88 and on (at rank 3 the last float4 words a warp stages: lanes
+    22-31's first, lanes 0-21's second), one escape in a block's last
+    cell.  Returns t."""
+    nb, ncell = t.shape
+    t[t == 0] = radius
+    if kind == "all":
+        t[nb // 2] = 0
+    elif kind == "straddle":
+        for c in (0, 15, 16, 31, 32, 33, 63, 64, 100, 215, 255):
+            if c < ncell:
+                t[c % 3::2, c] = 0
+    elif kind == "tail":
+        for c in range(88, ncell, 11):
+            t[c % 3::3, c] = 0
+        t[1::2, ncell - 1] = 0
+    elif kind == "last":
+        t[nb // 2, ncell - 1] = 0
+    return t
+
+
+def ra_escape_cases(dev) -> list:
+    """K13 against its plain version on K12's types of a small field at
+    each rank, with the escapes of ra_escape_layout's "tail" and "last",
+    on the whole field and a strided region: bit-equal, no escape past
+    the end; then the "last" layout with the stream's last escape cut
+    (one escape too many): both count one past the end and agree, NaN
+    for NaN."""
+    import torch
+    from sz_tpu_torch import SZConfig
+    from sz_tpu_torch.core import rablock
+    from sz_tpu_torch.gpu import ra_kernel as rk
+    rows = []
+    for shape in ((13, 14, 20), (40, 50), (3000 * 7,)):
+        x = field((3000, 7), 5).reshape(-1) if len(shape) == 1 else \
+            field(shape, 5)
+        p = rablock.prepare(x, 1e-3, SZConfig(random_access=True))
+        rank, bs, nb = x.ndim, p.bs, p.blocks.shape[0]
+        radius = p.intervals // 2
+        lor = torch.from_numpy(p.indicator.astype(np.uint8)).to(dev)
+        qc = torch.from_numpy(p.qc_full).to(dev)
+        t0 = rk.ra_encode(torch.from_numpy(p.blocks.reshape(nb, -1)).to(dev),
+                          lor, qc, rank, bs, 1e-3, p.intervals, radius,
+                          p.use_mean, p.mean)
+        vals = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            t0.shape).astype(np.float32)).to(dev)
+        dec = (rank, bs, 1e-3, radius, p.use_mean, p.mean)
+        start = tuple(min(bs + 1, r - 1) for r in shape)
+        for kind in ("tail", "last", "past_the_end"):
+            t = ra_escape_layout(t0.clone(), "tail" if kind == "tail"
+                                 else "last", radius)
+            unpred, base = ra_escapes(t, vals)
+            if kind == "past_the_end":
+                unpred = unpred[:-1]
+            for a in ((0,) * rank, start):
+                sel, *geo = rablock.region_blocks(shape, bs, a, shape)
+                sel = torch.from_numpy(sel).to(dev)
+                args = (t[sel], unpred, base[sel], lor[sel], qc[sel], *dec,
+                        *geo)
+                (o_k, bad_k), (o_p, bad_p) = (rk.ra_decode(*args),
+                                              rk.ra_decode_plain(*args))
+                # cut, the one escape lies past the end where selected
+                want = int((t[sel] == 0).sum()) if kind == "past_the_end" \
+                    else 0
+                nan = torch.isnan(o_k)
+                row = dict(case=kind, shape=list(shape), start=list(a),
+                           escapes=int(unpred.numel()),
+                           past_the_end=[int(bad_k), int(bad_p)],
+                           bit_equal=bit_equal(o_k, o_p),
+                           nan_for_nan=bool(torch.equal(nan, torch.isnan(
+                               o_p)) and torch.equal(o_k[~nan], o_p[~nan])))
+                _log("kernel K13 escape layouts vs plain", **row)
+                if (int(bad_k), int(bad_p)) != (want, want) or not (
+                        row["bit_equal"] or want and row["nan_for_nan"]):
+                    raise AssertionError(f"K13 differs from its plain "
+                                         f"version on escapes: {row}")
+                rows.append(row)
+    return rows
+
+
 def ra_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
-                intervals: int = 0) -> tuple:
+                intervals: int = 0, regions=()) -> tuple:
     """K12 and K13 against their plain versions on one float32 field's
     blocks as the random-access path makes them (rablock.prepare; with
     ``intervals`` fixed where the optimizer samples no point), each
-    called twice, bit-equal; the decode gets the escapes' values at their
-    cells and must hold the bound.  Above PLAIN_MAX_POINTS the plain
-    versions run on the first RA_PLAIN_BLOCKS blocks.  Timed: the
-    kernels' mean time, the plain version's one call, the bound."""
+    called twice, bit-equal; K13 decodes the whole field (the escapes
+    in stream order, the field's layout) and must hold the bound, then
+    each region of ``regions`` (start, end) from its blocks alone, equal
+    to its plain version and to the whole decode's crop.  Above
+    PLAIN_MAX_POINTS the plain versions run on the leading block-planes
+    of at most RA_PLAIN_BLOCKS blocks.  Timed: the kernels' mean time,
+    the plain version's one call, the bounds (K13's also as it was
+    before it read the compact escapes and wrote the field's layout:
+    12 bytes a padded cell, in the row only)."""
     import torch
     from sz_tpu_torch import SZConfig
     from sz_tpu_torch.core import rablock
     from sz_tpu_torch.gpu import ra_kernel as rk
     p = rablock.prepare(x, rp, SZConfig(random_access=True,
                                         quantization_intervals=intervals))
-    nb = p.blocks.shape[0]
+    nb, rank, bs = p.blocks.shape[0], x.ndim, p.bs
     b = torch.from_numpy(p.blocks.reshape(nb, -1)).to(dev)
     lor = torch.from_numpy(p.indicator.astype(np.uint8)).to(dev)
     qc = torch.from_numpy(p.qc_full).to(dev)
-    rank, radius = x.ndim, p.intervals // 2
-    enc_args = (rank, p.bs, rp, p.intervals, radius, p.use_mean, p.mean)
-    dec_args = (rank, p.bs, rp, radius, p.use_mean, p.mean)
+    radius = p.intervals // 2
+    enc_args = (rank, bs, rp, p.intervals, radius, p.use_mean, p.mean)
+    dec_args = (rank, bs, rp, radius, p.use_mean, p.mean)
     whole = b.numel() <= PLAIN_MAX_POINTS
-    sub = slice(None) if whole else slice(0, RA_PLAIN_BLOCKS)
+    if whole:
+        sub_end = x.shape
+    else:
+        per_plane = nb // -(-x.shape[0] // bs)
+        sub_end = (min(x.shape[0], RA_PLAIN_BLOCKS // per_plane * bs),
+                   *x.shape[1:])
+    sub, *sub_geo = rablock.region_blocks(x.shape, bs, (0,) * rank,
+                                          sub_end)
+    sub = torch.from_numpy(sub).to(dev)
     t_k = rk.ra_encode(b, lor, qc, *enc_args)
     e_again = bit_equal(t_k, rk.ra_encode(b, lor, qc, *enc_args))
     t_p, enc_plain_ms = cuda_once(lambda: rk.ra_encode_plain(
         b[sub], lor[sub], qc[sub], *enc_args))
     e_err = max_abs_err(t_k[sub], t_p)
     del t_p
-    escv = torch.where(t_k == 0, b, torch.zeros_like(b))
-    o_k = rk.ra_decode(t_k, escv, lor, qc, *dec_args)
-    d_again = bit_equal(o_k, rk.ra_decode(t_k, escv, lor, qc, *dec_args))
-    o_p, dec_plain_ms = cuda_once(lambda: rk.ra_decode_plain(
-        t_k[sub], escv[sub], lor[sub], qc[sub], *dec_args))
-    d_err = max_abs_err(o_k[sub], o_p)
+    unpred, base = ra_escapes(t_k, b)
+    _, *geo = rablock.region_blocks(x.shape, bs, (0,) * rank, x.shape)
+    o_k, bad = rk.ra_decode(t_k, unpred, base, lor, qc, *dec_args, *geo)
+    d_again = bit_equal(o_k, rk.ra_decode(t_k, unpred, base, lor, qc,
+                                          *dec_args, *geo)[0])
+    (o_p, bad_p), dec_plain_ms = cuda_once(lambda: rk.ra_decode_plain(
+        t_k[sub], unpred, base[sub], lor[sub], qc[sub], *dec_args,
+        *sub_geo))
+    d_err = max_abs_err(o_k[tuple(slice(0, e) for e in sub_end)], o_p)
+    past = int(bad) + int(bad_p)
     del o_p
-    err = float((o_k.double() - b.double()).abs().max())
-    escapes = int((t_k == 0).sum())
+    xt = torch.from_numpy(x).to(dev)
+    err = float((o_k.double() - xt.double()).abs().max())
+    escapes = int(unpred.numel())
     row = dict(case=name, shape=list(x.shape), bound=rp, blocks=nb,
                intervals=p.intervals, use_mean=p.use_mean,
                lorenzo_blocks=int(p.indicator.sum()), escapes=escapes,
-               plain_on_blocks=nb if whole else RA_PLAIN_BLOCKS,
+               blocks_with_escapes=int((t_k == 0).any(dim=1).sum()),
+               plain_on_blocks=int(sub.numel()),
                encode_bit_equal=e_err == 0.0, encode_repeat_bit_equal=e_again,
                decode_bit_equal=d_err == 0.0, decode_repeat_bit_equal=d_again,
-               max_abs_err=err, decode_holds_bound=err <= rp)
+               max_abs_err=err, decode_holds_bound=err <= rp,
+               no_escape_past_the_end=past == 0, regions=[])
+    for start, end in regions:
+        sel, *g = rablock.region_blocks(x.shape, bs, start, end)
+        sel = torch.from_numpy(sel).to(dev)
+        args = (t_k[sel], unpred, base[sel], lor[sel], qc[sel], *dec_args,
+                *g)
+        r_k, bad = rk.ra_decode(*args)
+        r_p, bad_p = rk.ra_decode_plain(*args)
+        crop = o_k[tuple(slice(a, e) for a, e in zip(start, end))]
+        row["regions"].append(dict(
+            start=list(start), end=list(end), blocks=int(sel.numel()),
+            bit_equal_plain=bit_equal(r_k, r_p),
+            repeat_bit_equal=bit_equal(r_k, rk.ra_decode(*args)[0]),
+            equals_whole_decode=bit_equal(r_k, crop),
+            no_escape_past_the_end=int(bad) + int(bad_p) == 0))
     entries = {}
     if timed:
         cells = b.numel()
+        side = nbytes(lor, qc)
         runs = {  # each input read once, each output written once
-            "ra_encode": (e_err, lambda: rk.ra_encode(b, lor, qc, *enc_args),
-                          enc_plain_ms,
-                          bound(nbytes(b, lor, qc, t_k), 8 * cells,
-                                4 * cells)),
-            "ra_decode": (d_err, lambda: rk.ra_decode(t_k, escv, lor, qc,
-                                                      *dec_args),
-                          dec_plain_ms,
-                          bound(nbytes(t_k, escv, lor, qc, o_k), 6 * cells,
-                                2 * cells)),
+            "ra_encode": (e_err, lambda: rk.ra_encode(
+                b, lor, qc, *enc_args), enc_plain_ms,
+                bound(nbytes(b, t_k) + side, 8 * cells, 4 * cells)),
+            "ra_decode": (d_err, lambda: rk.ra_decode(
+                t_k, unpred, base, lor, qc, *dec_args, *geo),
+                dec_plain_ms,
+                bound(nbytes(t_k, unpred, base, o_k) + side,
+                      6 * cells, 2 * cells)),
         }
+        # K13 as it was: types, the placed escapes and the blocks' values
+        old_ms, _ = bound(12 * cells + side, 6 * cells, 2 * cells)
         for key, (e, kern, plain_ms, (b_ms, b_by)) in runs.items():
-            ms = cuda_ms(kern, 3)
+            cuda_ms(kern, RA_REPS)          # the clocks up after the plain
+            ms = cuda_ms(kern, RA_REPS)
             plain_ms = plain_ms if whole else None
             row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
             entries[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                                 bound_ms=b_ms, bound_by=b_by,
                                 library_ms=None, shape=list(x.shape))
+        row["ra_decode"]["bound_old_ms"] = old_ms
     _log("kernel K12/K13 random access vs plain", **row)
     if not all(row[k] for k in (
             "encode_bit_equal", "encode_repeat_bit_equal", "decode_bit_equal",
-            "decode_repeat_bit_equal", "decode_holds_bound")):
+            "decode_repeat_bit_equal", "decode_holds_bound",
+            "no_escape_past_the_end")) or not all(
+            all(r.values()) for r in row["regions"]):
         raise AssertionError(f"K12/K13 differ from their plain versions or "
                              f"from themselves on {name}: {row}")
     return row, entries
 
 
-def phase_ra_cases(dev) -> tuple:
-    """Phase 2, K12/K13: fields whose edge blocks are padded (every rank),
-    fields of one block and less (with a fixed interval count: their
-    optimizer samples no point), a field with the mean flush on, random
-    data under 1e-6 (most points escape), and timed at the main path's
-    shapes (256^3, 1800x3600, 2^24) and phase 4's 512^3.  Returns (rows,
-    the record entries at 256^3)."""
-    import torch
+def ra_cases() -> list:
+    """Phase 2's K12/K13 cases: (name, field maker, bound, fixed interval
+    count or 0, regions (start, end) to decode from their blocks)."""
     rng = np.random.default_rng(7)
-    cases = [
-        ("padded_edges_3d", lambda: field((13, 14, 20), 3), 1e-3, 0),
-        ("padded_edges_2d", lambda: field((40, 50), 4), 1e-3, 0),
-        ("padded_edges_1d", lambda: field((3000, 7), 5).reshape(-1), 1e-3, 0),
-        ("one_block_3d", lambda: field((5, 6, 4), 6), 1e-3, 1024),
-        ("one_block_2d", lambda: field((3, 20), 7)[:, :16], 1e-3, 1024),
+    return [
+        ("padded_edges_3d", lambda: field((13, 14, 20), 3), 1e-3, 0,
+         [((1, 5, 7), (11, 13, 19)), ((6, 6, 6), (12, 12, 12)),
+          ((7, 8, 9), (10, 11, 12))]),
+        ("padded_edges_2d", lambda: field((40, 50), 4), 1e-3, 0,
+         [((15, 17), (33, 49)), ((16, 32), (32, 48)), ((17, 3), (30, 9))]),
+        ("padded_edges_1d", lambda: field((3000, 7), 5).reshape(-1), 1e-3, 0,
+         [((255,), (2049,)), ((512,), (768,)), ((300,), (400,)),
+          ((20000,), (21000,))]),
+        ("one_block_3d", lambda: field((5, 6, 4), 6), 1e-3, 1024, []),
+        ("one_block_2d", lambda: field((3, 20), 7)[:, :16], 1e-3, 1024, []),
         ("under_one_block_1d", lambda: field((9, 11), 8).reshape(-1)[:70],
-         1e-3, 1024),
-        ("use_mean_3d", lambda: ra_mean_field((30, 31, 32), 9), 1e-3, 0),
-        ("use_mean_2d", lambda: ra_mean_field((100, 90), 10), 1e-3, 0),
+         1e-3, 1024, [((3,), (69,))]),
+        ("use_mean_3d", lambda: ra_mean_field((30, 31, 32), 9), 1e-3, 0,
+         [((5, 0, 13), (29, 31, 20))]),
+        ("use_mean_2d", lambda: ra_mean_field((100, 90), 10), 1e-3, 0,
+         [((1, 1), (99, 89))]),
         ("random_1e-6", lambda: rng.standard_normal((64, 64, 64)).astype(
-            np.float32), 1e-6, 0),
-        ("main_path_256", lambda: field((256, 256, 256), 42), ABS, 0),
-        ("main_path_cesm_atm", lambda: field((1800, 3600), 6), ABS, 0),
+            np.float32), 1e-6, 0, [((3, 4, 5), (50, 60, 61))]),
+        ("main_path_256", lambda: field((256, 256, 256), 42), ABS, 0, []),
+        ("main_path_cesm_atm", lambda: field((1800, 3600), 6), ABS, 0, []),
         ("main_path_1d_2^24", lambda: field((256, 256, 256), 42).reshape(-1),
-         ABS, 0),
-        ("full_size_512", lambda: field((512, 512, 512), 42), ABS, 0),
+         ABS, 0, []),
+        ("full_size_512", lambda: field((512, 512, 512), 42), ABS, 0,
+         [((224, 224, 224), (288, 288, 288))]),
     ]
-    rows, entries = [], {}
-    for name, make, rp, intervals in cases:
+
+
+def phase_ra_cases(dev) -> tuple:
+    """Phase 2, K12/K13 (ra_cases): fields whose edge blocks are padded
+    (every rank), fields of one block and less (with a fixed interval
+    count: their optimizer samples no point), a field with the mean
+    flush on, random data under 1e-6 (most points escape), and timed at
+    the main path's shapes (256^3, 1800x3600, 2^24) and phase 4's 512^3;
+    region decodes at ranks 1-3 whose faces cut blocks, of one block
+    (aligned and not) and a 64^3 region of 512^3; K13 on the escape
+    layouts of ra_escape_cases.  Returns (rows, the record entries at
+    256^3)."""
+    import torch
+    rows, entries = ra_escape_cases(dev), {}
+    for name, make, rp, intervals, regions in ra_cases():
         x = np.ascontiguousarray(make())
         row, ent = ra_vs_plain(name, x, rp, dev, timed=name.startswith(
-            ("main_path", "full_size")), intervals=intervals)
+            ("main_path", "full_size")), intervals=intervals,
+            regions=regions)
         if name.startswith("use_mean") and not row["use_mean"]:
             raise AssertionError(f"{name}: the mean flush is off")
         if name == "random_1e-6" and row["escapes"] < x.size // 2:
@@ -2322,8 +2483,10 @@ def phase_full_size_pwrel64_ra(dev, record: dict, wrappers: dict) -> None:
     K8d) and the random-access codec, ABS 1e-3, on 512^3 float32 (K12,
     K13), then a decompress_region of a 64^3 block in its middle: the
     bound, compress and decompress MB/s (warm, best of 3) with spans,
-    the ratio and the kernel launches of one compress and one
-    decompress."""
+    the ratio, the decompress's peak device memory and the kernel
+    launches of one compress and one decompress."""
+    import torch
+
     import sz_tpu_torch
     from sz_tpu_torch import ErrorBoundMode, SZConfig
 
@@ -2352,6 +2515,12 @@ def phase_full_size_pwrel64_ra(dev, record: dict, wrappers: dict) -> None:
         td, spans_d, counts_d = _best_of(
             lambda: sz_tpu_torch.decompress(blob, x.shape, x.dtype,
                                             device=dev), 3)
+        # the decode's peak device memory above what was held before it
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=dev)
+        peak = torch.cuda.max_memory_allocated(dev) - held
         launches = {}
         for what, fn in (("compress", lambda: sz_tpu_torch.compress(
                 x, cfg, device=dev)), ("decompress", lambda: (
@@ -2368,7 +2537,8 @@ def phase_full_size_pwrel64_ra(dev, record: dict, wrappers: dict) -> None:
                    ratio=x.nbytes / len(blob), **err, compress_MBps=mb / tc,
                    decompress_MBps=mb / td, compress_s=tc, decompress_s=td,
                    compress_spans_s=spans_c, decompress_spans_s=spans_d,
-                   decompress_counts=counts_d, launches=launches)
+                   decompress_counts=counts_d,
+                   decompress_peak_device_bytes=peak, launches=launches)
         if cfg.random_access:
             start, end = (224, 224, 224), (288, 288, 288)
             tr, spans_r, _ = _best_of(

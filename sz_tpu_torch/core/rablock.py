@@ -60,6 +60,25 @@ def _num_blocks(shape, bs):
     return [(r - 1) // bs + 1 for r in shape]
 
 
+def region_blocks(shape, bs: int, start, end) -> tuple:
+    """The blocks that cover the region [start, end): their indices in
+    raster order over their grid, that grid (blocks along each axis), the
+    region's offset in the first block and its extents -- K13's
+    selection and region."""
+    nums = _num_blocks(shape, bs)
+    sb = [s // bs for s in start]
+    eb = [(e - 1) // bs + 1 for e in end]
+    grids = np.meshgrid(*[np.arange(a, b) for a, b in zip(sb, eb)],
+                        indexing="ij")
+    sel = grids[0]
+    for d in range(1, len(shape)):
+        sel = sel * nums[d] + grids[d]
+    grid = tuple(max(b - a, 0) for a, b in zip(sb, eb))
+    lo = tuple(s - a * bs for s, a in zip(start, sb))
+    ext = tuple(max(e - s, 0) for s, e in zip(start, end))
+    return sel.ravel(), grid, lo, ext
+
+
 def _padded_blocks(data: np.ndarray, bs: int) -> np.ndarray:
     """(nb, bs^rank) block array with per-dimension edge replication
     (the pointer-clamping fill of sz_float.c:9402-9417)."""
@@ -453,32 +472,14 @@ def decompress_ra(body, shape, start=None, end=None, size_type: int = 8, *,
         [[0], np.cumsum(bw_counts.astype(np.int64))])
     stream_offsets = np.concatenate([[0], np.cumsum(bsizes.astype(np.int64))])
 
-    # the blocks the region covers, per dimension
-    sb = [s // bs for s in start]
-    eb = [(e - 1) // bs + 1 for e in end]
-    grids = np.meshgrid(*[np.arange(a, b) for a, b in zip(sb, eb)],
-                        indexing="ij")
-    sel = grids[0]
-    for d in range(1, rank):
-        sel = sel * nums[d] + grids[d]
-    sel = sel.ravel()
-
+    sel, grid, lo, ext = region_blocks(shape, bs, start, end)
     with _tr.trace("huffman_blocks"):
         types = _decode_streams(tree, body, stream_base + stream_offsets[sel],
                                 bsizes[sel].astype(np.int64), ncell)
-    vals = ra_engine.decode_blocks(
+    out = ra_engine.decode_blocks(
         types, rank, bs, indicator[sel], qc_full[sel], rp,
         int(intervals) // 2, bool(use_mean), F32(mean), unpred,
-        unpred_offsets[sel], device=dev)
-
-    # the block-aligned region, then the crop to [start, end)
-    grid = tuple(b - a for a, b in zip(sb, eb))
-    perm = [p for d in range(rank) for p in (d, rank + d)]
-    full = vals.reshape(*grid, *([bs] * rank)).permute(perm).reshape(
-        tuple(g * bs for g in grid))
-    out = full[tuple(slice(s - a * bs, e - a * bs)
-                     for s, e, a in zip(start, end, sb))].contiguous()
-    devmod.sync(dev)
+        unpred_offsets[sel], grid, lo, ext, device=dev)
     if as_tensor:
         return out
     with _tr.trace("download"):

@@ -4,12 +4,13 @@ type lattices and reconstructions.
 
 ``encode_blocks`` uploads the edge-padded blocks, their predictor
 indicator and coefficients and runs K12 (``gpu/ra_kernel.py``);
-``decode_blocks`` places each selected block's escapes at their cells
-with a cumulative sum on the device (the JAX engine does this on the
-host, ``ra_engine.py:280-287``) and runs K13.  Span names follow the
-other engines; each device span ends with a synchronize.  Sharding the
-blocks over several devices (``ra_engine._shard_over_blocks``, ROADMAP
-1.8) is not ported.
+``decode_blocks`` uploads the selected blocks' types, the escapes in
+stream order and each block's first escape, and runs K13, which ranks
+the escapes itself (the JAX engine places them per cell on the host,
+``ra_engine.py:280-287``) and writes the region in the field's layout.
+Span names follow the other engines; each device span ends with a
+synchronize.  Sharding the blocks over several devices
+(``ra_engine._shard_over_blocks``, ROADMAP 1.8) is not ported.
 """
 
 from __future__ import annotations
@@ -50,10 +51,14 @@ def encode_blocks(blocks: np.ndarray, indicator: np.ndarray,
 def decode_blocks(types: np.ndarray, rank: int, bs: int,
                   lor_sel: np.ndarray, qc_sel: np.ndarray, rp, radius: int,
                   use_mean: bool, mean, unpred: np.ndarray,
-                  esc_base: np.ndarray, *, device) -> torch.Tensor:
-    """The float32 values (nsel, bs^rank) of the selected blocks, on
-    ``device``: ``types`` their type lattices, ``esc_base`` the index in
-    ``unpred`` of each one's first escape."""
+                  esc_base: np.ndarray, grid, lo, ext, *,
+                  device) -> torch.Tensor:
+    """The float32 region of extents ``ext`` on ``device``: ``types`` the
+    type lattices of the selected blocks (raster order over their
+    ``grid``), ``esc_base`` the index in ``unpred`` of each one's first
+    escape, ``lo`` the region's offset in the first block.  Raises
+    ValueError where the types call for more escapes than ``unpred``
+    holds."""
     dev = devmod.resolve(device)
     with _tr.trace("stream_upload"):
         t = _up(types, np.int32, dev)
@@ -62,17 +67,13 @@ def decode_blocks(types: np.ndarray, rank: int, bs: int,
         up = _up(unpred, np.float32, dev)
         base = _up(esc_base, np.int64, dev)
         devmod.sync(dev)
-    with _tr.trace("escapes"):
-        esc = t == 0
-        take = base[:, None] + torch.cumsum(esc, dim=1) - 1
-        escv = torch.zeros(t.shape, dtype=torch.float32, device=dev)
-        if up.numel():
-            escv[esc] = up[take[esc]]
-        del take
-        devmod.sync(dev)
     with _tr.trace("decode_fixpoint"):
-        out = ra_kernel.ra_decode(t, escv, lor, qc, rank, bs, float(rp),
-                                  int(radius), bool(use_mean),
-                                  np.float32(mean))
+        out, bad = ra_kernel.ra_decode(t, up, base, lor, qc, rank, bs,
+                                       float(rp), int(radius), bool(use_mean),
+                                       np.float32(mean), grid, lo, ext)
         devmod.sync(dev)
+        bad = int(bad)
+    if bad:
+        raise ValueError(f"corrupt random-access stream: its types call for "
+                         f"{bad} escapes past the {len(unpred)} it holds")
     return out

@@ -557,8 +557,14 @@ def test_pwrel64_on_card_matches_oracle(cuda, shape, ratio):
     ("random_1e-6", (36, 36, 36), 1e-6, 0, "random")])
 def test_ra_kernels_match_plain(cuda, name, shape, rp, intervals, maker):
     """K12/K13 against their plain versions, each called twice; the
-    decode holds the bound (chip_smoke.ra_vs_plain raises on any
-    difference)."""
+    decode holds the bound, and decodes of regions whose faces cut
+    blocks (and of one block) equal their plain versions and the whole
+    decode's crop (chip_smoke.ra_vs_plain raises on any difference)."""
+    regions = {"padded_3d": [((1, 5, 7), (11, 13, 19)),
+                             ((7, 8, 9), (10, 11, 12))],
+               "padded_2d": [((15, 17), (33, 49)), ((17, 3), (30, 9))],
+               "padded_1d": [((255,), (2049,)), ((300,), (400,))],
+               "random_1e-6": [((3, 4, 5), (30, 31, 33))]}.get(name, [])
     if maker == "random":
         x = np.random.default_rng(1).standard_normal(shape).astype(
             np.float32)
@@ -568,9 +574,85 @@ def test_ra_kernels_match_plain(cuda, name, shape, rp, intervals, maker):
         x = SMOKE.field(shape, 3)
         x = x.reshape(-1) if maker == "flat" else x
     row, _ = SMOKE.ra_vs_plain(name, x, rp, cuda, timed=False,
-                               intervals=intervals)
+                               intervals=intervals, regions=regions)
+    assert len(row["regions"]) == len(regions)
     assert row["use_mean"] or maker != "mean"
     assert maker != "random" or row["escapes"] > x.size // 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", SMOKE.RA_ESCAPE_KINDS)
+@pytest.mark.parametrize("shape", [(13, 14, 20), (40, 50), (3000, 7)],
+                         ids=["3d", "2d", "1d"])
+def test_ra_escape_ranks_on_card(cuda, shape, kind):
+    """K13 reads the compact escapes: no escape at all (an empty escape
+    stream), a block whose every cell escapes, escapes straddling the
+    32-cell chunks, escapes only in cells 88 and on (a rank-3 warp's last
+    staged words), one in a block's last cell (chip_smoke.
+    ra_escape_layout), on the whole field and a region; equal to the
+    plain version on the same inputs."""
+    from sz_tpu_torch.core import rablock
+    from sz_tpu_torch.gpu import ra_kernel as rk
+    x = SMOKE.field(shape, 5)
+    x = x.reshape(-1) if shape == (3000, 7) else x
+    p = rablock.prepare(x, 1e-3, sz_tpu_torch.SZConfig(random_access=True))
+    rank, bs, nb = x.ndim, p.bs, p.blocks.shape[0]
+    radius = p.intervals // 2
+    b = torch.from_numpy(p.blocks.reshape(nb, -1))
+    lor = torch.from_numpy(p.indicator.astype(np.uint8))
+    qc = torch.from_numpy(p.qc_full)
+    t = rk.ra_encode(b, lor, qc, rank, bs, 1e-3, p.intervals, radius,
+                     p.use_mean, p.mean)
+    SMOKE.ra_escape_layout(t, kind, radius)
+    vals = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        t.shape).astype(np.float32))
+    unpred, base = SMOKE.ra_escapes(t, vals)
+    assert (unpred.numel() == 0) == (kind == "none")
+    dec = (rank, bs, 1e-3, radius, p.use_mean, p.mean)
+    start = tuple(min(bs + 1, r - 1) for r in x.shape)
+    for a, e in (((0,) * rank, x.shape), (start, x.shape)):
+        sel, *geo = rablock.region_blocks(x.shape, bs, a, e)
+        sel = torch.from_numpy(sel)
+        args = (t[sel], unpred, base[sel], lor[sel], qc[sel], *dec, *geo)
+        want, bad_p = rk.ra_decode(*args)
+        got, bad = rk.ra_decode(*(a.to(cuda) if torch.is_tensor(a) else a
+                                  for a in args))
+        assert _bits_equal(got.cpu(), want)
+        assert int(bad) == int(bad_p) == 0
+
+
+@pytest.mark.gpu
+def test_ra_escape_cases_on_card(cuda):
+    """chip_smoke.ra_escape_cases on the card: K13 on the "tail" and
+    "last" escape layouts and with one escape too many, against its plain
+    version (it raises on any difference)."""
+    rows = SMOKE.ra_escape_cases(cuda)
+    assert any(r["past_the_end"] == [1, 1] for r in rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(13, 14, 20), (40, 50), (3000, 7)],
+                         ids=["3d", "2d", "1d"])
+def test_ra_escape_past_the_end_raises_on_card(cuda, shape):
+    """One escape too many: the engine raises on the card as on the
+    CPU."""
+    from sz_tpu_torch.core import rablock
+    from sz_tpu_torch.gpu import ra_engine
+    x = SMOKE.field(shape, 5)
+    x = x.reshape(-1) if shape == (3000, 7) else x
+    p = rablock.prepare(x, 1e-3, sz_tpu_torch.SZConfig(random_access=True))
+    rank, bs, nb = x.ndim, p.bs, p.blocks.shape[0]
+    radius = p.intervals // 2
+    types = np.full((nb, bs ** rank), radius, np.int32)
+    SMOKE.ra_escape_layout(types, "last", radius)
+    _, grid, lo, ext = rablock.region_blocks(x.shape, bs, (0,) * rank,
+                                             x.shape)
+    for dev in (torch.device("cpu"), cuda):
+        with pytest.raises(ValueError, match="1 escapes past the 0"):
+            ra_engine.decode_blocks(
+                types, rank, bs, p.indicator, p.qc_full, 1e-3, radius,
+                p.use_mean, p.mean, np.zeros(0, np.float32),
+                np.zeros(nb, np.int64), grid, lo, ext, device=dev)
 
 
 @pytest.mark.gpu

@@ -275,7 +275,9 @@ def test_wrappers_take_no_fallback_off_cpu():
     with pytest.raises(ValueError, match="cpu or cuda"):
         ra_kernel.ra_encode(b, lor, qc, 3, 6, 1e-3, 512, 256, False, 0.0)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        ra_kernel.ra_decode(b.int(), b, lor, qc, 3, 6, 1e-3, 256, False, 0.0)
+        ra_kernel.ra_decode(b.int(), b[:, 0], lor.long(), lor, qc, 3, 6,
+                            1e-3, 256, False, 0.0, (3, 1, 1), (0, 0, 0),
+                            (18, 6, 6))
 
 
 def test_wrappers_check_shapes():
@@ -344,9 +346,23 @@ def test_wrappers_check_shapes():
     with pytest.raises(ValueError, match="lor"):
         ra_kernel.ra_encode(blk, lor.bool(), qc, 3, 6, 1e-3, 512, 256,
                             False, 0.0)
+    region = ((3, 1, 1), (0, 0, 0), (18, 6, 6))
+    dec = (3, 6, 1e-3, 256, False, 0.0)
     with pytest.raises(ValueError, match="qc"):
-        ra_kernel.ra_decode(blk.int(), blk, lor, qc[:, :3], 3, 6, 1e-3, 256,
-                            False, 0.0)
+        ra_kernel.ra_decode(blk.int(), blk[:, 0], lor.long(), lor,
+                            qc[:, :3], *dec, *region)
+    with pytest.raises(ValueError, match="esc_base"):
+        ra_kernel.ra_decode(blk.int(), blk[:, 0], lor.int(), lor, qc, *dec,
+                            *region)
+    with pytest.raises(ValueError, match="unpred"):
+        ra_kernel.ra_decode(blk.int(), blk.double()[:, 0], lor.long(), lor,
+                            qc, *dec, *region)
+    with pytest.raises(ValueError, match="grid"):
+        ra_kernel.ra_decode(blk.int(), blk[:, 0], lor.long(), lor, qc, *dec,
+                            (2, 1, 1), (0, 0, 0), (12, 6, 6))
+    with pytest.raises(ValueError, match="outside"):
+        ra_kernel.ra_decode(blk.int(), blk[:, 0], lor.long(), lor, qc, *dec,
+                            (3, 1, 1), (1, 0, 0), (18, 6, 6))
     with pytest.raises(ValueError, match="rank"):
         ra_kernel.ra_encode(blk, lor, qc, 4, 6, 1e-3, 512, 256, False, 0.0)
 

@@ -4,7 +4,7 @@
   package's ``ra_engine.encode_blocks`` / ``decode_blocks`` (XLA scans on
   the CPU backend) and against ``rablock``'s host codec (its numpy
   oracle), type lattice for type lattice, reconstruction for
-  reconstruction;
+  reconstruction (theirs de-blocked and cropped with numpy);
 - the 1-D integer codec (``core.intc`` through ``framing``) against
   ``sz_tpu.compress`` / ``decompress`` of int32 and uint16 arrays;
 - the host container (``core.rablock``) against ``sz_tpu.core.rablock``;
@@ -102,6 +102,24 @@ def _encode_args(p, rank, rp):
             p.mean)
 
 
+def _escapes(p, types):
+    """The stream's escapes (raster order, block by block) and each
+    block's first, as the container carries them."""
+    esc = types == 0
+    base = np.concatenate([[0], np.cumsum(esc.sum(axis=1))[:-1]])
+    return p.blocks.reshape(len(types), -1)[esc], base
+
+
+def _deblock(vals, grid, lo, ext, bs):
+    """(nsel, bs^rank) block values in raster order over ``grid`` -> the
+    region of extents ``ext`` at offset ``lo``, in numpy."""
+    rank = len(grid)
+    perm = [p for d in range(rank) for p in (d, rank + d)]
+    full = vals.reshape(*grid, *([bs] * rank)).transpose(perm).reshape(
+        [g * bs for g in grid])
+    return full[tuple(slice(a, a + e) for a, e in zip(lo, ext))]
+
+
 @pytest.mark.parametrize("shape,seed,share,rp", CASES, ids=IDS)
 def test_plain_k12_k13_match_host_codec(shape, seed, share, rp):
     x, p = _prepared(shape, seed, share, rp)
@@ -117,26 +135,30 @@ def test_plain_k12_k13_match_host_codec(shape, seed, share, rp):
     assert (~esc).any()
     if rp < 1e-6:
         assert esc.mean() > 0.5
-    counts = esc.sum(axis=1)
-    base = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    unpred = p.blocks.reshape(nb, -1)[esc]
+    unpred, base = _escapes(p, want)
+    sel, grid, lo, ext = rablock.region_blocks(shape, p.bs, (0,) * rank,
+                                               shape)
+    assert (sel == np.arange(nb)).all() and ext == shape
     out = ra_engine.decode_blocks(want, rank, p.bs, p.indicator, p.qc_full,
                                   rp, p.intervals // 2, p.use_mean, p.mean,
-                                  unpred, base, device=CPU)
+                                  unpred, base, grid, lo, ext, device=CPU)
     host = jrb._decode_blocks_np(want, nb, rank, p.bs, p.indicator,
                                  ~p.indicator, p.qc_full, np.float64(rp),
                                  p.intervals // 2, p.use_mean, p.mean,
                                  unpred, base)
+    host = _deblock(host, grid, lo, ext, p.bs)
+    assert out.shape == x.shape
     np.testing.assert_array_equal(out.numpy().view(np.uint32),
                                   host.view(np.uint32))
-    assert np.abs(out.numpy().astype(np.float64)
-                  - p.blocks.reshape(nb, -1)).max() <= rp
+    assert np.abs(out.numpy().astype(np.float64) - x).max() <= rp
 
 
 @pytest.mark.parametrize("case", [0, 3, 4], ids=["3d_mean_off", "2d_mean",
                                                   "1d"])
 def test_plain_k12_k13_match_jax_engine(case):
-    """The XLA scans of sz_tpu.tpu.ra_engine on the CPU backend."""
+    """The XLA scans of sz_tpu.tpu.ra_engine on the CPU backend; the
+    decode on a region's blocks (a strided selection), whose JAX lattice
+    is de-blocked and cropped with numpy."""
     from sz_tpu.tpu import ra_engine as jra
     shape, seed, share, rp = CASES[case]
     x, p = _prepared(shape, seed, share, rp)
@@ -148,19 +170,21 @@ def test_plain_k12_k13_match_jax_engine(case):
                                     p.bs, rp, p.intervals, p.use_mean,
                                     p.mean, device=CPU)
     np.testing.assert_array_equal(t_dev.numpy(), want)
-    esc = want == 0
-    base = np.concatenate([[0], np.cumsum(esc.sum(axis=1))[:-1]])
-    unpred = p.blocks.reshape(nb, -1)[esc]
-    sel = np.arange(nb)[::2]      # a selection, as a region decode makes
+    unpred, base = _escapes(p, want)
+    start = tuple(min(p.bs + 1, r - 1) for r in shape)
+    end = tuple(r - 1 for r in shape)
+    sel, grid, lo, ext = rablock.region_blocks(shape, p.bs, start, end)
+    assert len(sel) < nb and all(a > 0 for a in lo)
     jout = jra.decode_blocks(want[sel], rank, p.bs, p.indicator[sel],
                              p.qc_full[sel], rp, p.intervals // 2,
                              p.use_mean, p.mean, unpred, base[sel])
     out = ra_engine.decode_blocks(want[sel], rank, p.bs, p.indicator[sel],
                                   p.qc_full[sel], rp, p.intervals // 2,
                                   p.use_mean, p.mean, unpred, base[sel],
-                                  device=CPU)
-    np.testing.assert_array_equal(out.numpy().view(np.uint32),
-                                  np.asarray(jout).view(np.uint32))
+                                  grid, lo, ext, device=CPU)
+    np.testing.assert_array_equal(
+        out.numpy().view(np.uint32),
+        _deblock(np.asarray(jout), grid, lo, ext, p.bs).view(np.uint32))
 
 
 def test_optimizer_1d_matches():
