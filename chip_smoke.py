@@ -49,7 +49,12 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      words, one in a block's last cell, one escape too many), timed at
      256^3, 1800x3600, 2^24 (1-D) and 512^3 (the plain versions on the
      leading 2^16 blocks), with K13's bound before and after it took
-     over the escape placement and the de-blocking;
+     over the escape placement and the de-blocking; K14/K15 (the
+     temporal step and restore, float32 and float64, each called twice)
+     on a step equal to its history, a step that escapes everywhere, 3,
+     21 and 2049 points, subnormals, NaN and +-inf, fixed intervals, and
+     timed at 2^24 points; K15 must rebuild K14's reconstruction, and
+     count an escape past the end of its stream alike;
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
      1e-3 (float32 and float64) and PW_REL 1e-3 streams and
      reconstructions hash to the SHA-256 of the host oracle's (sz_tpu,
@@ -69,13 +74,19 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      random-access codec (ABS 1e-3 at 256^3, 1800x3600 and 2^24 in 1-D,
      and decompress_region of a 64^3 corner) hash to the oracle's
      (tests/test_torch_smoke_oracle_pwrel64.py,
-     tests/test_torch_smoke_oracle_ra.py) and hold their bounds; the
-     launch counters of K1-K13, K1d/K2d and K8d/K9d must all rise; run
+     tests/test_torch_smoke_oracle_ra.py) and hold their bounds; a
+     TemporalCompressor chain (Hurricane ISABEL's 100x500x500 float32 and
+     CESM-ATM's 1800x3600 float64, ABS 1e-3, snapshots at steps 0 and 5,
+     temporal steps 1-4) hashes frame and decode to ORACLE_TEMPORAL
+     (tests/test_torch_smoke_oracle_temporal.py) on every step and holds
+     the bound, its histories on the card; the
+     launch counters of K1-K15, K1d/K2d and K8d/K9d must all rise; run
      under torch.profiler: each kernel's device time summed
      over the phase, and the device's idle share; then, under its own
      profile, the host<->device copies of a compress from a 256^3 tensor
      (no copy of the field up; down, besides the packed stream, under
-     5 % of the field);
+     5 % of the field), and of the temporal chain's temporal steps from
+     CUDA tensors (the same frames; no copy up of 5 % of a field);
   4. 512^3 float32 (NYX scale): the ABS error bound holds, compress and
      decompress MB/s (warm, best of 3) with per-span times and counts,
      the compress from a CUDA tensor of the same field, the kernel
@@ -91,7 +102,10 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      float64: the bound, MB/s, spans and launches; PW_REL 1e-3 on 512^3
      float64 (|field64|, 1.07 GB) and the random-access codec on 512^3
      float32 (and a 64^3 region of it): the bound, MB/s, spans,
-     launches and the decompress's peak device memory; then K5-K7 timed
+     launches and the decompress's peak device memory; the temporal
+     chain again, warm: each step's compress_step and decompress_step
+     wall with spans and launches, and K14/K15 timed on each variable's
+     step 1 against its history; then K5-K7 timed
      against their plain versions on the type streams
      of 512^3 ABS, 512^3 PW_REL and 1800x3600 PW_REL (node count,
      longest code and codeword-table bits of each; K6 also at each tile
@@ -333,6 +347,78 @@ def classic_config(bound_: tuple, overrides: dict):
     mode, value = bound_
     return SZConfig(**overrides).with_bound(getattr(ErrorBoundMode, mode),
                                            value)
+
+
+def ts_step(x0: np.ndarray, s: int, seed: int) -> np.ndarray:
+    """Step ``s`` of a temporal chain from ``x0`` (the chain's ``field`` or
+    ``field64``): x0 plus a drift of s 2^-12, fresh noise of -16..16 times
+    2^-12 (from the seed and the step), and jumps of 1.5 at a stride of
+    997 from point s, which escape.  On the chain's shapes ``field`` is a
+    sum of multiples of 2^-14 under 2.5 in magnitude and ``field64`` a
+    sum of multiples of 2^-40 under 3; the drift, the noise and a jump
+    add multiples of 2^-12 under 1.6.  So every partial sum is a multiple
+    of 2^-14 under 8 (17 bits of float32's 24) or of 2^-40 under 8 (43 of
+    float64's 53): no operation rounds, and the steps are the same bits
+    on every machine."""
+    T = x0.dtype.type
+    rng = np.random.default_rng((seed, s))
+    x = x0 + T(s * 2.0 ** -12)
+    x += rng.integers(-16, 17, x0.shape).astype(T) * T(2.0 ** -12)
+    x.reshape(-1)[s::997] += T(1.5)
+    return x
+
+
+# the temporal chain (phase 3; ABS 1e-3, snapshots every TS_SNAPSHOT_STEP
+# steps): variable id -> (name, field maker, shape, seed): Hurricane
+# ISABEL's grid in float32 and CESM-ATM's in float64
+TS_VARS = {0: ("hurricane_100x500x500", field, (100, 500, 500), 5),
+           1: ("cesm_atm64_1800x3600", field64, (1800, 3600), 6)}
+TS_SNAPSHOT_STEP = 5
+# per step (0 and 5 snapshots, 1-4 temporal): SHA-256 of the oracle's
+# frame and of each variable's decode
+ORACLE_TEMPORAL = (
+    ("6e6f370bfdfc51d7bad883c33aeb4033f8084c202f418db3819a511b260a70e3",
+     {0: "d624631903e5a3de4279a017cb510439f8d15d8bced587f589e7a922236ee894",
+      1: "4f0ee7d74040363e8612ac9ffe64fdb4afb8cc0dc15e260c18292d5fde237532"}),
+    ("8c50b25be73979990f9685c8712c4f633c2c4f5fe33a575bc7865f541c549d8f",
+     {0: "d9da3b7981ba917153bf01de4b9b3dd056a946d99b709679aaaff4603cf8db4d",
+      1: "a28ba7ff3458a5d224f447505fd562c98c5bc1a92e12eceb8f925ec834b04c1a"}),
+    ("40fdc9d669d6ea68cc1cadda9229a833f7ebd5cc3716a4652c8f8e6f2721cc8f",
+     {0: "203776455b630842f11453b1fa7eda749eb84538834860740b8c6763f5afb31e",
+      1: "a11cdb92b5e38bf538c5fedf399d9d10b8e061247b2561edf5f476b0189e0f62"}),
+    ("305a3cbd41341b78dd286dea6d2bb823a30e0804506c817ee95981538fdd1296",
+     {0: "ea56d9565b18d1b7f0b1377003f1c1c1e1831f63b147343745ef43db35395831",
+      1: "a7c16e3da3d4ac93b60061069ac8a8f5b2b04be0a00b6d1991624c977142873e"}),
+    ("e50fd8127d100f177079d1a7fb3cee3a008ebd759d3e1e5e858176d62bc74036",
+     {0: "ee71116ecde31eae4a58f607a72e5b410cbbfd8c30f45b160a90fdd9a2309c6e",
+      1: "09b7ee2a71299a4786a596fc0111f13193c8e38a93f59d301e8ef9b40b8e7de5"}),
+    ("c729124addc768e226dc703c52e2cec07af2141c72c60751657c74b0370611d4",
+     {0: "85f09ce4b37197c06c11b84b1e8f0b9ac5e8ceb686321163d453895d09def0e7",
+      1: "3442c0de7cdd0be80741bb758e19bebf0fd2b87e64c4f0bbe6936aa1c5ede3bf"}),
+)
+
+
+def ts_chain_inputs() -> dict:
+    """{variable id: [its input at each step of ORACLE_TEMPORAL]}."""
+    out = {}
+    for vid, (_, make, shape, seed) in TS_VARS.items():
+        x0 = make(shape, seed)
+        out[vid] = [ts_step(x0, s, seed) for s in range(len(ORACLE_TEMPORAL))]
+    return out
+
+
+def ts_compressors(dev) -> tuple:
+    """An encoder and a decoder of the temporal chain on ``dev``."""
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+    from sz_tpu_torch.temporal import TemporalCompressor
+    cfg = SZConfig().with_bound(ErrorBoundMode.ABS, ABS)
+    pair = (TemporalCompressor(TS_SNAPSHOT_STEP, device=dev),
+            TemporalCompressor(TS_SNAPSHOT_STEP, device=dev))
+    for c in pair:
+        for vid, (name, make, shape, _) in TS_VARS.items():
+            c.register(vid, name, shape,
+                       np.float64 if make is field64 else np.float32, cfg)
+    return pair
 
 
 def sha256(b) -> str:
@@ -1814,9 +1900,174 @@ def phase_classic_cases(dev) -> tuple:
     return rows, entries
 
 
+# --- phase 2: K14/K15 -----------------------------------------------------
+
+TS_CASE_NAMES = ("equal", "all_escape", "n3", "n21", "tile_plus_one",
+                 "subnormal", "nan_inf", "fixed_intervals", "drift")
+TS_REPS = 20
+
+
+def ts_case(name: str, dtype) -> tuple:
+    """(cur, prev, rp, compress_1d_ts keywords) of a K14/K15 edge case: a
+    step equal to its history (every type radius but the first two), a
+    step in which every point escapes, 3, 21 and a tile plus one points,
+    subnormal values under a subnormal bound, NaN and +-inf in the step
+    and the history, fixed intervals, and a drift with jumps."""
+    rng = np.random.default_rng(TS_CASE_NAMES.index(name))
+    n = {"n3": 3, "n21": 21, "tile_plus_one": 2049}.get(name, 5000)
+    prev = np.sin(np.linspace(0, 30, n)).astype(dtype)
+    cur = (prev + 0.002 * rng.standard_normal(n)).astype(dtype)
+    cur[::97] += dtype(1.5)
+    kw, rp = {}, 1e-3
+    if name == "equal":
+        cur = prev.copy()
+    elif name == "all_escape":
+        cur = (prev + 10 + rng.random(n)).astype(dtype)
+        kw = dict(opt_quant_mode=0, fixed_intervals=64)
+    elif name == "subnormal":
+        tiny = np.finfo(dtype).tiny
+        prev = (rng.integers(-8, 9, n) * tiny / 4).astype(dtype)
+        cur = (prev + rng.integers(-3, 4, n) * tiny / 8).astype(dtype)
+        rp = float(tiny)
+    elif name == "nan_inf":
+        cur[5:40:3] = np.nan
+        cur[7:40:5] = np.inf
+        cur[8:40:7] = -np.inf
+        prev[50:60] = np.nan
+        prev[60:70] = np.inf
+        cur[60:65] = np.inf
+    elif name == "fixed_intervals":
+        kw = dict(opt_quant_mode=0, fixed_intervals=256)
+    return cur, prev, rp, kw
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes and bits (NaN payloads and signed zeros included)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        view = torch.int32 if a.element_size() == 4 else torch.int64
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def ts_params(cur, prev, rp: float, kw: dict) -> tuple:
+    """(intervals, radius, req_length, median) of a temporal step on the
+    card, derived as compress_1d_ts derives them."""
+    import torch
+    from sz_tpu_torch.config import float_type
+    from sz_tpu_torch.core import classic
+    from sz_tpu_torch.temporal import optimize_intervals_1d_ts
+    T = float_type(cur.dtype)
+    lo, hi = (T(v) for v in torch.stack(torch.aminmax(cur)).tolist())
+    vr = T(hi - lo)
+    med = T(lo + vr / T(2))
+    intervals = kw.get("fixed_intervals", 0)
+    if kw.get("opt_quant_mode", 1) == 1:
+        intervals = optimize_intervals_1d_ts(cur, prev, rp, 32768, 100,
+                                             np.float32(0.99))
+    req, med = classic.req_length_median(rp, vr, med, T)
+    return intervals, intervals // 2, req, med
+
+
+def ts_vs_plain(name, cur, prev, rp: float, kw: dict, timed: bool) -> tuple:
+    """K14 and K15 against their plain versions on one step (tensors on
+    the card), each called twice, bit-equal: K14's types, reconstruction,
+    compact escapes and count; K15 on K14's types with the escapes'
+    reconstructions (what a decoder reads from the stream), which must
+    rebuild K14's reconstruction, and with one escape too few (the last
+    escape NaN, the count unchanged).  Timed: the kernels' mean time, the
+    plain versions' one call, the bounds (each input read once, each
+    output written once: 16 bytes a float32 point and 28 a float64 one for
+    K14, 12 and 20 for K15, and each escape's value once)."""
+    from sz_tpu_torch.gpu import temporal_kernel as tk
+    intervals, radius, req, med = ts_params(cur, prev, rp, kw)
+    qa = (rp, intervals, radius, req, med)
+    k = tk.ts_quantize(cur, prev, *qa)
+    again = tk.ts_quantize(cur, prev, *qa)
+    p, q_plain_ms = cuda_once(lambda: tk.ts_quantize_plain(cur, prev, *qa))
+    count = int(k[3])
+
+    def q_equal(a, b):
+        return (same_bits(a[0], b[0]) and same_bits(a[1], b[1])
+                and int(a[3]) == int(b[3]) == count
+                and same_bits(a[2][:count], b[2][:count]))
+    types, recon = k[0], k[1]
+    dvals = recon[types == 0]
+    da = (radius, 2 * rp)
+    d = tk.ts_decode(types, prev, dvals, *da)
+    d_again = tk.ts_decode(types, prev, dvals, *da)
+    dp, d_plain_ms = cuda_once(lambda: tk.ts_decode_plain(types, prev, dvals,
+                                                          *da))
+    short = tk.ts_decode(types, prev, dvals[:-1], *da)
+    short_p = tk.ts_decode_plain(types, prev, dvals[:-1], *da)
+    row = dict(
+        case=name, dtype=str(cur.dtype).removeprefix("torch."),
+        points=cur.numel(), intervals=intervals, escapes=count,
+        quantize_bit_equal=q_equal(k, p), quantize_repeat=q_equal(k, again),
+        decode_bit_equal=same_bits(d[0], dp[0]) and int(d[1]) == int(dp[1])
+        == count, decode_repeat=same_bits(d[0], d_again[0]),
+        decode_rebuilds_recon=same_bits(d[0], recon),
+        short_escapes_alike=same_bits(short[0], short_p[0])
+        and int(short[1]) == int(short_p[1]) == count)
+    if name == "equal" and not (count == 2 and bool(
+            (types[2:] == radius).all())):
+        raise AssertionError(f"{name}: {count} escapes")
+    if name == "all_escape" and count != cur.numel():
+        raise AssertionError(f"{name}: {count} escapes")
+    entries = {}
+    if timed:
+        n, es = cur.numel(), cur.element_size()
+        runs = {
+            "ts_quantize": (lambda: tk.ts_quantize(cur, prev, *qa),
+                            q_plain_ms, n * (3 * es + 4) + count * es,
+                            5 * n),
+            "ts_decode": (lambda: tk.ts_decode(types, prev, dvals, *da),
+                          d_plain_ms, n * (2 * es + 4) + count * es, 2 * n),
+        }
+        for key, (kern, plain_ms, moved, ops64) in runs.items():
+            ms = cuda_ms(kern, TS_REPS)
+            b_ms, b_by = bound(moved, ops64=ops64)
+            row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+            entries[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None, shape=list(cur.shape))
+    _log("kernel K14/K15 temporal vs plain", **row)
+    if not all(v for v in row.values() if isinstance(v, bool)):
+        raise AssertionError(f"K14/K15 differ from their plain versions or "
+                             f"from themselves on {name}: {row}")
+    return row, entries
+
+
+def phase_ts_cases(dev) -> tuple:
+    """Phase 2, K14/K15: the edge cases of ts_case in float32 and float64,
+    then 2^24 points (256^3's field and field64, step 1 against step 0 of
+    ts_step), timed.  Returns (rows, the float32 2^24 entries)."""
+    import torch
+    rows, entries = [], {}
+    for T in (np.float32, np.float64):
+        for name in TS_CASE_NAMES:
+            cur, prev, rp, kw = ts_case(name, T)
+            rows.append(ts_vs_plain(
+                name, torch.from_numpy(cur).to(dev),
+                torch.from_numpy(prev).to(dev), rp, kw, False)[0])
+        x0 = (field if T is np.float32 else field64)((256, 256, 256), 42)
+        cur, prev = (torch.from_numpy(ts_step(x0, s, 42).reshape(-1)).to(dev)
+                     for s in (1, 0))
+        row, ent = ts_vs_plain("2^24", cur, prev, ABS, {}, True)
+        rows.append(row)
+        if T is np.float32:
+            entries = ent
+        del cur, prev
+        torch.cuda.empty_cache()
+    return rows, entries
+
+
 # --- phase 3: the main path -----------------------------------------------
 
-def phase_main_path(dev, record: dict) -> None:
+def phase_main_path(dev, record: dict, ts_steps: dict) -> None:
     import sz_tpu_torch
     from sz_tpu_torch import ErrorBoundMode, SZConfig
 
@@ -1886,6 +2137,7 @@ def phase_main_path(dev, record: dict) -> None:
     main_path_classic(dev, rows)
     main_path_pwrel64(dev, rows)
     main_path_ra(dev, rows)
+    main_path_temporal(dev, rows, ts_steps)
     record["main_path"] = rows
 
 
@@ -1967,6 +2219,92 @@ def main_path_ra(dev, rows: list) -> None:
                port_decompress_region_s=dt)
     _log("main path", **row)
     rows.append(row)
+
+
+def main_path_temporal(dev, rows: list, steps: dict) -> None:
+    """Phase 3, temporal compression (K14, K15; K10/K11 on the snapshots,
+    K3-K7 on every type stream): the chain of TS_VARS from host arrays,
+    each frame and each variable's decode hashing to ORACLE_TEMPORAL and
+    holding the bound, the histories on the card."""
+    enc, dec = ts_compressors(dev)
+    for s, (want_frame, want_dec) in enumerate(ORACLE_TEMPORAL):
+        step = {vid: xs[s] for vid, xs in steps.items()}
+        t0 = time.perf_counter()
+        frame = enc.compress_step(step)
+        t1 = time.perf_counter()
+        out = dec.decompress_step(frame)
+        t2 = time.perf_counter()
+        if sha256(frame) != want_frame:
+            raise AssertionError(f"temporal step {s}: frame differs from the "
+                                 f"oracle")
+        errs = {}
+        for vid, x in step.items():
+            name = TS_VARS[vid][0]
+            if out[vid].dtype != x.dtype or \
+                    sha256(out[vid].tobytes()) != want_dec[vid]:
+                raise AssertionError(f"temporal step {s}: {name}'s decode "
+                                     f"differs from the oracle")
+            errs[name] = float(np.abs(out[vid].astype(np.float64) - x).max())
+            if errs[name] > ABS:
+                raise AssertionError(f"temporal step {s}: {name}'s error "
+                                     f"{errs[name]} above the bound")
+        hist_on = {str(c.vars[vid].hist.device) for c in (enc, dec)
+                   for vid in steps}
+        if hist_on != {str(dev)}:
+            raise AssertionError(f"temporal histories on {hist_on}")
+        row = dict(case=f"temporal_step{s}",
+                   kinds={TS_VARS[v][0]: ("temporal" if enc.vars[v]
+                                          .compress_type else "snapshot")
+                          for v in steps},
+                   frame_sha256_equal=True, decode_sha256_equal=True,
+                   frame_bytes=len(frame),
+                   ratio=sum(x.nbytes for x in step.values()) / len(frame),
+                   max_abs_err=errs, histories_on=str(dev),
+                   port_compress_s=t1 - t0, port_decompress_s=t2 - t1)
+        _log("main path", **row)
+        rows.append(row)
+
+
+def phase_temporal_tensor_input(dev, record: dict, steps: dict) -> None:
+    """The temporal chain from CUDA tensors (every variable on the card):
+    the same frames as from host arrays (the oracle's), and the copies
+    of each temporal step's compress (a torch.profiler trace): no copy up
+    of 5 % of the smaller field or more."""
+    import torch
+    enc, _ = ts_compressors(dev)
+    small = min(xs[0].nbytes for xs in steps.values())
+    rows = []
+    for s, (want_frame, _) in enumerate(ORACLE_TEMPORAL):
+        step = {vid: torch.from_numpy(xs[s]).to(dev)
+                for vid, xs in steps.items()}
+        torch.cuda.synchronize()
+        temporal = 0 < s % TS_SNAPSHOT_STEP
+        if temporal:
+            frame, copies = copies_of(lambda: enc.compress_step(step))
+        else:
+            frame, copies = enc.compress_step(step), None
+        if sha256(frame) != want_frame:
+            raise AssertionError(f"temporal step {s} from tensors: the frame "
+                                 f"differs from the host arrays'")
+        row = dict(case=f"temporal_step{s}_tensor_input",
+                   frame_sha256_equal=True)
+        if copies is not None:
+            up, down = sorted(copies["HtoD"]), sorted(copies["DtoH"])
+            row.update(h2d_copies=len(up), h2d_bytes=sum(up),
+                       h2d_largest=up[-1] if up else 0,
+                       d2h_copies=len(down), d2h_bytes=sum(down),
+                       d2h_largest=down[-1] if down else 0,
+                       frame_bytes=len(frame),
+                       fields_bytes=sum(xs[s].nbytes
+                                        for xs in steps.values()))
+            if min(up + down, default=0) < 0 or \
+                    row["h2d_largest"] >= 0.05 * small:
+                raise AssertionError(f"temporal step {s}: a field crossed "
+                                     f"the link up: {row}")
+        _log("temporal tensor input", **row)
+        rows.append(row)
+        del step
+    record["temporal_tensor_input"] = rows
 
 
 def classic_err(name: str, x: np.ndarray, out: np.ndarray, bound_: tuple,
@@ -2622,6 +2960,65 @@ def phase_full_size_classic(dev, record: dict, wrappers: dict) -> None:
     record["full_classic"] = rows
 
 
+def phase_full_size_temporal(dev, record: dict, wrappers: dict,
+                             steps: dict) -> dict:
+    """The temporal chain again, warm (its kernels built and its shapes
+    seen in phase 3): each step's compress_step and decompress_step wall
+    (host clock; the port's spans end in a synchronize) with their spans
+    and kernel launches; then K14 and K15 against their plain versions on
+    each variable's step 1 and step 0 history, timed beside their bounds.
+    Returns the float32 (Hurricane) entries."""
+    import torch
+    from sz_tpu_torch.utils import trace as tr
+    enc, dec = ts_compressors(dev)
+
+    def timed(fn) -> tuple:
+        """(fn(), wall s, spans s, launches) of one warm call."""
+        for w in wrappers.values():
+            w.launches = 0
+        tr.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = {}
+        for k, v in tr.last_spans():
+            spans[k] = spans.get(k, 0.0) + v
+        return out, wall, spans, {k: w.launches for k, w in wrappers.items()
+                                  if w.launches}
+
+    rows, first_hist = [], None
+    for s in range(len(ORACLE_TEMPORAL)):
+        step = {vid: xs[s] for vid, xs in steps.items()}
+        mb = sum(x.nbytes for x in step.values()) / 1e6
+        frame, tc, spans_c, launch_c = timed(lambda: enc.compress_step(step))
+        _, td, spans_d, launch_d = timed(lambda: dec.decompress_step(frame))
+        if sha256(frame) != ORACLE_TEMPORAL[s][0]:
+            raise AssertionError(f"warm temporal step {s} differs")
+        row = dict(step=s, kinds=[("temporal" if enc.vars[v].compress_type
+                                   else "snapshot") for v in steps],
+                   mb=mb, compress_s=tc, decompress_s=td,
+                   compress_MBps=mb / tc, decompress_MBps=mb / td,
+                   compress_spans_s=spans_c, decompress_spans_s=spans_d,
+                   compress_launches=launch_c, decompress_launches=launch_d)
+        _log("full size temporal step", **row)
+        rows.append(row)
+        if s == 0:
+            first_hist = {v: enc.vars[v].hist.clone() for v in steps}
+    record["full_temporal"] = rows
+    entries = {}
+    for vid, (name, _, shape, _) in TS_VARS.items():
+        cur = torch.from_numpy(steps[vid][1].reshape(-1)).to(dev)
+        row, ent = ts_vs_plain(name, cur, first_hist.pop(vid), ABS, {}, True)
+        record.setdefault("ts_full_size", []).append(row)
+        if vid == 0:
+            entries = {k: dict(e, shape=list(shape)) for k, e in ent.items()}
+        del cur
+        torch.cuda.empty_cache()
+    return entries
+
+
 def type_stream(blob: bytes, shape, dev):
     """(uploaded type stream, its tree's node count) of a compressed
     float32 field: the regression codec's (ABS) or MSST19's (PW_REL)."""
@@ -2769,6 +3166,9 @@ DEVICE_NAMES = (
     ("ra_encode1d_kernel", "ra_encode"), ("ra_encode2d_kernel", "ra_encode"),
     ("ra_encode3d_kernel", "ra_encode"), ("ra_decode1d_kernel", "ra_decode"),
     ("ra_decode2d_kernel", "ra_decode"), ("ra_decode3d_kernel", "ra_decode"),
+    ("ts_quantize_kernel", "ts_quantize"),
+    ("ts_quantize_f64_kernel", "ts_quantize"),
+    ("ts_decode_kernel", "ts_decode"), ("ts_decode_f64_kernel", "ts_decode"),
     ("Memcpy", "memcpy"), ("Memset", "memset"),
 )
 
@@ -2859,6 +3259,11 @@ KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
                   "sz_tpu/tpu/ra_engine.py:86"),
     "ra_decode": ("K13", "sz_tpu_torch/csrc/ra.cu",
                   "sz_tpu/tpu/ra_engine.py:218"),
+    # the temporal step and restore (XLA in the JAX package)
+    "ts_quantize": ("K14", "sz_tpu_torch/csrc/temporal.cu",
+                    "sz_tpu/temporal.py:237"),
+    "ts_decode": ("K15", "sz_tpu_torch/csrc/temporal.cu",
+                  "sz_tpu/temporal.py:399"),
 }
 
 
@@ -2889,7 +3294,7 @@ def main() -> int:
     from sz_tpu_torch import native
     from sz_tpu_torch.gpu import (_build, classic_kernel, fsm_kernel,
                                   hist_kernel, lorenzo_kernel, msst19_kernel,
-                                  pack_kernel, ra_kernel)
+                                  pack_kernel, ra_kernel, temporal_kernel)
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     t0 = time.perf_counter()
@@ -2931,6 +3336,8 @@ def main() -> int:
     entries.update(msst19_f64_entries)
     record["ra_cases"], ra_entries = phase_ra_cases(dev)
     entries.update(ra_entries)
+    record["ts_cases"], ts_entries = phase_ts_cases(dev)
+    entries.update(ts_entries)
 
     # phase 3: the main path; the launch counters cover exactly this run
     wrappers = {"wavefront_quantize": lorenzo_kernel.wavefront_quantize,
@@ -2956,10 +3363,13 @@ def main() -> int:
                 "msst19_lines2d_encode_f64": msst19_kernel.lines2d_encode_f64,
                 "msst19_lines2d_decode_f64": msst19_kernel.lines2d_decode_f64,
                 "ra_encode": ra_kernel.ra_encode,
-                "ra_decode": ra_kernel.ra_decode}
+                "ra_decode": ra_kernel.ra_decode,
+                "ts_quantize": temporal_kernel.ts_quantize,
+                "ts_decode": temporal_kernel.ts_decode}
+    ts_steps = ts_chain_inputs()
     for w in wrappers.values():
         w.launches = 0
-    prof = profiled(lambda: phase_main_path(dev, record))
+    prof = profiled(lambda: phase_main_path(dev, record, ts_steps))
     launches = {k: w.launches for k, w in wrappers.items()}
     _log("main path launches", **launches)
     _log("main path device time (torch.profiler)", **prof)
@@ -2968,6 +3378,7 @@ def main() -> int:
     if idle:
         raise AssertionError(f"main path never launched {idle}")
     phase_device_input_copies(dev, record)
+    phase_temporal_tensor_input(dev, record, ts_steps)
 
     # phase 4: full size (float32 from a host array and from a tensor),
     # PW_REL, then float64 (after the float32 phases, which so run as
@@ -2977,6 +3388,9 @@ def main() -> int:
     phase_full_size_f64(dev, record, wrappers)
     phase_full_size_classic(dev, record, wrappers)
     phase_full_size_pwrel64_ra(dev, record, wrappers)
+    # K14/K15 at the chain's full size replace phase 2's 2^24 entries
+    entries.update(phase_full_size_temporal(dev, record, wrappers, ts_steps))
+    del ts_steps
     streams = {"512^3 ABS": (blob, (512, 512, 512)), **streams}
     calls = {"512^3 ABS": calls, **pw_calls}
     del blob, pw_calls

@@ -90,6 +90,14 @@ class Lossless(enum.IntEnum):
     ZSTD = 1
 
 
+class CompressionType(enum.IntEnum):
+    """Per-step choice in temporal mode (defines.h:79-81)."""
+
+    FORCE_SNAPSHOT = 0
+    FORCE_TEMPORAL = 1
+    PERIO_TEMPORAL = 2
+
+
 # Streams with <= this many elements are stored verbatim (defines.h:27).
 MIN_NUM_OF_ELEMENTS = 20
 
@@ -132,6 +140,7 @@ class SZConfig:
     accelerate_pw_rel: bool = True  # MSST19 when applicable
     plus_bits: int = 3
 
+    snapshot_cmpr_step: int = 5  # temporal mode snapshot period
     segment_size: int = 36  # legacy pwr segment size
 
     sol_id: int = 101  # SZ (defines.h:21)

@@ -42,6 +42,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
+_ULL = ctypes.c_ulonglong
 
 # argtypes of every C entry point (pointers and the stream as c_void_p:
 # a bare Python int would be passed as a 32-bit int and cut)
@@ -89,6 +90,12 @@ SIGNATURES = {
     "sz_ra_encode": (_P, _P, _P, _LL, _I, _P, _D, _I, _I, _I, _F, _P, _P),
     "sz_ra_decode": (_P, _P, _LL, _P, _P, _P, _P, _I, *(_I,) * 9, _D, _I,
                      _I, _F, _P, _P, _P),
+    "sz_ts_quantize": (_P, _P, _LL, _D, _D, _D, _I, _ULL, _F, _P, _P, _P, _P,
+                       _P, _P),
+    "sz_ts_quantize_f64": (_P, _P, _LL, _D, _D, _D, _I, _ULL, _D, _P, _P, _P,
+                           _P, _P, _P),
+    "sz_ts_decode": (_P, _P, _LL, _P, _LL, _I, _D, _P, _P, _P, _P),
+    "sz_ts_decode_f64": (_P, _P, _LL, _P, _LL, _I, _D, _P, _P, _P, _P),
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)

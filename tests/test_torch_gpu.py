@@ -2,9 +2,9 @@
 plain torch version (K5-K7 also on the decoded symbols, K8/K9's,
 K8d/K9d's and K10/K11's decode also rebuilding their encode's
 reconstruction, K13 holding the bound on K12's types), and the main
-path, the MSST19 PW_REL path (float32 and float64), the classic codec
-and the random-access codec (with region decodes) byte-equal to the
-numpy oracle, on the GPU.  They skip where
+path, the MSST19 PW_REL path (float32 and float64), the classic codec,
+the random-access codec (with region decodes) and temporal compression
+(K14/K15) byte-equal to the numpy oracle, on the GPU.  They skip where
 torch.cuda.is_available() is false.
 
 This file imports no jax, so it also runs on a machine without it; there
@@ -674,3 +674,59 @@ def test_ra_on_card_matches_oracle(cuda, shape, region):
     reg = sz_tpu_torch.decompress_region(blob, shape, *region, device=cuda)
     ref = sz_tpu.decompress_region(blob, shape, *region)
     np.testing.assert_array_equal(reg.view(np.uint32), ref.view(np.uint32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", SMOKE.TS_CASE_NAMES)
+def test_ts_kernels_match_plain(cuda, name, dtype):
+    """K14/K15 against their plain versions on chip_smoke's edge cases
+    (ts_vs_plain raises on any difference), K15 rebuilding K14's
+    reconstruction."""
+    cur, prev, rp, kw = SMOKE.ts_case(name, dtype)
+    row, _ = SMOKE.ts_vs_plain(name, torch.from_numpy(cur).to(cuda),
+                               torch.from_numpy(prev).to(cuda), rp, kw,
+                               False)
+    assert row["quantize_bit_equal"] and row["decode_rebuilds_recon"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tensors", [False, True], ids=["numpy", "tensor"])
+def test_temporal_on_card_matches_sz_tpu(cuda, tensors):
+    """Five steps of a float32 3-D and a float64 2-D variable (snapshots
+    at 0 and 3): the frames equal sz_tpu.temporal's (its numpy path), and
+    the decode on the card equals sz_tpu's history (its own decode)."""
+    from sz_tpu.temporal import TemporalCompressor as JTC
+    from sz_tpu_torch.temporal import TemporalCompressor
+    shapes = {0: ((30, 40, 50), np.float32), 1: ((60, 70), np.float64)}
+    jc = JConfig(engine="numpy").with_bound(JMode.ABS, 1e-3)
+    tc = sz_tpu_torch.SZConfig().with_bound(
+        sz_tpu_torch.ErrorBoundMode.ABS, 1e-3)
+    j = JTC(3)
+    enc, dec = (TemporalCompressor(3, device=cuda) for _ in range(2))
+    for vid, (shape, dt) in shapes.items():
+        j.register(vid, f"v{vid}", shape, dt, jc)
+        for c in (enc, dec):
+            c.register(vid, f"v{vid}", shape, dt, tc)
+    rng = np.random.default_rng(3)
+    base = {v: rng.standard_normal(sh).astype(dt)
+            for v, (sh, dt) in shapes.items()}
+    for s in range(5):
+        step = {}
+        for v, x in base.items():
+            y = (x + 0.01 * s + 0.002 * rng.standard_normal(x.shape)).astype(
+                x.dtype)
+            y.reshape(-1)[s::97] += 1.5
+            step[v] = y
+        frame = j.compress_step(step)
+        given = ({v: torch.from_numpy(y).to(cuda) for v, y in step.items()}
+                 if tensors else step)
+        assert enc.compress_step(given) == frame, f"step {s}"
+        out = dec.decompress_step(frame, as_tensor=True)
+        for v in shapes:
+            assert out[v].device.type == "cuda"
+            want = np.asarray(j.vars[v].hist)
+            got = out[v].cpu().numpy().reshape(-1)
+            assert got.tobytes() == want.tobytes(), f"step {s} var {v}"
+            assert enc.vars[v].hist.cpu().numpy().tobytes() == \
+                want.tobytes()

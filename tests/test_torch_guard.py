@@ -18,7 +18,9 @@ import torch
 import sz_tpu_torch
 from sz_tpu_torch.config import ErrorBoundMode, SZConfig
 from sz_tpu_torch.gpu import (_build, fsm_kernel, hist_kernel, lorenzo_kernel,
-                              msst19_kernel, pack_kernel, ra_kernel)
+                              msst19_kernel, pack_kernel, ra_kernel,
+                              temporal_kernel)
+from sz_tpu_torch.temporal import TemporalCompressor
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -34,6 +36,13 @@ cfg = SZConfig().with_bound(ErrorBoundMode.ABS, 1e-3)
 blob = sz_tpu_torch.compress(x, cfg, device="cpu")
 y = sz_tpu_torch.decompress(blob, x.shape, np.float32, device="cpu")
 assert np.abs(y - x).max() <= 1e-3
+from sz_tpu_torch.temporal import TemporalCompressor
+enc, dec = (TemporalCompressor(2, device="cpu") for _ in range(2))
+for c in (enc, dec):
+    c.register(0, "v", x.shape, np.float32, cfg)
+for s in range(2):
+    z = dec.decompress_step(enc.compress_step({0: x + np.float32(s)}))[0]
+    assert np.abs(z - x - np.float32(s)).max() <= 1e-3
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "sz_tpu" or m.startswith("sz_tpu."))
 assert not bad, bad
@@ -83,6 +92,8 @@ def test_cuda_without_card_raises(monkeypatch):
         sz_tpu_torch.compress(x, SZConfig(), device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         sz_tpu_torch.decompress(b"", (8, 8, 8), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TemporalCompressor(device="cuda")
 
 
 def test_tensor_input_without_card_raises(monkeypatch):
@@ -104,6 +115,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
         sz_tpu_torch.compress(x, SZConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         sz_tpu_torch.decompress(b"", (8, 8, 8))
+    with pytest.raises(RuntimeError, match="cuda"):
+        TemporalCompressor()
+    with pytest.raises(RuntimeError, match="cuda"):
+        TemporalCompressor(3)
 
 
 _X3 = np.linspace(0, 1, 10 * 11 * 12, dtype=np.float32).reshape(10, 11, 12)
@@ -278,6 +293,13 @@ def test_wrappers_take_no_fallback_off_cpu():
         ra_kernel.ra_decode(b.int(), b[:, 0], lor.long(), lor, qc, 3, 6,
                             1e-3, 256, False, 0.0, (3, 1, 1), (0, 0, 0),
                             (18, 6, 6))
+    for dt in (torch.float32, torch.float64):
+        v = torch.empty(100, dtype=dt, device="meta")
+        t = torch.empty(100, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            temporal_kernel.ts_quantize(v, v, 1e-3, 64, 32, 20, 0.0)
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            temporal_kernel.ts_decode(t, v, v[:7], 32, 2e-3)
 
 
 def test_wrappers_check_shapes():
@@ -365,6 +387,23 @@ def test_wrappers_check_shapes():
                             (3, 1, 1), (1, 0, 0), (18, 6, 6))
     with pytest.raises(ValueError, match="rank"):
         ra_kernel.ra_encode(blk, lor, qc, 4, 6, 1e-3, 512, 256, False, 0.0)
+    cur, t = torch.zeros(100), torch.zeros(100, dtype=torch.int32)
+    q = (1e-3, 64, 32, 20, 0.0)
+    with pytest.raises(ValueError, match="100 points"):
+        temporal_kernel.ts_quantize(cur, cur[:99], *q)
+    with pytest.raises(ValueError, match="1-D"):
+        temporal_kernel.ts_quantize(cur.reshape(10, 10), cur.reshape(10, 10),
+                                    *q)
+    with pytest.raises(ValueError, match="float64"):
+        temporal_kernel.ts_quantize(cur, cur.double(), *q)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        temporal_kernel.ts_quantize(t, t, *q)
+    with pytest.raises(ValueError, match="50 points"):
+        temporal_kernel.ts_decode(t[:50], cur, cur[:3], 32, 2e-3)
+    with pytest.raises(ValueError, match="int32"):
+        temporal_kernel.ts_decode(t.long(), cur, cur[:3], 32, 2e-3)
+    with pytest.raises(ValueError, match="vals"):
+        temporal_kernel.ts_decode(t, cur, cur[:3].double(), 32, 2e-3)
 
 
 def test_kernel_build_keeps_ieee_floats():
@@ -375,7 +414,7 @@ def test_kernel_build_keeps_ieee_floats():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"lorenzo.cu", "hist.cu", "pack.cu",
                                       "fsm.cu", "msst19.cu", "classic.cu",
-                                      "ra.cu"}
+                                      "ra.cu", "temporal.cu"}
     assert {p.name for p in _build.headers()} == {"tiles.cuh",
                                                   "lookback.cuh"}
     for p in srcs + _build.headers():
@@ -397,7 +436,7 @@ def test_kernel_digest_follows_headers(tmp_path, monkeypatch):
     for p in _build.sources() + _build.headers():
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.suffix for p in _build.sources()] == [".cu"] * 7
+    assert [p.suffix for p in _build.sources()] == [".cu"] * 8
     before = _build.library_path()
     header = csrc / "tiles.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -429,6 +468,8 @@ def test_profiler_names_cover_every_kernel():
     parts = [part.split("<")[0] for part, _ in table]
     kernels = _global_kernels()
     assert len(kernels) >= 11
+    assert {"ts_quantize_kernel", "ts_quantize_f64_kernel",
+            "ts_decode_kernel", "ts_decode_f64_kernel"} <= kernels
     missing = sorted(k for k in kernels if not any(p in k for p in parts))
     assert not missing, missing
     # and no entry names a kernel that no longer exists
@@ -447,6 +488,8 @@ def test_build_signatures_cover_every_entry_point():
         entries.update(re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(',
                                   p.read_text()))
     assert {"sz_wavefront_quantize_f64", "sz_wavefront_decode_f64"} <= entries
+    assert {"sz_ts_quantize", "sz_ts_quantize_f64", "sz_ts_decode",
+            "sz_ts_decode_f64"} <= entries
     assert entries == set(_build.SIGNATURES)
     # a float64 entry point takes its scalars as doubles, never floats
     for name, argtypes in _build.SIGNATURES.items():
