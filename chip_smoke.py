@@ -33,12 +33,23 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      and one long on k, a 1e-5 table past 4096 states, a signed field
      with zeros, and timed at 256^3, 1800x3600 and 512^3 (the plain
      versions on the first planes there); K10/K11 (the classic codec's
-     recurrence, both directions, each called twice, the decode
-     rebuilding the encode's reconstruction) on the CPU tests' degenerate
-     shapes, ragged, sub-tile and single-row lattices, one long on k,
-     4-D fields (one launch a volume), float64 and random data that
-     nearly always escapes, and timed with their launches a call at
-     256^3 (float32 and float64), 1800x3600, 8x128x256x256 and 512^3;
+     recurrence as warp strips, both directions, each called twice, K10's
+     types the same with R asked for and without, the decode rebuilding
+     the encode's reconstruction from the compact escapes, one launch a
+     call, 4-D included) on the CPU tests' degenerate shapes, ragged,
+     sub-tile and single-row lattices, one long on k, 4-D fields,
+     float64, random data that nearly always escapes, and the strips'
+     edges (CLASSIC_EDGE_SHAPES: strips of 31, 33 and 65 rows, plane
+     counts no multiple of a block's warps, rows of 1, 2, 15 and 17
+     columns, one row, one plane, 128 volumes of 8^3), a step's latency
+     on a one-row lattice of each form, K11 on escape streams shorter
+     than the type-0 points (the ranks clipped, as _decode_fn does), and
+     timed at 256^3 (float32 and
+     float64), 1800x3600, 8x128x256x256 and 512^3 with the byte bound
+     (and the parent's 12 B a point) and the chain bound; each kernel's
+     registers, spills and shared memory; with --parent DIR, the parent
+     tree's K10/K11 timed beside this tree's (tools/classic_timing.py,
+     parent, this, this, parent);
      K8d/K9d (MSST19 on float64 data) on K8/K9's shapes, the 1e-4 and
      1e-5 tables, timed at 256^3, 1800x3600 and 512^3; K12/K13 (the
      random-access codec's per-block scans; K13 on the compact escapes,
@@ -1781,78 +1792,219 @@ def classic_ops(shape, escapes: int, decode: bool, f64: bool,
     return t_ops + rt_ops, d_ops
 
 
-def classic_vs_plain(name, x, p, dev, timed: bool) -> tuple:
+def classic_bytes(shape, dtype, escapes: int, decode: bool) -> tuple:
+    """(bytes the call needs, bytes the parent's call moved) of one
+    K10/K11 call: K10 reads the data and writes the types; K11 reads the
+    types, the escapes and each row's escape base (int64) and writes the
+    values.  The parent's: 12 B a float32 point (K10: data in, types
+    and R out; K11: types and a full-size `known` in, values out)."""
+    n = int(np.prod(shape))
+    item = np.dtype(dtype).itemsize
+    if decode:
+        now = 4 * n + item * escapes + 8 * (n // shape[-1]) + item * n
+    else:
+        now = item * n + 4 * n
+    return now, (2 * item + 4) * n
+
+
+def classic_chain_steps(shape) -> int:
+    """Point steps on the critical path of one call: r1 + r2 + r3 - 2
+    of a volume (the volumes of a 4-D field run side by side)."""
+    vol = tuple(shape[-3:]) if len(shape) >= 3 else (1,) + tuple(shape)
+    return sum(vol) - 2
+
+
+def classic_form_key(x: np.ndarray) -> str:
+    """The numeric form (and kernel) of a field: float, double (float32
+    data of rank 4) or f64."""
+    if x.dtype == np.float64:
+        return "f64"
+    return "double" if x.ndim == 4 else "float"
+
+
+# one-row lattices of each form: a step's latency is the time over r3
+CLASSIC_STEP_SHAPES = {"float": (1, 1 << 16), "double": (1, 1, 1, 1 << 16),
+                       "f64": (1, 1 << 16)}
+
+
+def classic_step_ns(dev) -> dict:
+    """One point step's latency (ns) of K10 and K11 in each form, from a
+    one-row lattice, where the walk is a single chain of r3 steps."""
+    import torch
+    from sz_tpu_torch.gpu import classic_kernel as ck
+    out = {}
+    for form, shape in CLASSIC_STEP_SHAPES.items():
+        dtype = np.float64 if form == "f64" else np.float32
+        x, p = classic_field(shape, dtype, ABS, 3, 0.1)
+        xt = torch.from_numpy(x).to(dev)
+        args = (p.rp, p.recip, p.intervals, p.radius, p.median,
+                p.req_length)
+        t, R = ck.classic_quantize(xt, *args)
+        esc = R.reshape(-1)[t.reshape(-1) == 0]
+        rb = ck.escape_row_base(t)[0]
+        enc = cuda_ms(lambda: ck.classic_quantize(xt, *args, want_R=False),
+                      3)
+        dec = cuda_ms(lambda: ck.classic_decode(t, esc, p.rp, p.radius,
+                                                row_base=rb), 3)
+        out[form] = dict(shape=list(shape), classic_quantize_ns=enc * 1e6
+                         / shape[-1], classic_decode_ns=dec * 1e6 / shape[-1])
+        _log("K10/K11 step latency", form=form, **out[form])
+    return out
+
+
+def classic_vs_plain(name, x, p, dev, timed: bool, step_ns=None) -> tuple:
     """K10 and K11 against their plain versions on one field: each kernel
-    called twice, bit-equal; K11 on the escapes' reconstructions must
-    rebuild K10's.  Above PLAIN_MAX_POINTS the plain versions run on the
-    first planes only.  Timed: the kernels' mean time, the plain
-    version's one call, the bound, the launches a call."""
+    called twice, bit-equal; K10's types the same with R asked for and
+    without it; K11 on the escapes' reconstructions (compact, in raster
+    order) must rebuild K10's; one launch a call, 4-D included.  Above
+    PLAIN_MAX_POINTS the plain versions run on the first planes only.
+    Timed: the kernels' mean time (K10 without R, as the main path asks;
+    K11 with the row bases the main path computes beside the escape
+    count), the plain version's one call, the byte bound (and the
+    parent's 12 B a point) and the chain bound, (r1 + r2 + r3 - 2)
+    steps of step_ns."""
     import torch
     from sz_tpu_torch.gpu import classic_kernel as ck
     xt = torch.from_numpy(x).to(dev)
     args = (p.rp, p.recip, p.intervals, p.radius, p.median, p.req_length)
     whole = x.size <= PLAIN_MAX_POINTS
-    sub = slice(None) if whole else slice(0, 2 * ck.TILE3[0] + 1)
+    w = ck.WARPS[xt.dtype]
+    sub = slice(None) if whole else slice(0, 2 * w + 1)
     launches = ck.classic_quantize.launches
     t_k, R_k = ck.classic_quantize(xt, *args)
     launches = ck.classic_quantize.launches - launches
     t_2, R_2 = ck.classic_quantize(xt, *args)
     e_again = bit_equal(t_k, t_2) and bit_equal(R_k, R_2)
     del t_2, R_2
+    t_n, R_n = ck.classic_quantize(xt, *args, want_R=False)
+    no_R_same = R_n is None and bit_equal(t_n, t_k)
+    del t_n
     (t_p, R_p), enc_plain_ms = cuda_once(
         lambda: ck.classic_quantize_plain(xt[sub].contiguous(), *args))
     e_err = max(max_abs_err(t_k[sub], t_p), max_abs_err(R_k[sub], R_p))
     plain_on = list(t_p.shape)
     del t_p, R_p
-    known = torch.where(t_k == 0, R_k, torch.zeros_like(R_k))
-    dec = (t_k, known, p.rp, p.radius)
+    esc = R_k.reshape(-1)[t_k.reshape(-1) == 0]
+    rb = ck.escape_row_base(t_k)[0]
+    dec = (t_k, esc, p.rp, p.radius)
+    d_launches = ck.classic_decode.launches
     o_k = ck.classic_decode(*dec)
-    d_again = bit_equal(o_k, ck.classic_decode(*dec))
+    d_launches = ck.classic_decode.launches - d_launches
+    d_again = bit_equal(o_k, ck.classic_decode(*dec, row_base=rb))
+    t_sub = t_k[sub].contiguous()
     o_p, dec_plain_ms = cuda_once(lambda: ck.classic_decode_plain(
-        t_k[sub].contiguous(), known[sub].contiguous(), p.rp, p.radius))
+        t_sub, esc[:int((t_sub == 0).sum())], p.rp, p.radius))
     d_err = max_abs_err(o_k[sub], o_p)
-    del o_p
-    escapes = int((t_k == 0).sum())
+    del o_p, t_sub
+    escapes = int(esc.numel())
     dbl, f64 = p.form.dbl, x.dtype == np.float64
     row = dict(case=name, shape=list(x.shape), dtype=x.dtype.name,
                form="double" if dbl else "float", intervals=p.intervals,
                escapes=escapes, plain_on=plain_on,
-               launches_a_call=launches, encode_bit_equal=e_err == 0.0,
-               encode_repeat_bit_equal=e_again, decode_bit_equal=d_err == 0.0,
+               launches_a_call=launches, decode_launches_a_call=d_launches,
+               encode_bit_equal=e_err == 0.0,
+               encode_repeat_bit_equal=e_again,
+               encode_types_without_R_equal=no_R_same,
+               decode_bit_equal=d_err == 0.0,
                decode_repeat_bit_equal=d_again,
                decode_rebuilds_encode=bit_equal(o_k, R_k))
     entries = {}
     if timed:
+        steps = classic_chain_steps(x.shape)
+        step = step_ns[classic_form_key(x)] if step_ns else None
         runs = {  # each input read once, each output written once
             "classic_quantize": (
-                e_err, lambda: ck.classic_quantize(xt, *args), enc_plain_ms,
-                bound(nbytes(xt, t_k, R_k), *classic_ops(
-                    x.shape, escapes, False, f64, dbl))),
+                e_err, lambda: ck.classic_quantize(xt, *args, want_R=False),
+                enc_plain_ms, classic_bytes(x.shape, x.dtype, escapes, False),
+                classic_ops(x.shape, escapes, False, f64, dbl)),
             "classic_decode": (
-                d_err, lambda: ck.classic_decode(*dec), dec_plain_ms,
-                bound(nbytes(t_k, known, o_k), *classic_ops(
-                    x.shape, escapes, True, f64, dbl))),
+                d_err, lambda: ck.classic_decode(*dec, row_base=rb),
+                dec_plain_ms, classic_bytes(x.shape, x.dtype, escapes, True),
+                classic_ops(x.shape, escapes, True, f64, dbl)),
         }
-        for key, (err, kern, plain_ms, (b_ms, b_by)) in runs.items():
+        for key, (err, kern, plain_ms, (nb, nb_old), ops) in runs.items():
             ms = cuda_ms(kern, 3)
+            b_ms, b_by = bound(nb, *ops)
             plain_ms = plain_ms if whole else None
-            row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by)
+            row[key] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_12B_ms=bound(nb_old, *ops)[0], chain_steps=steps,
+                chain_ms=(steps * step[key + "_ns"] * 1e-6 if step
+                          else None))
             entries[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=b_ms, bound_by=b_by,
                                 library_ms=None, shape=list(x.shape))
+        row["classic_quantize"]["ms_with_R"] = cuda_ms(
+            lambda: ck.classic_quantize(xt, *args), 3)
     _log("kernel K10/K11 classic vs plain", **row)
     if not all(row[k] for k in (
-            "encode_bit_equal", "encode_repeat_bit_equal", "decode_bit_equal",
+            "encode_bit_equal", "encode_repeat_bit_equal",
+            "encode_types_without_R_equal", "decode_bit_equal",
             "decode_repeat_bit_equal", "decode_rebuilds_encode")):
         raise AssertionError(f"K10/K11 differ from their plain versions or "
                              f"from themselves on {name}: {row}")
+    if launches != 1 or d_launches != 1:
+        raise AssertionError(f"K10/K11 took {launches} / {d_launches} "
+                             f"launches on {name}, not one a call")
     return row, entries
+
+
+# K10/K11's strip decomposition on its ragged edges (shared with
+# tests/test_torch_classic_strips.py): strips of 31, 33 and 65 rows,
+# plane counts no multiple of a block's warps, rows of 1, 2, CHUNK - 1 and
+# CHUNK + 1 columns, one row, one plane, 128 volumes of 8^3
+CLASSIC_EDGE_SHAPES = [
+    (7, 31, 40), (13, 33, 20), (5, 65, 17), (9, 40, 1), (9, 40, 2),
+    (11, 37, 15), (11, 37, 17), (4, 1, 300), (1, 70, 90), (65, 3),
+    (33, 17), (31, 300), (1, 700), (128, 8, 8, 8), (6, 7, 33, 17),
+    (40, 5, 70),
+]
+
+
+def classic_edge_cases() -> list:
+    """(name, shape, dtype, rp, seed, noise) of the edge cases: each shape
+    in float32, and float64 on every third and the 4-D ones."""
+    out = []
+    for n, shape in enumerate(CLASSIC_EDGE_SHAPES):
+        name = "edge_" + "x".join(map(str, shape))
+        out.append((name, shape, np.float32, 1e-4, 100 + n, 0.1))
+        if n % 3 == 0 or len(shape) == 4:
+            out.append((name + "_f64", shape, np.float64, 1e-6, 200 + n,
+                        0.1))
+    return out
+
+
+def classic_short_escapes(dev) -> list:
+    """K11 on streams with fewer escape values than type-0 points (none,
+    one, half of them): bit-equal to the plain version, which takes the
+    last value for every rank past the end, as _decode_fn clips."""
+    import torch
+    from sz_tpu_torch.gpu import classic_kernel as ck
+    rows = []
+    for shape, dtype in (((9, 33, 20), np.float32), ((40, 35), np.float64)):
+        x, p = classic_field(shape, dtype, 1e-7, 30, None)
+        t, R = ck.classic_quantize(torch.from_numpy(x).to(dev), p.rp, p.recip,
+                                   p.intervals, p.radius, p.median,
+                                   p.req_length)
+        esc = R.reshape(-1)[t.reshape(-1) == 0]
+        for keep in (0, 1, esc.numel() // 2):
+            part = esc[:keep].contiguous()
+            o_k = ck.classic_decode(t, part, p.rp, p.radius)
+            o_p = ck.classic_decode_plain(t, part, p.rp, p.radius)
+            row = dict(shape=list(shape), dtype=np.dtype(dtype).name,
+                       escapes=int(esc.numel()), kept=keep,
+                       bit_equal=bit_equal(o_k, o_p))
+            _log("K11 short escape stream", **row)
+            if not row["bit_equal"]:
+                raise AssertionError(f"K11 differs from its plain version "
+                                     f"on a short escape stream: {row}")
+            rows.append(row)
+    return rows
 
 
 def phase_classic_cases(dev) -> tuple:
     """Phase 2, K10/K11.  Returns (rows, timed record entries at the main
-    path's 256^3)."""
+    path's 256^3, the step latencies)."""
     import torch
     f32, f64 = np.float32, np.float64
     rows, entries = [], {}
@@ -1863,9 +2015,8 @@ def phase_classic_cases(dev) -> tuple:
         ("degenerate", (5, 7, 1), f32, 1e-3, 3, 0.3, False),
         ("degenerate", (2, 65), f32, 1e-3, 4, 0.3, False),
         ("degenerate", (6, 2, 2), f32, 1e-3, 5, 0.3, False),
-        # 2-D, 3-D, 4-D and float64; what the tiles can get wrong: shapes
-        # no multiple of a tile, under one tile, one tile wide but many
-        # long on k (the k-2 hand-off along the first row), a row and a
+        # 2-D, 3-D, 4-D and float64; shapes no multiple of a strip or a
+        # block, one long on k (the first row's 2A - A2), a row and a
         # column in 2-D
         ("ragged_2d", (777, 1031), f32, 1e-4, 6, 0.1, False),
         ("ragged_3d", (33, 17, 300), f32, 1e-3, 7, 0.1, False),
@@ -1882,22 +2033,80 @@ def phase_classic_cases(dev) -> tuple:
         # random data at 1e-7: nearly every point escapes
         ("escape_heavy", (64, 64, 64), f32, 1e-7, 18, None, False),
         ("escape_heavy_f64", (40, 50, 60), f64, 1e-9, 19, None, False),
-        # the main path's shapes, timed
-        ("main_path_256", (256, 256, 256), f32, ABS, 42, 0.1, True),
-        ("main_path_cesm_atm", (1800, 3600), f32, ABS, 6, 0.1, True),
-        ("main_path_f64_256", (256, 256, 256), f64, ABS, 42, 0.1, True),
-        ("full_size_4d", (8, 128, 256, 256), f32, ABS, 20, 0.1, True),
-        ("full_size_512", (512, 512, 512), f32, ABS, 42, 0.1, True),
-    ]
+    ] + [c + (False,) for c in classic_edge_cases()]
     for name, shape, dtype, rp, seed, noise, timed in cases:
         x, p = classic_field(shape, dtype, rp, seed, noise)
-        row, ent = classic_vs_plain(name, x, p, dev, timed)
+        rows.append(classic_vs_plain(name, x, p, dev, timed)[0])
+    rows += classic_short_escapes(dev)
+    step_ns = classic_step_ns(dev)
+    for name, shape, dtype, rp, seed, noise in CLASSIC_TIMED:
+        x, p = classic_field(shape, dtype, rp, seed, noise)
+        row, ent = classic_vs_plain(name, x, p, dev, True, step_ns)
         rows.append(row)
         if name == "main_path_256":
             entries.update(ent)
         del x
         torch.cuda.empty_cache()
-    return rows, entries
+    return rows, entries, step_ns
+
+
+# the main path's shapes, timed (name, shape, dtype, rp, seed, noise)
+CLASSIC_TIMED = [
+    ("main_path_256", (256, 256, 256), np.float32, ABS, 42, 0.1),
+    ("main_path_cesm_atm", (1800, 3600), np.float32, ABS, 6, 0.1),
+    ("main_path_f64_256", (256, 256, 256), np.float64, ABS, 42, 0.1),
+    ("full_size_4d", (8, 128, 256, 256), np.float32, ABS, 20, 0.1),
+    ("full_size_512", (512, 512, 512), np.float32, ABS, 42, 0.1),
+]
+
+
+def classic_strip_report(ptxas: list) -> list:
+    """K10/K11's ten kernels: ptxas's registers, stack and spills, and
+    the block's warps and dynamic shared memory (classic_kernel's mirror
+    of Form::bytes)."""
+    import torch
+    from sz_tpu_torch.gpu import classic_kernel as ck
+    rows = []
+    for kernel in ("classic_quantize", "classic_decode"):
+        for form in ("2d", "3d", "4d", "2d_f64", "3d_f64"):
+            name = f"{kernel}{form}_kernel"
+            dtype = torch.float64 if form.endswith("f64") else torch.float32
+            regs = spill = None
+            for i, ln in enumerate(ptxas):
+                if "Compiling entry" in ln and f"{len(name)}{name}" in ln:
+                    for nxt in ptxas[i + 1:i + 4]:
+                        if "registers" in nxt and regs is None:
+                            regs = int(nxt.split("Used ")[1].split()[0])
+                        if "spill" in nxt and spill is None:
+                            spill = nxt.strip()
+            rows.append(dict(kernel=name, warps=ck.WARPS[dtype],
+                             shared_bytes=ck.shared_bytes(
+                                 dtype, kernel == "classic_decode"),
+                             registers=regs, spill=spill))
+    for row in rows:
+        _log("K10/K11 strips", **row)
+    return rows
+
+
+def classic_parent_timing(parent: str) -> list:
+    """K10/K11 of the parent tree at ``parent`` and of this tree, timed by
+    tools/classic_timing.py in fresh processes, in turns: parent, this,
+    this, parent."""
+    runs = []
+    for root in (parent, str(REPO), str(REPO), parent):
+        res = subprocess.run(
+            [sys.executable, str(REPO / "tools" / "classic_timing.py"),
+             "--root", root], capture_output=True, text=True)
+        if res.returncode:
+            raise AssertionError(f"classic_timing.py --root {root} failed:"
+                                 f"\n{res.stdout[-3000:]}\n"
+                                 f"{res.stderr[-3000:]}")
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+        _log("K10/K11 timing", root=root, **{
+            r["case"]: [r["classic_quantize_ms"], r["classic_decode_ms"]]
+            for r in rec["rows"]})
+        runs.append(rec)
+    return runs
 
 
 # --- phase 2: K14/K15 -----------------------------------------------------
@@ -3270,6 +3479,8 @@ KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON")
+    ap.add_argument("--parent", help="a checkout of the parent commit: "
+                    "time its K10/K11 beside this tree's (phase 2)")
     args = ap.parse_args()
 
     import torch
@@ -3320,6 +3531,7 @@ def main() -> int:
                            if "registers" in ln or "Compiling entry" in ln
                            or "spill" in ln]
         record["lorenzo_tiles"] = lorenzo_tiles(record["ptxas"])
+        record["classic_strips"] = classic_strip_report(record["ptxas"])
 
     # phase 2: each kernel against its plain version
     record["lorenzo_cases"], entries = phase_lorenzo(dev)
@@ -3329,8 +3541,11 @@ def main() -> int:
     record["scan_cases"] = phase_scan_cases(dev)
     record["msst19_cases"], msst19_entries = phase_msst19_cases(dev)
     entries.update(msst19_entries)
-    record["classic_cases"], classic_entries = phase_classic_cases(dev)
+    record["classic_cases"], classic_entries, record["classic_step_ns"] = \
+        phase_classic_cases(dev)
     entries.update(classic_entries)
+    if args.parent:
+        record["classic_parent_timing"] = classic_parent_timing(args.parent)
     record["msst19_f64_cases"], msst19_f64_entries = \
         phase_msst19_f64_cases(dev)
     entries.update(msst19_f64_entries)

@@ -75,18 +75,18 @@ SIGNATURES = {
                                      _I, _I, _P, _P, _I, _P),
     "sz_msst19_lines2d_decode_f64": (_P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                                      _P),
-    "sz_classic_quantize": (_P, _P, _P, _I, _I, _I, _I, _F, _D, _D, _I, _I,
-                            _F, _I, _P, _P, _I, _P),
-    "sz_classic_quantize_4d": (_P, _P, _P, _I, _I, _I, _D, _D, _I, _I, _F,
-                               _I, _P, _P, _I, _P),
-    "sz_classic_quantize_f64": (_P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I,
-                                _D, _I, _P, _P, _I, _P),
-    "sz_classic_decode": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _I,
-                          _P),
-    "sz_classic_decode_4d": (_P, _P, _P, _I, _I, _I, _D, _I, _P, _P, _I,
-                             _P),
-    "sz_classic_decode_f64": (_P, _P, _P, _I, _I, _I, _I, _D, _I, _P, _P,
-                              _I, _P),
+    "sz_classic_quantize": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _D, _D, _I,
+                            _I, _F, _I, _P, _P, _P, _P, _I, _P),
+    "sz_classic_quantize_4d": (_P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I,
+                               _F, _I, _P, _P, _P, _P, _I, _P),
+    "sz_classic_quantize_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I,
+                                _I, _D, _I, _P, _P, _P, _P, _I, _P),
+    "sz_classic_decode": (_P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                          _P, _P, _P, _P, _I, _P),
+    "sz_classic_decode_4d": (_P, _P, _LL, _P, _P, _I, _I, _I, _I, _D, _I,
+                             _P, _P, _P, _P, _I, _P),
+    "sz_classic_decode_f64": (_P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _D,
+                              _I, _P, _P, _P, _P, _I, _P),
     "sz_ra_encode": (_P, _P, _P, _LL, _I, _P, _D, _I, _I, _I, _F, _P, _P),
     "sz_ra_decode": (_P, _P, _LL, _P, _P, _P, _P, _I, *(_I,) * 9, _D, _I,
                      _I, _F, _P, _P, _P),

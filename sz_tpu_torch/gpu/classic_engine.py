@@ -5,11 +5,12 @@ with identical bytes and bits (``sz_tpu.core.classic_nd.compress_nd`` /
 
 Encode: the interval optimizer's sample walk, the precision's form and
 the escapes' kept bits on the host (``core.classic_nd``); upload; the
-recurrence K10 and the histogram of its types K3 on the device; the
-escapes' values gathered in raster order; the escape stream and the
-Huffman tree on the host; the bit-pack K4 on the device; the TDPS.
-Decode: the Huffman decode K5-K7 on the device, the escape stream on the
-host, the escapes placed in raster order, the recurrence K11.  Span names
+recurrence K10 (types only) and the histogram of its types K3 on the
+device; the escapes' values gathered in raster order; the escape stream
+and the Huffman tree on the host; the bit-pack K4 on the device; the
+TDPS.  Decode: the Huffman decode K5-K7 on the device, each row's escape
+count and their exclusive scan, the escape stream on the host, the
+recurrence K11 on the compact escapes.  Span names
 follow the JAX engine; each device span ends with a synchronize.
 """
 
@@ -45,9 +46,9 @@ def compress(data: np.ndarray, real_precision: float, value_range, median,
         x = torch.from_numpy(data).to(dev)
         devmod.sync(dev)
     with _tr.trace("quantize"):
-        types, rec = classic_kernel.classic_quantize(
-            x, p.rp, p.recip, p.intervals, p.radius, p.median, p.req_length)
-        del rec
+        types, _ = classic_kernel.classic_quantize(
+            x, p.rp, p.recip, p.intervals, p.radius, p.median, p.req_length,
+            want_R=False)
         types = types.reshape(-1)
         devmod.sync(dev)
     with _tr.trace("escapes"):
@@ -76,8 +77,9 @@ def decompress(tdps: TDPS, shape, dtype, *, device,
     shape = tuple(int(s) for s in shape)
     n = int(np.prod(shape))
     f = classic_nd.form(T, len(shape))
-    types = classic.decode_types(tdps.type_array, n, dev)
-    counts = torch.stack([(types == 0).sum(),
+    types = classic.decode_types(tdps.type_array, n, dev).reshape(shape)
+    row_base, esc_count = classic_kernel.escape_row_base(types)
+    counts = torch.stack([esc_count,
                           (types >= int(tdps.intervals)).sum()]).cpu()
     n_esc, n_bad = int(counts[0]), int(counts[1])
     if n_bad:
@@ -85,14 +87,12 @@ def decompress(tdps: TDPS, shape, dtype, *, device,
                          f"{tdps.intervals} intervals")
     with _tr.trace("escapes"):
         vals = classic.ExactDecoder(tdps, T, raw=False).next_batch(n_esc)
-        known = torch.zeros(n, dtype=torch.from_numpy(vals).dtype,
-                            device=dev)
-        known[types == 0] = torch.from_numpy(vals).to(dev)
+        esc = torch.from_numpy(vals).to(dev)
     with _tr.trace("decode_fixpoint"):
         out = classic_kernel.classic_decode(
-            types.reshape(shape), known.reshape(shape),
-            f.RT(tdps.real_precision), int(tdps.intervals) // 2)
-        del types, known
+            types, esc, f.RT(tdps.real_precision),
+            int(tdps.intervals) // 2, row_base=row_base)
+        del types, esc, row_base
         devmod.sync(dev)
     if as_tensor:
         return out

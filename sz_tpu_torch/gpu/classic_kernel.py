@@ -6,13 +6,15 @@ CUDA kernels in ``csrc/classic.cu``.  They replace no Pallas kernel:
 the JAX package solves this recurrence in XLA, a plane scan with a
 per-plane fixpoint and a serial scan pinning the first row
 (``sz_tpu/tpu/classic_engine.py::_encode_fn`` and ``::_decode_fn``).
-Here each call is one persistent launch on the tile machinery of
-``csrc/tiles.cuh`` (shared with K1/K2 and K8/K9) with a k-halo two deep
-for the first row's 2a - b predictor, which computes each point once, in
-dependency order; a 4-D field is one launch a volume (its volumes are
-independent), each counted.  Bound by the dependency chain across the
-tiles, not by bytes or arithmetic; ``classic.cu``'s note has the rules
-and the three numeric forms (``core.classic_nd.Form``).
+Here each call is one launch that computes each point once, in
+dependency order: a warp walks a strip of 32 rows of one plane, a lane
+a row, skewed by its lane, its neighbours in registers and shuffles; a
+block's warps walk consecutive planes (rank 3) or strips (rank 2) and
+hand their rows on through shared-memory rings, blocks through device
+scratch, chunk by chunk, in the claim order :func:`strip_order` makes
+(a 4-D field's volumes side by side in that one order).
+``classic.cu``'s note has the rules, the three numeric forms
+(``core.classic_nd.Form``) and the bound.
 
 Beside each kernel sits its plain torch version: an anti-diagonal
 wavefront over s = i + j + k, each diagonal one vectorized exact step,
@@ -24,9 +26,10 @@ Arguments: ``rp`` and ``recip`` are the precision and its reciprocal in
 the form's RT (float32 for float32 data of rank 2-3, else float64);
 ``median`` and ``req_length`` give an escape's reconstruction (the value
 less the median, its low width - req_length bits cleared, plus the
-median).  The encoder returns the int32 types (0 an escape) and the
-reconstruction; the decoder takes the types and ``known`` (the escapes'
-values in place, anything elsewhere) and returns the reconstruction.
+median).  The encoder returns the int32 types (0 an escape) and, when
+``want_R``, the reconstruction; the decoder takes the types and the
+escapes' values in raster order (``_decode_fn``'s ``unpred_pad``) and
+returns the reconstruction.
 """
 
 from __future__ import annotations
@@ -36,25 +39,19 @@ import ctypes
 import numpy as np
 import torch
 
-from sz_tpu_torch.gpu import _build, tiles
+import functools
+
+from sz_tpu_torch.gpu import _build
 from sz_tpu_torch.gpu.msst19_kernel import _diag
 
 _F32, _F64, _I32, _I64 = torch.float32, torch.float64, torch.int32, torch.int64
 
-# the tiles (bi, bj, bk) of each rank and element type, as classic.cu
-# compiles them (ClassicTile: K1/K2's LorenzoTile shapes)
-TILE3 = (8, 16, 32)
-TILE2 = (1, 64, 96)
-TILE3_F64 = (8, 16, 32)
-TILE2_F64 = (1, 64, 64)
-
-
-def tile_of(rank: int, dtype) -> tuple:
-    """The tile a launch on a rank-``rank`` lattice of ``dtype`` takes
-    (a 4-D volume is rank 3)."""
-    if dtype == _F64:
-        return TILE3_F64 if rank == 3 else TILE2_F64
-    return TILE3 if rank == 3 else TILE2
+# classic.cu's strip constants: rows a strip (a lane each), columns a
+# chunk (staging, output, hand-offs), slots of a ring row, steps between
+# two in-block progress marks by rank, and warps a block by element type
+LANES, CHUNK, RING = 32, 16, 64
+GROUP = {2: 8, 3: 4}
+WARPS = {_F32: 6, _F64: 4}
 
 
 def is_dbl(dtype, rank: int) -> bool:
@@ -160,7 +157,7 @@ def _volume_plain(vol, step):
 
 
 def classic_quantize_plain(data, rp, recip, intervals: int, radius: int,
-                           median, req_length: int):
+                           median, req_length: int, want_R: bool = True):
     dbl = is_dbl(data.dtype, data.dim())
     mask = _mask(req_length, data.dtype)
     types = torch.empty(data.shape, dtype=_I32, device=data.device)
@@ -179,10 +176,26 @@ def classic_quantize_plain(data, rp, recip, intervals: int, radius: int,
         tv, rv = _volume_plain(vol, step)
         _volumes(types)[v] = tv
         _volumes(R)[v] = rv
-    return types, R
+    return types, (R if want_R else None)
 
 
-def classic_decode_plain(types, known, rp, radius: int):
+def _known_plain(types, escapes):
+    """The escapes' values in place, 0 elsewhere: each type 0 takes the
+    escape of its raster rank (``_decode_fn``'s cumsum)."""
+    t = types.reshape(-1)
+    is_esc = t == 0
+    if escapes.numel() == 0:
+        return torch.zeros(types.shape, dtype=escapes.dtype,
+                           device=types.device)
+    rank = (torch.cumsum(is_esc.to(_I64), 0) - 1).clamp(
+        0, escapes.numel() - 1)
+    known = torch.where(is_esc, escapes[rank], torch.zeros(
+        (), dtype=escapes.dtype, device=types.device))
+    return known.reshape(types.shape)
+
+
+def classic_decode_plain(types, escapes, rp, radius: int):
+    known = _known_plain(types, escapes)
     dbl = is_dbl(known.dtype, known.dim())
     out = torch.empty_like(known)
     vt = _volumes(types)
@@ -196,6 +209,98 @@ def classic_decode_plain(types, known, rp, radius: int):
 
         _volumes(out)[v] = _volume_plain(kv, step)[1]
     return out
+
+
+# --- the strips: units, claim order, scratch ------------------------------
+
+def lattice(shape) -> tuple:
+    """(rank, nvol, r1, r2, r3) of the one launch on a field of ``shape``:
+    rank 2 is one plane, rank 3 one volume, rank 4 its q1 volumes of a
+    rank-3 lattice."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) == 2:
+        return (2, 1, 1) + shape
+    if len(shape) == 3:
+        return (3, 1) + shape
+    return (3,) + shape
+
+
+def strip_grid(rank: int, r1: int, r2: int, warps: int) -> tuple:
+    """(ng, ns): a volume's units, ng plane groups x ns strip groups.
+    Rank 3: groups of ``warps`` planes, one strip of LANES rows each;
+    rank 2: one plane, groups of ``warps`` strips."""
+    strips = -(-r2 // LANES)
+    if rank == 2:
+        return 1, -(-strips // warps)
+    return -(-r1 // warps), strips
+
+
+def strip_order(rank: int, nvol: int, r1: int, r2: int,
+                warps: int) -> np.ndarray:
+    """The units (v, g, s), numbered (v * ng + g) * ns + s, in the order
+    the kernel claims them: by diagonal g + s, then volume, then g.  A
+    unit's predecessors (g - 1, s), (g, s - 1) and (g - 1, s - 1) of its
+    volume lie on earlier diagonals, so they come first; a 4-D field's
+    volumes interleave, diagonal by diagonal."""
+    ng, ns = strip_grid(rank, r1, r2, warps)
+    v, g, s = (a.reshape(-1) for a in np.meshgrid(
+        np.arange(nvol), np.arange(ng), np.arange(ns), indexing="ij"))
+    return np.lexsort((g, v, g + s)).astype(np.int32)
+
+
+def scratch_sizes(rank: int, nvol: int, r1: int, r2: int, r3: int,
+                  warps: int) -> tuple:
+    """(rows, planes, flags) entries of a launch's scratch: the published
+    last rows [nvol][ns][r1][r3] (rank 2: [ns][r3]), the published last
+    planes by slot (column + row) [nvol][ng][r2][r3 + LANES] (rank 3;
+    rank 2 none), and the flags [units][warps + 1] with the claim
+    counter."""
+    ng, ns = strip_grid(rank, r1, r2, warps)
+    rows = nvol * ns * (r1 if rank == 3 else 1) * r3
+    planes = nvol * ng * r2 * (r3 + LANES) if rank == 3 else 0
+    return rows, planes, nvol * ng * ns * (warps + 1) + 1
+
+
+def shared_bytes(dtype, decode: bool) -> int:
+    """Dynamic shared memory of a block (classic.cu ``Form::bytes``):
+    warps + 1 value rings of 33 rows, warps staging rings of 32 rows
+    (K10: the data's type, K11: int32 types), each row RING + 1 entries,
+    and the progress marks."""
+    w, item = WARPS[dtype], (8 if dtype == _F64 else 4)
+    pitch = RING + 1
+    return ((w + 1) * (LANES + 1) * pitch * item
+            + w * LANES * pitch * (4 if decode else item) + (w + 1) * 4)
+
+
+@functools.lru_cache(maxsize=32)
+def _order_on(rank: int, nvol: int, r1: int, r2: int, warps: int, device):
+    """The claim order on ``device``, made once per lattice shape."""
+    return torch.from_numpy(strip_order(rank, nvol, r1, r2, warps)).to(
+        device)
+
+
+def _strips(lat: tuple, dtype, device) -> tuple:
+    """A launch's strip arguments: (order, flags, rows, planes) as C
+    arguments and the unit count, and the tensors, which the caller keeps
+    alive until the launch is queued."""
+    rank, nvol, r1, r2, r3 = lat
+    w = WARPS[dtype]
+    order = _order_on(rank, nvol, r1, r2, w, device)
+    n_rows, n_planes, n_flags = scratch_sizes(rank, nvol, r1, r2, r3, w)
+    flags = torch.zeros(n_flags, dtype=_I32, device=device)
+    rows = torch.empty(max(n_rows, 1), dtype=dtype, device=device)
+    planes = torch.empty(max(n_planes, 1), dtype=dtype, device=device)
+    keep = (order, flags, rows, planes)
+    return (*(_p(t) for t in keep), int(order.numel())), keep
+
+
+def escape_row_base(types):
+    """(row_base, n_esc) of a type field: the escapes (type 0) before
+    each row of its last axis in raster order (int64, an exclusive scan
+    of the rows' counts), and their count, a 0-d tensor."""
+    rows = (types.reshape(-1, types.shape[-1]) == 0).sum(1)
+    incl = torch.cumsum(rows, 0)
+    return incl - rows, incl[-1]
 
 
 # --- wrappers -------------------------------------------------------------
@@ -212,8 +317,13 @@ def _check(name: str, data, *others):
         if t.shape != data.shape or t.dtype != dt:
             raise ValueError(f"{name}: inputs of shape {tuple(data.shape)}"
                              f" and dtypes [{dt}, {data.dtype}]")
-    tensors = [data] + [t for t, _ in others]
-    dev = data.device
+    return _device(name, data, *(t for t, _ in others))
+
+
+def _device(name: str, *tensors):
+    """The tensors' one device type ('cpu' or 'cuda'); CUDA tensors must
+    be contiguous."""
+    dev = tensors[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     if any(t.device != dev for t in tensors):
@@ -231,79 +341,87 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launches(x):
-    """(rank of each launch, its (r1, r2, r3), the volumes' views): one
-    launch for rank 2 or 3, one a volume for rank 4."""
-    if x.dim() == 2:
-        return 2, (1, *x.shape), [x]
-    if x.dim() == 3:
-        return 3, tuple(x.shape), [x]
-    return 3, tuple(x.shape[1:]), list(x)
-
-
 def classic_quantize(data, rp, recip, intervals: int, radius: int, median,
-                     req_length: int):
+                     req_length: int, want_R: bool = True):
     """K10 encode: the int32 types of a float32 or float64 field of rank
-    2-4 and its reconstruction."""
+    2-4 and, when ``want_R``, its reconstruction (else None)."""
     kind = _check("classic_quantize", data)
     if kind == "cpu":
         return classic_quantize_plain(data, rp, recip, intervals, radius,
-                                      median, req_length)
+                                      median, req_length, want_R)
     dbl, f64 = is_dbl(data.dtype, data.dim()), data.dtype == _F64
     width = 64 if f64 else 32
     ign = max(width - int(req_length), 0)
     types = torch.empty(data.shape, dtype=_I32, device=data.device)
-    R = torch.empty_like(data)
-    rank, lat, vols = _launches(data)
+    R = torch.empty_like(data) if want_R else None
+    if data.numel() == 0:
+        return types, R
+    lat = lattice(data.shape)
+    rank, nvol, r1, r2, r3 = lat
+    sargs, keep = _strips(lat, data.dtype, data.device)
+    r_ptr = _p(R) if want_R else None
     lib = _build.lib()
-    for x, t, r in zip(vols, _launches(types)[2], _launches(R)[2]):
-        targs, flags = tiles.tiled(lat, tile_of(rank, data.dtype),
-                                   data.device)
-        if f64:
-            rc = lib.sz_classic_quantize_f64(
-                _p(x), _p(t), _p(r), rank, *lat, float(rp), float(recip),
-                intervals, radius, float(median), ign, *targs, _stream(x))
-        elif dbl:
-            rc = lib.sz_classic_quantize_4d(
-                _p(x), _p(t), _p(r), *lat, float(rp), float(recip),
-                intervals, radius, float(median), ign, *targs, _stream(x))
-        else:
-            rc = lib.sz_classic_quantize(
-                _p(x), _p(t), _p(r), rank, *lat, float(np.float32(rp)),
-                float(rp), float(recip), intervals, radius, float(median),
-                ign, *targs, _stream(x))
-        _build.check(rc, "classic_quantize")
-        classic_quantize.launches += 1
+    if f64:
+        rc = lib.sz_classic_quantize_f64(
+            _p(data), _p(types), r_ptr, *lat, float(rp), float(recip),
+            intervals, radius, float(median), ign, *sargs, _stream(data))
+    elif dbl:
+        rc = lib.sz_classic_quantize_4d(
+            _p(data), _p(types), r_ptr, nvol, r1, r2, r3, float(rp),
+            float(recip), intervals, radius, float(median), ign, *sargs,
+            _stream(data))
+    else:
+        rc = lib.sz_classic_quantize(
+            _p(data), _p(types), r_ptr, *lat, float(np.float32(rp)),
+            float(rp), float(recip), intervals, radius, float(median), ign,
+            *sargs, _stream(data))
+    _build.check(rc, "classic_quantize")
+    classic_quantize.launches += 1
+    del keep
     return types, R
 
 
-def classic_decode(types, known, rp, radius: int):
-    """K11 decode: the reconstruction of a rank 2-4 field from its types
-    and the escapes' values."""
-    kind = _check("classic_decode", known, (types, _I32))
+def classic_decode(types, escapes, rp, radius: int, row_base=None):
+    """K11 decode: the reconstruction of a rank 2-4 field from its int32
+    types and the escapes' values in raster order (1-D, the field's
+    dtype).  ``row_base``: :func:`escape_row_base`'s first result, where
+    the caller has it (else computed here)."""
+    name = "classic_decode"
+    if types.dim() not in (2, 3, 4) or types.dtype != _I32:
+        raise ValueError(f"{name}: int32 types of rank 2, 3 or 4 required")
+    if escapes.dim() != 1 or escapes.dtype not in (_F32, _F64):
+        raise ValueError(f"{name}: escapes of shape (n,), float32 or "
+                         f"float64, required; got {tuple(escapes.shape)}")
+    kind = _device(name, types, escapes)
     if kind == "cpu":
-        return classic_decode_plain(types, known, rp, radius)
-    dbl, f64 = is_dbl(known.dtype, known.dim()), known.dtype == _F64
-    out = torch.empty_like(known)
-    rank, lat, vols = _launches(known)
+        return classic_decode_plain(types, escapes, rp, radius)
+    dbl, f64 = is_dbl(escapes.dtype, types.dim()), escapes.dtype == _F64
+    out = torch.empty(types.shape, dtype=escapes.dtype, device=types.device)
+    if types.numel() == 0:
+        return out
+    if row_base is None:
+        row_base = escape_row_base(types)[0]
+    if (row_base.dtype != _I64 or row_base.device != types.device
+            or row_base.numel() != types.numel() // types.shape[-1]):
+        raise ValueError(f"{name}: row_base must be escape_row_base(types)")
+    lat = lattice(types.shape)
+    rank, nvol, r1, r2, r3 = lat
+    sargs, keep = _strips(lat, escapes.dtype, types.device)
     lib = _build.lib()
-    for t, x, o in zip(_launches(types)[2], vols, _launches(out)[2]):
-        targs, flags = tiles.tiled(lat, tile_of(rank, known.dtype),
-                                   known.device)
-        if f64:
-            rc = lib.sz_classic_decode_f64(_p(t), _p(x), _p(o), rank, *lat,
-                                           float(rp), radius, *targs,
-                                           _stream(x))
-        elif dbl:
-            rc = lib.sz_classic_decode_4d(_p(t), _p(x), _p(o), *lat,
-                                          float(rp), radius, *targs,
-                                          _stream(x))
-        else:
-            rc = lib.sz_classic_decode(_p(t), _p(x), _p(o), rank, *lat,
-                                       float(np.float32(rp)), radius,
-                                       *targs, _stream(x))
-        _build.check(rc, "classic_decode")
-        classic_decode.launches += 1
+    head = (_p(types), _p(escapes), int(escapes.numel()), _p(row_base),
+            _p(out))
+    if f64:
+        rc = lib.sz_classic_decode_f64(*head, *lat, float(rp), radius,
+                                       *sargs, _stream(out))
+    elif dbl:
+        rc = lib.sz_classic_decode_4d(*head, nvol, r1, r2, r3, float(rp),
+                                      radius, *sargs, _stream(out))
+    else:
+        rc = lib.sz_classic_decode(*head, *lat, float(np.float32(rp)),
+                                   radius, *sargs, _stream(out))
+    _build.check(rc, "classic_decode")
+    classic_decode.launches += 1
+    del keep
     return out
 
 

@@ -114,10 +114,8 @@ def test_plain_k10_k11_match_the_xla_recurrences(shape, dtype, rp, noise):
     want, _ = jce._decode_fn(vshape, dstr, p.form.dbl, "cpu")(
         jnp.asarray(t.astype(np.uint16)), jnp.asarray(pad), T(p.rp),
         np.float64(p.rp), jnp.asarray(p.radius, jnp.int32))
-    known = np.zeros(d.size, T)
-    known[t == 0] = stored
-    got = ck.classic_decode(types, torch.from_numpy(known.reshape(shape)),
-                            p.rp, p.radius).numpy()
+    got = ck.classic_decode(types, torch.from_numpy(stored), p.rp,
+                            p.radius).numpy()
     np.testing.assert_array_equal(_bits(got).reshape(-1),
                                   _bits(np.asarray(want)))
     np.testing.assert_array_equal(_bits(got), _bits(rec.numpy()))
@@ -252,21 +250,40 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="shape"):
         ck.classic_decode(torch.zeros((4, 5, 7), dtype=torch.int32), x,
                           1.0, 16)
+    with pytest.raises(ValueError, match="int32 types"):
+        ck.classic_decode(torch.zeros((4, 5, 7)), x.reshape(-1), 1.0, 16)
     m = torch.empty((4, 5, 6), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ck.classic_quantize(m, 1.0, 1.0, 32, 16, 0.0, 20)
     with pytest.raises(ValueError, match="unsupported device"):
         ck.classic_decode(torch.empty((4, 5, 6), dtype=torch.int32,
-                                      device="meta"), m, 1.0, 16)
+                                      device="meta"), m.reshape(-1), 1.0, 16)
 
 
 def test_tiles_mirror_classic_cu():
-    """classic_kernel's tile constants are classic.cu's ClassicTile."""
+    """classic_kernel's strip constants are classic.cu's: rows a strip,
+    columns a chunk, ring slots, steps between progress marks, warps a
+    block by element type; and its shared-memory count is Form::bytes."""
     src = (pathlib.Path(ck.__file__).parent.parent / "csrc"
            / "classic.cu").read_text()
-    body = src[src.index("struct ClassicTile"):]
-    got = dict(re.findall(r"int (b[ijk]) = ([^;]+);", body)[:3])
-    assert got == {"bi": "kRank == 3 ? 8 : 1", "bj": "kRank == 3 ? 16 : 64",
-                   "bk": "kRank == 3 ? 32 : kWide ? 64 : 96"}
-    assert (ck.TILE3, ck.TILE2, ck.TILE3_F64, ck.TILE2_F64) == (
-        (8, 16, 32), (1, 64, 96), (8, 16, 32), (1, 64, 64))
+    got = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert {k: int(got[k]) for k in ("kLanes", "kChunk", "kRing")} == dict(
+        kLanes=ck.LANES, kChunk=ck.CHUNK, kRing=ck.RING)
+    assert "constexpr int kPitch = kRing + 1;" in src
+    group = re.search(r"struct Group \{\s*static constexpr int n = "
+                      r"kRank == 3 \? (\d+) : (\d+);", src)
+    assert {3: int(group[1]), 2: int(group[2])} == ck.GROUP
+    warps = re.search(r"struct Warps \{\s*static constexpr int n = "
+                      r"sizeof\(V\) == 8 \? (\d+) : (\d+);", src)
+    assert (int(warps[1]), int(warps[2])) == (ck.WARPS[torch.float64],
+                                              ck.WARPS[torch.float32])
+    assert "static constexpr int kRingV = (kLanes + 1) * kPitch;" in src
+    assert "static constexpr int kRingS = kLanes * kPitch;" in src
+    # two float blocks an SM (228 KB, 1 KB reserved a block), one double
+    for dtype, dec, per_sm in ((torch.float32, False, 2),
+                               (torch.float32, True, 2),
+                               (torch.float64, False, 1),
+                               (torch.float64, True, 1)):
+        b = ck.shared_bytes(dtype, dec)
+        assert b <= 227 * 1024
+        assert per_sm * (b + 1024) <= 228 * 1024 < (per_sm + 1) * (b + 1024)

@@ -483,10 +483,12 @@ def test_classic_kernels_match_plain(cuda, shape, dtype, rp, noise):
     t_p, R_p = ck.classic_quantize(xt, *args)
     t_k, R_k = ck.classic_quantize(xt.to(cuda), *args)
     assert torch.equal(t_k.cpu(), t_p) and _bits_equal(R_k.cpu(), R_p)
-    known = torch.where(t_k == 0, R_k, torch.zeros_like(R_k))
-    o_k = ck.classic_decode(t_k, known, p.rp, p.radius)
-    o_p = ck.classic_decode(t_p, known.cpu(), p.rp, p.radius)
+    esc = R_k.reshape(-1)[t_k.reshape(-1) == 0]
+    o_k = ck.classic_decode(t_k, esc, p.rp, p.radius)
+    o_p = ck.classic_decode(t_p, esc.cpu(), p.rp, p.radius)
     assert _bits_equal(o_k.cpu(), o_p) and _bits_equal(o_k, R_k)
+    t_n, R_n = ck.classic_quantize(xt.to(cuda), *args, want_R=False)
+    assert R_n is None and torch.equal(t_n, t_k)
 
 
 @pytest.mark.gpu
