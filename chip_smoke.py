@@ -4,18 +4,21 @@
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 nvcc (CUDA_HOME, PATH or /usr/local/cuda) and a C compiler (cc):
 
-    python3 chip_smoke.py [--out FILE.json]
+    python3 chip_smoke.py [--out FILE.json] [--parent DIR]
 
 Phases (one line of numbers each; any failure raises and exits non-zero):
   1. environment: versions, card name and power limit, the kernel build
      (one nvcc per source, in parallel) and the host runtime build (cc);
   2. each Hopper kernel bit-equal to its plain torch version on the
      card, with both times: K1/K2 (the tiled Lorenzo recurrence) and
-     their float64 forms K1d/K2d on ragged, sub-tile, single-row, all-
-     and no-regression lattices, each called twice, and timed at the main
-     path's shapes (K1/K2: 256^3, 100x500x500, 1800x3600, 512^3; K1d/K2d:
-     256^3, 1800x3600, 512^3; at 512^3 the plain versions run on the first
-     planes only), with each tile's shared memory and ptxas registers;
+     their float64 forms K1d/K2d (warp strips) on ragged, sub-tile,
+     single-row, all- and no-regression lattices, K1d/K2d also on the
+     strips' edges (LORENZO_F64_EDGES), each called twice, K1d's types
+     the same with R and without, and timed at the main path's shapes
+     (K1/K2: 256^3, 100x500x500, 1800x3600, 512^3; K1d/K2d: 256^3,
+     1800x3600, 512^3, K1d without R as the main path calls it; at 512^3
+     the plain versions run on the first planes only), with each tile's
+     and strip kernel's shared memory and ptxas registers;
      K3/K4 timed at their 2^24-symbol test
      shapes, and on their edge cases (pack_cases, hist_cases: tile and
      run sizes, codes of 1 to 128 bits, holes, symbols past the table or
@@ -48,8 +51,8 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      float64), 1800x3600, 8x128x256x256 and 512^3 with the byte bound
      (and the parent's 12 B a point) and the chain bound; each kernel's
      registers, spills and shared memory; with --parent DIR, the parent
-     tree's K10/K11 timed beside this tree's (tools/classic_timing.py,
-     parent, this, this, parent);
+     tree's K10/K11 and K1d/K2d timed beside this tree's
+     (tools/strip_timing.py, parent, this, this, parent);
      K8d/K9d (MSST19 on float64 data) on K8/K9's shapes, the 1e-4 and
      1e-5 tables, timed at 256^3, 1800x3600 and 512^3; K12/K13 (the
      random-access codec's per-block scans; K13 on the compact escapes,
@@ -583,6 +586,20 @@ LORENZO_EXACT = [
     ((33, 9, 65), True, "all"), ((33, 9, 65), False, "none"),
     ((100, 300), False, "all"), ((100, 300), True, "none"),
 ]
+# K1d/K2d's strips on their ragged edges (shared with
+# tests/test_torch_f64_strips.py, the CPU model of the walk): strips of
+# 31, 33 and 65 rows, plane counts no multiple of a block's warps, rows of
+# 1, 2, CHUNK - 1 and CHUNK + 1 columns, one row, one plane, regression
+# on all, none or some points, the mean flush on and off
+LORENZO_F64_EDGES = [
+    ((7, 31, 20), True, "mixed"), ((13, 33, 17), False, "mixed"),
+    ((6, 65, 15), True, "none"), ((11, 9, 1), True, "mixed"),
+    ((8, 40, 2), False, "all"), ((4, 1, 70), True, "mixed"),
+    ((1, 70, 24), True, "mixed"), ((9, 33, 16), True, "none"),
+    ((21, 97, 301), True, "mixed"), ((70, 33), False, "mixed"),
+    ((65, 17), False, "none"), ((1, 100), False, "mixed"),
+    ((200, 31), False, "all"), ((131, 3001), False, "mixed"),
+]
 # the shapes the ABS main path runs K1/K2 at (phases 3 and 4), timed
 LORENZO_TIMED = [(256, 256, 256), (100, 500, 500), (1800, 3600),
                  (512, 512, 512)]
@@ -591,9 +608,18 @@ LORENZO_TIMED_F64 = [(256, 256, 256), (1800, 3600), (512, 512, 512)]
 # above this many points the plain versions (minutes at 512^3) run only
 # on the lattice's first planes: no point depends on a later plane, so
 # the kernel's first planes must equal the plain version's on those
-# planes alone.  Two layers of 3-D tiles and a plane of the third, so
-# that two hand-offs along i are held against the plain version.
+# planes alone.  K1/K2: two layers of 3-D tiles and a plane of the third;
+# K1d/K2d: two plane groups of the widest block and a plane of the third;
+# so that two hand-offs along i are held against the plain version.
 PLAIN_MAX_POINTS = 1 << 26
+
+
+def plain_planes(wide: bool) -> int:
+    """The first planes the plain versions run on above PLAIN_MAX_POINTS."""
+    from sz_tpu_torch.gpu import lorenzo_kernel as lk
+    if wide:
+        return 2 * max(lk.WARPS_F64[k, 3] for k in ("quantize", "decode")) + 1
+    return 2 * lk.TILE3[0] + 1
 
 
 def lorenzo_case(dev, shape, use_mean, regression, timed,
@@ -601,8 +627,9 @@ def lorenzo_case(dev, shape, use_mean, regression, timed,
     """K1 and K2 (K1d and K2d where T is float64) against their plain
     versions on one lattice: K2 on the inputs a decoder derives from K1's
     output, so it must also rebuild K1's R; each kernel called twice,
-    bit-equal.  Timed: the kernels' mean time, the plain version's one
-    call, the bound."""
+    bit-equal, K1d's types also without R.  Timed: the kernels' mean time
+    (K1d without R, as the main path calls it, and with it), the plain
+    version's one call, the bound."""
     from sz_tpu_torch.gpu import lorenzo_kernel as lk
     wide = T is np.float64
     k1_name, k2_name = (("K1d", "K2d") if wide else ("K1", "K2"))
@@ -612,16 +639,19 @@ def lorenzo_case(dev, shape, use_mean, regression, timed,
         args[4] = None
     n = int(np.prod(shape))
     whole = n <= PLAIN_MAX_POINTS
-    sub = slice(None) if whole else slice(0, 2 * lk.TILE3[0] + 1)
+    sub = slice(None) if whole else slice(0, plain_planes(wide))
 
-    def k1():
+    def k1(want_R=True):
         return lk.wavefront_quantize(*args, *scal, use_mean=use_mean,
-                                     want_R=True)
+                                     want_R=want_R)
 
     t_k, R_k = k1()
     t_2, R_2 = k1()
     again = bit_equal(t_k, t_2) and bit_equal(R_k, R_2)
     del t_2, R_2
+    t_n = k1(False)
+    no_R_same = bit_equal(t_n, t_k) and bit_equal(k1(False), t_k)
+    del t_n
     part = [a[sub].contiguous() if a is not None else None for a in args]
     (t_p, R_p), plain_ms = cuda_once(lambda: lk.quantize_plain(
         *part, *scal, use_mean=use_mean))
@@ -629,15 +659,23 @@ def lorenzo_case(dev, shape, use_mean, regression, timed,
     row = dict(kernels=f"{k1_name}/{k2_name}", dtype=np.dtype(T).name,
                shape=list(shape), use_mean=use_mean, regression=regression,
                plain_on=list(t_p.shape), K1_bit_equal=err == 0.0,
-               K1_repeat_bit_equal=again, K1_max_abs_err=err)
+               K1_repeat_bit_equal=again, K1_types_without_R_equal=no_R_same,
+               K1_max_abs_err=err)
     entries = {}
     sfx = "_f64" if wide else ""
     if timed:
-        ms = cuda_ms(k1, 5 if whole else 3)
-        # K1 reads its five inputs and writes t and R
-        b_ms, b_by = bound(nbytes(*args, t_k, R_k))
-        row["K1"] = dict(ms=ms, plain_ms=plain_ms if whole else None,
-                         bound_ms=b_ms)
+        if wide:   # the main path asks for no R
+            ms = cuda_ms(lambda: k1(False), 5 if whole else 3)
+            b_ms, b_by = bound(nbytes(*args, t_k))
+            row["K1"] = dict(ms=ms, ms_with_R=cuda_ms(k1, 5 if whole else 3),
+                             plain_ms=plain_ms if whole else None,
+                             bound_ms=b_ms,
+                             bound_with_R_ms=bound(nbytes(*args, t_k, R_k))[0])
+        else:      # K1 reads its five inputs and writes t and R
+            ms = cuda_ms(k1, 5 if whole else 3)
+            b_ms, b_by = bound(nbytes(*args, t_k, R_k))
+            row["K1"] = dict(ms=ms, plain_ms=plain_ms if whole else None,
+                             bound_ms=b_ms)
         entries["wavefront_quantize" + sfx] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms if whole else None,
             bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=list(shape))
@@ -662,39 +700,67 @@ def lorenzo_case(dev, shape, use_mean, regression, timed,
             bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=list(shape))
     _log(f"kernel {k1_name}/{k2_name} vs plain", **row)
     if not all(row[k] for k in ("K1_bit_equal", "K1_repeat_bit_equal",
-                                "K2_bit_equal", "K2_repeat_bit_equal",
-                                "K2_rebuilds_K1_R")):
+                                "K1_types_without_R_equal", "K2_bit_equal",
+                                "K2_repeat_bit_equal", "K2_rebuilds_K1_R")):
         raise AssertionError(f"{k1_name}/{k2_name} differ from their plain "
                              f"versions or from each other: {row}")
     return row, entries
 
 
 def lorenzo_tiles(ptxas: list) -> list:
-    """K1/K2 and K1d/K2d on each tile shape: ptxas's registers and
-    spills of the instantiation (its mangled name holds
-    LorenzoTileILi<rank>E and f or d)."""
+    """K1/K2 on each tile shape: ptxas's registers and spills of the
+    instantiation (its mangled name holds LorenzoTileILi<rank>E)."""
     from sz_tpu_torch.gpu import lorenzo_kernel as lk
     rows = []
-    for kernel in ("wavefront_quantize", "wavefront_decode"):
-        for v, t3, t2 in (("f", lk.TILE3, lk.TILE2),
-                          ("d", lk.TILE3_F64, lk.TILE2_F64)):
-            name = kernel + ("_f64" if v == "d" else "") + "_kernel"
-            for rank, tile in ((3, t3), (2, t2)):
-                tag = f"{len(name)}{name}I"
-                key = f"LorenzoTileILi{rank}E{v}"
-                regs = spill = None
-                for i, ln in enumerate(ptxas):
-                    if tag in ln and key in ln:
-                        for nxt in ptxas[i + 1:i + 3]:
-                            if "registers" in nxt:
-                                regs = int(nxt.split("Used ")[1].split()[0])
-                            if "spill" in nxt:
-                                spill = nxt.strip()
-                rows.append(dict(kernel=name, rank=rank, tile=list(tile),
-                                 threads=tile[0] * tile[1],
-                                 registers=regs, spill=spill))
+    for name in ("wavefront_quantize_kernel", "wavefront_decode_kernel"):
+        for rank, tile in ((3, lk.TILE3), (2, lk.TILE2)):
+            tag = f"{len(name)}{name}I"
+            key = f"LorenzoTileILi{rank}E"
+            regs = spill = None
+            for i, ln in enumerate(ptxas):
+                if tag in ln and key in ln:
+                    for nxt in ptxas[i + 1:i + 3]:
+                        if "registers" in nxt:
+                            regs = int(nxt.split("Used ")[1].split()[0])
+                        if "spill" in nxt:
+                            spill = nxt.strip()
+            rows.append(dict(kernel=name, rank=rank, tile=list(tile),
+                             threads=tile[0] * tile[1],
+                             registers=regs, spill=spill))
     for row in rows:
         _log("K1/K2 tiles", **row)
+    return rows
+
+
+def ptxas_of(ptxas: list, name: str) -> tuple:
+    """(registers, spill line) ptxas reports for the kernel ``name``."""
+    regs = spill = None
+    for i, ln in enumerate(ptxas):
+        if "Compiling entry" in ln and f"{len(name)}{name}" in ln:
+            for nxt in ptxas[i + 1:i + 4]:
+                if "registers" in nxt and regs is None:
+                    regs = int(nxt.split("Used ")[1].split()[0])
+                if "spill" in nxt and spill is None:
+                    spill = nxt.strip()
+    return regs, spill
+
+
+def lorenzo_strip_report(ptxas: list) -> list:
+    """K1d/K2d's four kernels: ptxas's registers and spills, the block's
+    warps, ring slots and dynamic shared memory (lorenzo_kernel's mirror
+    of strips.cuh shared_bytes)."""
+    from sz_tpu_torch.gpu import lorenzo_kernel as lk
+    rows = []
+    for kind in ("quantize", "decode"):
+        for rank in (2, 3):
+            name = f"wavefront_{kind}{rank}d_f64_kernel"
+            regs, spill = ptxas_of(ptxas, name)
+            rows.append(dict(kernel=name, warps=lk.WARPS_F64[kind, rank],
+                             ring=lk.RING_F64[rank],
+                             shared_bytes=lk.shared_bytes_f64(kind, rank),
+                             registers=regs, spill=spill))
+    for row in rows:
+        _log("K1d/K2d strips", **row)
     return rows
 
 
@@ -703,9 +769,10 @@ def phase_lorenzo(dev) -> tuple:
     256^3)."""
     import torch
     rows, entries = [], {}
-    for T, timed_shapes in ((np.float32, LORENZO_TIMED),
-                            (np.float64, LORENZO_TIMED_F64)):
-        for shape, use_mean, regression in LORENZO_EXACT:
+    for T, timed_shapes, edges in ((np.float32, LORENZO_TIMED, []),
+                                   (np.float64, LORENZO_TIMED_F64,
+                                    LORENZO_F64_EDGES)):
+        for shape, use_mean, regression in LORENZO_EXACT + edges:
             rows.append(lorenzo_case(dev, shape, use_mean, regression, False,
                                      T)[0])
         for shape in timed_shapes:
@@ -2063,7 +2130,7 @@ CLASSIC_TIMED = [
 def classic_strip_report(ptxas: list) -> list:
     """K10/K11's ten kernels: ptxas's registers, stack and spills, and
     the block's warps and dynamic shared memory (classic_kernel's mirror
-    of Form::bytes)."""
+    of strips.cuh shared_bytes)."""
     import torch
     from sz_tpu_torch.gpu import classic_kernel as ck
     rows = []
@@ -2071,14 +2138,7 @@ def classic_strip_report(ptxas: list) -> list:
         for form in ("2d", "3d", "4d", "2d_f64", "3d_f64"):
             name = f"{kernel}{form}_kernel"
             dtype = torch.float64 if form.endswith("f64") else torch.float32
-            regs = spill = None
-            for i, ln in enumerate(ptxas):
-                if "Compiling entry" in ln and f"{len(name)}{name}" in ln:
-                    for nxt in ptxas[i + 1:i + 4]:
-                        if "registers" in nxt and regs is None:
-                            regs = int(nxt.split("Used ")[1].split()[0])
-                        if "spill" in nxt and spill is None:
-                            spill = nxt.strip()
+            regs, spill = ptxas_of(ptxas, name)
             rows.append(dict(kernel=name, warps=ck.WARPS[dtype],
                              shared_bytes=ck.shared_bytes(
                                  dtype, kernel == "classic_decode"),
@@ -2088,22 +2148,25 @@ def classic_strip_report(ptxas: list) -> list:
     return rows
 
 
-def classic_parent_timing(parent: str) -> list:
-    """K10/K11 of the parent tree at ``parent`` and of this tree, timed by
-    tools/classic_timing.py in fresh processes, in turns: parent, this,
-    this, parent."""
+def strip_parent_timing(parent: str) -> list:
+    """K10/K11 and K1d/K2d of the parent tree at ``parent`` and of this
+    tree, timed by tools/strip_timing.py in fresh processes, in turns:
+    parent, this, this, parent."""
     runs = []
     for root in (parent, str(REPO), str(REPO), parent):
         res = subprocess.run(
-            [sys.executable, str(REPO / "tools" / "classic_timing.py"),
+            [sys.executable, str(REPO / "tools" / "strip_timing.py"),
              "--root", root], capture_output=True, text=True)
         if res.returncode:
-            raise AssertionError(f"classic_timing.py --root {root} failed:"
+            raise AssertionError(f"strip_timing.py --root {root} failed:"
                                  f"\n{res.stdout[-3000:]}\n"
                                  f"{res.stderr[-3000:]}")
         rec = json.loads(res.stdout.strip().splitlines()[-1])
-        _log("K10/K11 timing", root=root, **{
-            r["case"]: [r["classic_quantize_ms"], r["classic_decode_ms"]]
+        _log("strip kernels timing", root=root, **{
+            r["case"]: ([r["classic_quantize_ms"], r["classic_decode_ms"]]
+                        if "classic_quantize_ms" in r else
+                        [r["wavefront_quantize_f64_ms"],
+                         r["wavefront_decode_f64_ms"]])
             for r in rec["rows"]})
         runs.append(rec)
     return runs
@@ -3347,8 +3410,10 @@ def phase_fsm_timing(dev, streams: dict) -> dict:
 DEVICE_NAMES = (
     ("wavefront_quantize_kernel", "wavefront_quantize"),
     ("wavefront_decode_kernel", "wavefront_decode"),
-    ("wavefront_quantize_f64_kernel", "wavefront_quantize_f64"),
-    ("wavefront_decode_f64_kernel", "wavefront_decode_f64"),
+    ("wavefront_quantize2d_f64_kernel", "wavefront_quantize_f64"),
+    ("wavefront_quantize3d_f64_kernel", "wavefront_quantize_f64"),
+    ("wavefront_decode2d_f64_kernel", "wavefront_decode_f64"),
+    ("wavefront_decode3d_f64_kernel", "wavefront_decode_f64"),
     ("histogram_window_kernel", "histogram"),
     ("pack_lookback_kernel", "pack_bits"),
     ("fsm_sweep_kernel", "fsm_sweep"), ("fsm_sweep_wide_kernel", "fsm_sweep"),
@@ -3480,7 +3545,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON")
     ap.add_argument("--parent", help="a checkout of the parent commit: "
-                    "time its K10/K11 beside this tree's (phase 2)")
+                    "time its K10/K11 and K1d/K2d beside this tree's "
+                    "(phase 2)")
     args = ap.parse_args()
 
     import torch
@@ -3531,6 +3597,7 @@ def main() -> int:
                            if "registers" in ln or "Compiling entry" in ln
                            or "spill" in ln]
         record["lorenzo_tiles"] = lorenzo_tiles(record["ptxas"])
+        record["lorenzo_strips"] = lorenzo_strip_report(record["ptxas"])
         record["classic_strips"] = classic_strip_report(record["ptxas"])
 
     # phase 2: each kernel against its plain version
@@ -3545,7 +3612,7 @@ def main() -> int:
         phase_classic_cases(dev)
     entries.update(classic_entries)
     if args.parent:
-        record["classic_parent_timing"] = classic_parent_timing(args.parent)
+        record["strip_parent_timing"] = strip_parent_timing(args.parent)
     record["msst19_f64_cases"], msst19_f64_entries = \
         phase_msst19_f64_cases(dev)
     entries.update(msst19_f64_entries)

@@ -30,52 +30,14 @@
 // reconstruction is its value less the median with the low
 // width - req_length bits cleared, plus the median.
 //
-// Design: warp strips, neighbours in registers, hand-offs by chunk.
-// - A warp walks a strip: lane l owns row j0 + l of one plane i and
-//   walks k skewed by its lane, k = s - l at step s.  A and A2 are the
-//   lane's own last two results; B comes from lane l - 1 by
-//   __shfl_up_sync (its result of the previous step) and D is the B of
-//   the previous step; C and E are read from plane i - 1's ring (rows l
-//   and l - 1 of the same strip), F and G are the C and E of the
-//   previous step.  Every lane runs every shuffle; only the arithmetic
-//   is predicated at the ragged ramps.  Lane 0 takes B (and E) from the
-//   row above the strip, the ring's row -1.  A group of steps first
-//   loads all its inputs from the rings into registers, so no shared
-//   load sits on the chain, and stores its results after.
-// - Rings.  Each warp keeps its results in a ring of 33 rows (row -1:
-//   the row above the strip) x kRing slots, row r's column k at slot
-//   (k + r) mod kRing, so that every lane of a step reads and writes one
-//   slot index (pitch kRing + 1: 32 banks).  Its inputs (K10's data,
-//   K11's types) are staged the same way, a chunk of kChunk columns x 32
-//   rows at a time by cp.async, the next chunk loading while the lanes
-//   walk this one; K10 writes each type over its consumed value, and the
-//   types (and R, when asked for) go back to device memory from the
-//   rings, a whole chunk at a time, coalesced.
-// - Blocks.  Rank 3: a block's W warps (Warps) walk W consecutive
-//   planes of one strip; warp w reads plane i - 1 from warp w - 1's ring
-//   once that warp's progress mark (a shared-memory counter raised,
-//   release, every Group steps) has passed the group, and warp w - 1
-//   runs at most a ring's length ahead of warp w.  Rank 2: the warps
-//   walk W consecutive strips, lane 31 of warp w writing the row above
-//   warp w + 1's strip into that warp's ring.  No __syncthreads runs
-//   inside the step loop.
-// - Between blocks: each block publishes the last row of each of its
-//   planes (rank 2: of its last strip) by column chunks once complete
-//   (lane 31 ends a chunk 31 steps after lane 0), and, rank 3, its last
-//   plane by slot chunks (slot = column + row: what the next group's
-//   warp 0 reads in one phase, complete 16 steps after its first), into
-//   device scratch, each chunk followed by a release flag (the count of
-//   chunks published); a consumer waits on the flag (acquire, with
-//   __nanosleep backoff) and reads the chunk with __ldcg.
-// - One launch a call: work units (volume, plane group, strip group)
-//   are claimed from a global counter in the order classic_kernel.
-//   strip_order makes (by diagonal g + s, then volume, so a 4-D field's
-//   volumes run side by side), every unit's predecessors earlier, so a
-//   block waits only on units that running blocks claimed.
-// - K11 reads the escapes compact, in raster order: a lane takes its
-//   row's first escape rank from row_base (the exclusive scan of the
-//   rows' escape counts) and counts on along the row, the next value
-//   loaded ahead.
+// Design: warp strips on the machinery of strips.cuh (shared with
+// K1d/K2d), whose note has the walk, the rings, the hand-offs and the
+// claim order; here the point rules.  K10 stages the data, writes each
+// type over its consumed value and the escape's reconstruction is taken
+// off the chain at the group's load; K11 stages the types and reads the
+// escapes compact, in raster order: a lane takes its row's first escape
+// rank from row_base (the exclusive scan of the rows' escape counts) and
+// counts on along the row, the next value loaded ahead.
 //
 // Bound on this card: the chain of steps, r1 + r2 + r3 - 2 of them plus
 // what the hand-offs add (a group a plane, a slot chunk a plane group,
@@ -95,25 +57,14 @@
 
 #include <type_traits>
 
+#include "strips.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kLanes = 32;      // rows of a strip, one a lane
-constexpr int kChunk = 16;      // columns a chunk: staging, output, hand-off
-constexpr int kRing = 64;       // slots of a ring row (a power of 2)
-constexpr int kPitch = kRing + 1;
-constexpr int kDone = 1 << 30;  // the progress mark of a finished warp
-
-// Steps between two progress marks of a warp: a rank-3 warp's plane is
-// read by the next warp a group behind, a rank-2 warp's last row 32
-// steps behind.
-template <int kRank>
-struct Group {
-  static constexpr int n = kRank == 3 ? 4 : 8;
-};
+using namespace strips;
 
 // Warps a block: W planes (rank 3) or strips (rank 2).  The rings
-// take (33 + 32) x 65 entries a warp; float blocks fit two an SM.
+// take (33 + 32) x 65 entries a warp.
 template <class V>
 struct Warps {
   static constexpr int n = sizeof(V) == 8 ? 4 : 6;
@@ -267,482 +218,204 @@ struct DecodeArgs {
   Quantizer<V> q;
 };
 
-// The lattice of a launch and its units: nvol volumes of r1 x r2 x r3
-// (rank 2: r1 = 1, nvol = 1); per volume ng plane groups x ns strip
-// groups (rank 3: groups of W planes and single strips; rank 2: one
-// plane, groups of W strips); nchunks = ceil(r3 / kChunk).
-// rows: the published last rows, [nvol][ns][r1][r3]; planes: the
-// published last planes by slot (column + row), [nvol][ng][r2][r3 + 32];
-// flags: [nunits][W + 1] (column chunks of warp w's last row, then
-// slot chunks of the plane) and the claim counter.
-template <class V>
-struct Geo {
-  int nvol, r1, r2, r3, ng, ns, nunits, nchunks;
-  const int* order;
-  int* flags;
-  V* rows;
-  V* planes;
-};
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// Waits until a unit's flag counts `need` chunks.
-__device__ __forceinline__ void wait_flag(const int* f, int need) {
-  int ns = 32;
-  while (ld_acquire(f) < need) {
-    __nanosleep(ns);
-    if (ns < 512) ns *= 2;
-  }
-}
-
-// In-block progress marks: a warp's lanes store into its rings, then
-// __syncwarp and lane 0 raises the mark (release); a reader spins on it
-// (acquire).
-__device__ __forceinline__ int ld_acquire_cta(const int* p) {
-  int v;
-  asm volatile("ld.acquire.cta.shared.s32 %0, [%1];"
-               : "=r"(v)
-               : "r"((unsigned)__cvta_generic_to_shared(p))
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release_cta(int* p, int v) {
-  asm volatile("st.release.cta.shared.s32 [%0], %1;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(p)),
-               "r"(v)
-               : "memory");
-}
-
-// Waits until an in-block warp's progress mark reaches `need`.
-__device__ __forceinline__ void wait_mark(const int* m, int need) {
-  while (ld_acquire_cta(m) < need) {
-  }
-}
-
-template <class S>
-__device__ __forceinline__ void cp_async(S* dst, const S* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (sizeof(S) == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// All but the latest committed group have landed.
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
 // A staged slot as the type K10 writes over its consumed value.
 template <class S>
 __device__ __forceinline__ int* type_at(S* slot) {
   return reinterpret_cast<int*>(slot);
 }
 
-// A form: rank, value type, double arithmetic, decode.  S is the staged
-// input (K10's data, K11's types); the rings of a block are W + 1
-// value rings (ring 0 the plane above warp 0, read from device memory;
-// ring w + 1 warp w's) and W staging rings.
-template <int kRank, class V, bool kDbl, bool kDec>
-struct Form {
+// The point rule of a form (strips.cuh): rank, value type, double
+// arithmetic, decode.  S is the staged input (K10's data, K11's types),
+// one array of the warp's staging region; K10 writes each type over its
+// consumed value.  Column chunks, rings of 64 slots: a float block holds
+// two an SM.
+template <int kRank_, class V_, bool kDbl, bool kDec>
+struct Classic {
+  using V = V_;
   using S = typename std::conditional<kDec, int, V>::type;
   using Args = typename std::conditional<kDec, DecodeArgs<V>,
                                          QuantArgs<V>>::type;
+  static constexpr int kRank = kRank_;
   static constexpr int W = Warps<V>::n;
-  static constexpr int kRingV = (kLanes + 1) * kPitch;
-  static constexpr int kRingS = kLanes * kPitch;
-  static constexpr size_t bytes = (size_t)(W + 1) * kRingV * sizeof(V) +
-                                  (size_t)W * kRingS * sizeof(S) +
-                                  (size_t)(W + 1) * sizeof(int);
-};
+  static constexpr int kRing = 64;
+  static constexpr bool kSlotChunks = false;
+  static constexpr int kStageBytes = Ring<kRing>::kRingS * sizeof(S);
+  static constexpr int kG = Group<kRank>::n;
 
-// Warp w's walk of unit u = (v, gi, si).
-template <int kRank, class V, bool kDbl, bool kDec>
-__device__ __forceinline__ void walk(
-    const Geo<V>& g, const typename Form<kRank, V, kDbl, kDec>::Args& a,
-    int u, int v, int gi, int si, V* rings,
-    typename Form<kRank, V, kDbl, kDec>::S* stage, int* mark) {
-  using F = Form<kRank, V, kDbl, kDec>;
-  using S = typename F::S;
-  constexpr int W = F::W;
-  constexpr int kG = Group<kRank>::n;
-  constexpr int kMask = kRing - 1;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = kRank == 3 ? gi * W + w : 0;
-  const int j0 = kLanes * (kRank == 3 ? si : si * W + w);
-  if (i >= g.r1 || j0 >= g.r2) {
-    if (lane == 0) st_release_cta(mark + w, kDone);
-    return;
-  }
-  const int rows = min(kLanes, g.r2 - j0);
-  const int r3 = g.r3;
-  V* up = rings + w * F::kRingV;  // plane i - 1: ring 0 or warp w - 1's
-  V* own = up + F::kRingV;        // this warp's; row -1 the row above
-  V* next = own + F::kRingV;      // (rank 2) warp w + 1's
-  S* st = stage + w * F::kRingS;
-  const bool has_next = w + 1 < W;
-  const bool feed_next =
-      kRank == 2 && has_next && rows == kLanes && j0 + kLanes < g.r2;
-  const long long row0 = (long long)(v * g.r1 + i) * g.r2 + j0;
-  const long long base = row0 * r3;
-  const int nc = g.nchunks;
-  const int last_step = r3 + rows - 2;
-  const int xs = r3 + kLanes;                          // slots a plane row
-  const int nsc = (last_step + kChunk) / kChunk;       // slot chunks
-  const int* src_flag = nullptr;  // the row above the strip: its flag
-  const V* src_row = nullptr;     // and its values
-  if (si > 0 && (kRank == 3 || w == 0)) {
-    src_flag = g.flags + (u - 1) * (W + 1) + (kRank == 3 ? w : W - 1);
-    src_row = g.rows + ((long long)(v * g.ns + si - 1) * g.r1 + i) * r3;
-  }
-  const bool pub_rows = (kRank == 3 || w == W - 1) && si + 1 < g.ns;
-  const bool pub_plane = kRank == 3 && w == W - 1 && gi + 1 < g.ng;
-  const S* src = nullptr;
-  if constexpr (kDec)
-    src = a.types;
-  else
-    src = a.data;
-
-  // chunk c of the inputs into the staging ring: half a warp a row
-  auto stage_chunk = [&](int c) {
-    const int col = c * kChunk + (lane & 15);
-    const long long gx = base + col;
-#pragma unroll 4
-    for (int rr = 0; rr < (rows + 1) / 2; ++rr) {
-      const int r = 2 * rr + (lane >> 4);
-      if (r < rows && col < r3)
-        cp_async(st + r * kPitch + ((col + r) & kMask),
-                 src + gx + (long long)r * r3);
-    }
+  // the staged value or type, and (K10) the escape's reconstruction of
+  // the value, taken off the chain
+  struct In {
+    S x;
+    V er;
   };
 
-  // chunk c, complete: the types, R where asked for, the published last
-  // row and its flag
-  auto output = [&](int c) {
-    const int col = c * kChunk + (lane & 15);
-    const long long gx = base + col;
-    V* prow = g.rows + ((long long)(v * g.ns + si) * g.r1 + i) * r3 + col;
-#pragma unroll 4
-    for (int rr = 0; rr < (rows + 1) / 2; ++rr) {
-      const int r = 2 * rr + (lane >> 4);
-      if (r < rows && col < r3) {
-        const int x = (col + r) & kMask;
-        if constexpr (!kDec)
-          a.types[gx + (long long)r * r3] = *type_at(st + r * kPitch + x);
-        const V val = own[(r + 1) * kPitch + x];
-        if (a.R) a.R[gx + (long long)r * r3] = val;
-        if (pub_rows && r == kLanes - 1) *prow = val;
+  struct Lane {
+    // K11: this lane's next escape (the rows' ranks from row_base)
+    long long eidx = 0;
+    V enext = V(0);
+    V ev[kG];
+
+    // A rank past the stream reads its last value, as _decode_fn clips;
+    // an empty stream reads none.
+    __device__ __forceinline__ V escape(const Args& a, long long rank) const {
+      if constexpr (kDec)
+        return a.n_esc > 0 ? __ldg(a.esc + min(rank, a.n_esc - 1)) : V(0);
+      else
+        return V(0);
+    }
+
+    __device__ __forceinline__ Lane(const Args& a, unsigned char*,
+                                    long long row0, int lane, int rows,
+                                    int) {
+      if constexpr (kDec) {
+        if (lane < rows) eidx = a.row_base[row0 + lane];
+        enext = escape(a, eidx);
       }
     }
-    if (pub_rows) {
-      __syncwarp();
-      if (lane == 0) st_release(g.flags + u * (W + 1) + w, c + 1);
-    }
-  };
 
-  // (rank 3, the block's last plane) slot chunk c of the ring, rows as
-  // they lie there (slot = column + row): what the next group's warp 0
-  // reads in phase c, complete after step kChunk * c + kChunk - 1
-  auto publish_plane = [&](int c) {
-    const int x = c * kChunk + (lane & 15);
-    V* pl = g.planes + ((long long)(v * g.ng + gi) * g.r2 + j0) * xs;
-#pragma unroll 4
-    for (int rr = 0; rr < (rows + 1) / 2; ++rr) {
-      const int r = 2 * rr + (lane >> 4);
-      if (r < rows && x - r >= 0 && x - r < r3)
-        pl[(long long)r * xs + x] = own[(r + 1) * kPitch + (x & kMask)];
+    __device__ __forceinline__ void stage_chunk(const Args& a,
+                                                unsigned char* st,
+                                                long long base, int c,
+                                                int lane, int rows, int r3) {
+      const S* src;
+      if constexpr (kDec)
+        src = a.types;
+      else
+        src = a.data;
+      stage_copy<kRing, kSlotChunks>(src, reinterpret_cast<S*>(st), base, c,
+                                     lane, rows, r3);
     }
-    __syncwarp();
-    if (lane == 0) st_release(g.flags + u * (W + 1) + W, c + 1);
-  };
 
-  // column chunk c of the row above the strip (own ring row -1) and,
-  // for warp 0 of a rank-3 block past the first group, of plane i - 1's
-  // row above (ring 0's row -1)
-  auto halo = [&](int c) {
-    const int col = c * kChunk + lane;
-    if (src_row) {
-      wait_flag(src_flag, c + 1);
-      if (lane < kChunk && col < r3)
-        own[(col - 1) & kMask] = __ldcg(src_row + col);
+    __device__ __forceinline__ In load(const Args& a, const unsigned char* st,
+                                       int e, int) const {
+      In x;
+      x.x = reinterpret_cast<const S*>(st)[e];
+      if constexpr (!kDec) x.er = esc_recon(x.x, a.median, a.mask);
+      return x;
     }
-    if (kRank == 3 && w == 0 && gi > 0 && si > 0) {
-      wait_flag(g.flags + (u - g.ns - 1) * (W + 1) + W - 1, c + 1);
-      if (lane < kChunk && col < r3)
-        up[(col - 1) & kMask] = __ldcg(
-            g.rows + ((long long)(v * g.ns + si - 1) * g.r1 + i - 1) * r3 +
-            col);
-    }
-  };
 
-  // (warp 0 of a rank-3 block past the first group) slot chunk c of
-  // plane i - 1, as the previous group's last warp published it, into
-  // ring 0
-  auto plane_above = [&](int c) {
-    wait_flag(g.flags + (u - g.ns) * (W + 1) + W, c + 1);
-    const V* pl = g.planes + ((long long)(v * g.ng + gi - 1) * g.r2 + j0) * xs;
-    const int x = c * kChunk + (lane & 15);
-    V val[kLanes / 2];
-#pragma unroll
-    for (int rr = 0; rr < kLanes / 2; ++rr) {
-      const int r = 2 * rr + (lane >> 4);
-      if (r < rows && x < xs) val[rr] = __ldcg(pl + (long long)r * xs + x);
-    }
-#pragma unroll
-    for (int rr = 0; rr < kLanes / 2; ++rr) {
-      const int r = 2 * rr + (lane >> 4);
-      if (r < rows && x < xs) up[(r + 1) * kPitch + (x & kMask)] = val[rr];
-    }
-  };
-
-  // K11: this lane's next escape (the rows' ranks from row_base).  A
-  // rank past the stream reads its last value, as _decode_fn clips; an
-  // empty stream reads none.
-  long long eidx = 0;
-  V enext = V(0);
-  auto escape = [&](long long rank) {
-    if constexpr (kDec)
-      return a.n_esc > 0 ? __ldg(a.esc + min(rank, a.n_esc - 1)) : V(0);
-    else
-      return V(0);
-  };
-  if constexpr (kDec) {
-    if (lane < rows) eidx = a.row_base[row0 + lane];
-    enext = escape(eidx);
-  }
-
-  V A = V(0), A2 = V(0), Bp = V(0), Cp = V(0), Ep = V(0);
-
-  // One group of kG steps from step s.
-  auto group = [&](int s) {
-    if (w > 0) wait_mark(mark + w - 1, s + kG + (kRank == 3 ? 0 : 31));
-    if (has_next) wait_mark(mark + w + 1, s + kG - (kRank == 3 ? 63 : 95));
-    // the group's inputs, all ready now, loaded before any of its
-    // stores: the staged values or types, the row above (row -1) and,
-    // rank 3, plane i - 1 (C at slot s, E one row up at slot s - 1)
-    S xin[kG];
-    V hbv[kG], Cv[kG], Ev[kG], erv[kG];
-#pragma unroll
-    for (int q = 0; q < kG; ++q) {
-      const int x = (s + q) & kMask, xm = (s + q - 1) & kMask;
-      xin[q] = st[lane * kPitch + x];
-      if constexpr (!kDec) erv[q] = esc_recon(xin[q], a.median, a.mask);
-      hbv[q] = own[xm];
-      if constexpr (kRank == 3) {
-        Cv[q] = up[(lane + 1) * kPitch + x];
-        Ev[q] = up[lane * kPitch + xm];
-      } else {
-        Cv[q] = Ev[q] = V(0);
-      }
-    }
-    V Rv[kG], ev[kG];
-    int tv[kG];
-    // the point steps: registers and shuffles only; with esc_path, a
-    // type 0 takes its escape value from ev
-    auto run = [&](auto esc_path) {
-#pragma unroll
-      for (int q = 0; q < kG; ++q) {
-        const int k = s + q - lane;
-        V B = __shfl_up_sync(kFull, A, 1);
-        if (lane == 0) B = hbv[q];
-        const int j = j0 + lane;
-        const V pred = predict(i, j, k, A, A2, B, Bp, Cv[q], Ev[q], Cp, Ep);
-        V R;
-        if constexpr (kDec) {
-          R = recon<kDbl>(pred, step_of<kDbl>(xin[q], a.q));
-          if constexpr (decltype(esc_path)::value)
-            if (xin[q] == 0) R = ev[q];
-        } else {
-          const V cur = xin[q];
-          V rec;
-          int t = quantize<kDbl>(cur, pred, a.q, &rec);
-          if ((i | j | k) == 0) t = 0;
-          R = t ? rec : erv[q];
-          tv[q] = t;
-        }
-        Rv[q] = R;
-        A2 = A;
-        A = R;
-        Bp = B;
-        Cp = Cv[q];
-        Ep = Ev[q];
-      }
-    };
-    if constexpr (kDec) {
-      // K11's escapes in the group, a lane's consecutive in the compact
-      // stream: the first is enext (loaded ahead), the rest are loaded
-      // here; a group with none takes the path without
-      unsigned em = 0;
-#pragma unroll
-      for (int q = 0; q < kG; ++q) {
-        const int k = s + q - lane;
-        if (lane < rows && k >= 0 && k < r3 && xin[q] == 0) em |= 1u << q;
-      }
-      if (__any_sync(kFull, em != 0)) {
+    // K11's escapes in the group, a lane's consecutive in the compact
+    // stream: the first is enext (loaded ahead), the rest are loaded
+    // here; a group with none takes the path without
+    template <class Run>
+    __device__ __forceinline__ void group(const Args& a, const In* xin,
+                                          int s, int lane, int rows, int r3,
+                                          Run&& run) {
+      if constexpr (kDec) {
+        unsigned em = 0;
 #pragma unroll
         for (int q = 0; q < kG; ++q) {
-          const int before = __popc(em & ((1u << q) - 1));
-          ev[q] = V(0);
-          if ((em >> q) & 1)
-            ev[q] = before == 0 ? enext : escape(eidx + before);
+          const int k = s + q - lane;
+          if (lane < rows && k >= 0 && k < r3 && xin[q].x == 0)
+            em |= 1u << q;
         }
-        run(std::true_type{});
-        if (em) {
-          eidx += __popc(em);
-          enext = escape(eidx);
+        if (__any_sync(kFull, em != 0)) {
+#pragma unroll
+          for (int q = 0; q < kG; ++q) {
+            const int before = __popc(em & ((1u << q) - 1));
+            ev[q] = V(0);
+            if ((em >> q) & 1)
+              ev[q] = before == 0 ? enext : escape(a, eidx + before);
+          }
+          run(std::true_type{});
+          if (em) {
+            eidx += __popc(em);
+            enext = escape(a, eidx);
+          }
+        } else {
+          run(std::false_type{});
         }
       } else {
         run(std::false_type{});
       }
-    } else {
-      run(std::false_type{});
     }
-    // the group's results into the rings
-#pragma unroll
-    for (int q = 0; q < kG; ++q) {
-      const int x = (s + q) & kMask;
-      const int k = s + q - lane;
-      const bool act = lane < rows && k >= 0 && k < r3;
-      if (act) {
-        own[(lane + 1) * kPitch + x] = Rv[q];
-        if constexpr (!kDec) *type_at(st + lane * kPitch + x) = tv[q];
+
+    // with the escape path, a type 0 takes its escape value from ev
+    template <class Path>
+    __device__ __forceinline__ V point(Path, const Args& a, int q,
+                                       const In& x, int i, int j, int k, V A,
+                                       V A2, V B, V D, V C, V E, V F, V G,
+                                       int* t) const {
+      const V pred = predict(i, j, k, A, A2, B, D, C, E, F, G);
+      if constexpr (kDec) {
+        V R = recon<kDbl>(pred, step_of<kDbl>(x.x, a.q));
+        if constexpr (Path::value)
+          if (x.x == 0) R = ev[q];
+        return R;
+      } else {
+        V rec;
+        int tq = quantize<kDbl>(x.x, pred, a.q, &rec);
+        if ((i | j | k) == 0) tq = 0;
+        *t = tq;
+        return tq ? rec : x.er;
       }
-      if (feed_next && lane == kLanes - 1 && act)
-        next[(s + q - kLanes) & kMask] = Rv[q];
     }
-    __syncwarp();
-    if (lane == 0) st_release_cta(mark + w, s + kG);
+
+    __device__ __forceinline__ void keep(unsigned char* st, int e,
+                                         const In&, int t) const {
+      if constexpr (!kDec) *type_at(reinterpret_cast<S*>(st) + e) = t;
+    }
+
+    __device__ __forceinline__ void out(const Args& a,
+                                        const unsigned char* st, int e,
+                                        long long gi) const {
+      if constexpr (!kDec)
+        a.types[gi] = *type_at(
+            const_cast<S*>(reinterpret_cast<const S*>(st)) + e);
+    }
   };
-
-  // Phase p: steps kChunk p to kChunk p + kChunk - 1; its start writes
-  // out chunk p - 3 (complete) and publishes slot chunk p - 1 of the
-  // last plane, stages chunk p + 1, and loads chunk p of the rows above
-  // (while the producing warp runs ahead: this warp waits for it next).
-  stage_chunk(0);
-  cp_async_commit();
-  for (int p = 0; p < nc + 3; ++p) {
-    const int s0 = p * kChunk;
-    if (p >= 3) output(p - 3);
-    if (pub_plane && p >= 1 && p - 1 < nsc) publish_plane(p - 1);
-    __syncwarp();
-    if (p + 1 < nc) stage_chunk(p + 1);
-    cp_async_commit();
-    cp_async_wait_prior();  // chunk p has landed
-    __syncwarp();
-    if (p < nc) {
-      // the ring's row -1 overwrites slots warp w + 1 read as E
-      if (kRank == 3 && has_next) wait_mark(mark + w + 1, s0 - 48);
-      halo(p);
-    }
-    if (kRank == 3 && w == 0 && gi > 0 && p < nsc) plane_above(p);
-    __syncwarp();
-    for (int s = s0; s < s0 + kChunk && s <= last_step; s += kG) group(s);
-  }
-  cp_async_wait_all();
-  __syncwarp();
-  if (lane == 0) st_release_cta(mark + w, kDone);
-}
-
-// The persistent loop: claim a unit, walk it, until none is left.
-template <int kRank, class V, bool kDbl, bool kDec>
-__device__ __forceinline__ void run_strips(
-    const Geo<V>& g, const typename Form<kRank, V, kDbl, kDec>::Args& a) {
-  using F = Form<kRank, V, kDbl, kDec>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  V* rings = reinterpret_cast<V*>(smem);
-  typename F::S* stage =
-      reinterpret_cast<typename F::S*>(rings + (F::W + 1) * F::kRingV);
-  int* mark = reinterpret_cast<int*>(stage + F::W * F::kRingS);
-  int* claimed = mark + F::W;
-  int* counter = g.flags + g.nunits * (F::W + 1);
-  while (true) {
-    if (threadIdx.x == 0) *claimed = atomicAdd(counter, 1);
-    if ((threadIdx.x & 31) == 0) mark[threadIdx.x >> 5] = 0;
-    __syncthreads();
-    const int n = *claimed;
-    if (n >= g.nunits) break;
-    const int u = g.order[n];
-    const int si = u % g.ns, gi = (u / g.ns) % g.ng, v = u / (g.ns * g.ng);
-    walk<kRank, V, kDbl, kDec>(g, a, u, v, gi, si, rings, stage, mark);
-    __syncthreads();
-  }
-}
+};
 
 // Each form and rank its own __global__ name (the profile tells them
 // apart; chip_smoke.DEVICE_NAMES lists them).
 __global__ void __launch_bounds__(Warps<float>::n * 32) classic_quantize2d_kernel(
     Geo<float> g, QuantArgs<float> a) {
-  run_strips<2, float, false, false>(g, a);
+  run_strips<Classic<2, float, false, false>>(g, a);
 }
 
 __global__ void __launch_bounds__(Warps<float>::n * 32) classic_quantize3d_kernel(
     Geo<float> g, QuantArgs<float> a) {
-  run_strips<3, float, false, false>(g, a);
+  run_strips<Classic<3, float, false, false>>(g, a);
 }
 
 __global__ void __launch_bounds__(Warps<float>::n * 32) classic_quantize4d_kernel(
     Geo<float> g, QuantArgs<float> a) {
-  run_strips<3, float, true, false>(g, a);
+  run_strips<Classic<3, float, true, false>>(g, a);
 }
 
 __global__ void __launch_bounds__(Warps<double>::n * 32) classic_quantize2d_f64_kernel(
     Geo<double> g, QuantArgs<double> a) {
-  run_strips<2, double, true, false>(g, a);
+  run_strips<Classic<2, double, true, false>>(g, a);
 }
 
 __global__ void __launch_bounds__(Warps<double>::n * 32) classic_quantize3d_f64_kernel(
     Geo<double> g, QuantArgs<double> a) {
-  run_strips<3, double, true, false>(g, a);
+  run_strips<Classic<3, double, true, false>>(g, a);
 }
 
 __global__ void __launch_bounds__(Warps<float>::n * 32) classic_decode2d_kernel(
     Geo<float> g, DecodeArgs<float> a) {
-  run_strips<2, float, false, true>(g, a);
+  run_strips<Classic<2, float, false, true>>(g, a);
 }
 
 __global__ void __launch_bounds__(Warps<float>::n * 32) classic_decode3d_kernel(
     Geo<float> g, DecodeArgs<float> a) {
-  run_strips<3, float, false, true>(g, a);
+  run_strips<Classic<3, float, false, true>>(g, a);
 }
 
 __global__ void __launch_bounds__(Warps<float>::n * 32) classic_decode4d_kernel(
     Geo<float> g, DecodeArgs<float> a) {
-  run_strips<3, float, true, true>(g, a);
+  run_strips<Classic<3, float, true, true>>(g, a);
 }
 
 __global__ void __launch_bounds__(Warps<double>::n * 32) classic_decode2d_f64_kernel(
     Geo<double> g, DecodeArgs<double> a) {
-  run_strips<2, double, true, true>(g, a);
+  run_strips<Classic<2, double, true, true>>(g, a);
 }
 
 __global__ void __launch_bounds__(Warps<double>::n * 32) classic_decode3d_f64_kernel(
     Geo<double> g, DecodeArgs<double> a) {
-  run_strips<3, double, true, true>(g, a);
+  run_strips<Classic<3, double, true, true>>(g, a);
 }
 
 // rp64 rounded down to float: for a float x, |x| > rp64 iff |x| > it.
@@ -758,64 +431,19 @@ unsigned long long mask_of(int ign, int width) {
   return (~((1ull << ign) - 1ull)) & full;
 }
 
-// The unit grid of a lattice: per volume (ng, ns) as Geo's note says.
-template <class V>
-int make_geo(Geo<V>* g, int rank, int nvol, int r1, int r2, int r3,
-             const int* order, int* flags, V* rows, V* planes, int nunits) {
-  constexpr int W = Warps<V>::n;
-  const int strips = (r2 + kLanes - 1) / kLanes;
-  g->nvol = nvol, g->r1 = rank == 2 ? 1 : r1, g->r2 = r2, g->r3 = r3;
-  g->ng = rank == 2 ? 1 : (r1 + W - 1) / W;
-  g->ns = rank == 2 ? (strips + W - 1) / W : strips;
-  g->nchunks = (r3 + kChunk - 1) / kChunk;
-  g->order = order, g->flags = flags, g->rows = rows, g->planes = planes;
-  g->nunits = nunits;
-  if ((rank == 2 && nvol != 1) ||
-      (long long)nvol * g->ng * g->ns != nunits)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-// One launch of `kernel`: W warps a block, as many blocks as can be
-// resident (never more than there are units).
-template <int kRank, class V, bool kDbl, bool kDec>
-int launch(void (*kernel)(Geo<V>,
-                          typename Form<kRank, V, kDbl, kDec>::Args),
-           const Geo<V>& g,
-           const typename Form<kRank, V, kDbl, kDec>::Args& a,
-           cudaStream_t st) {
-  using F = Form<kRank, V, kDbl, kDec>;
-  if (g.nunits == 0) return 0;
-  const size_t bytes = F::bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    F::W * 32, bytes);
-  if (e != cudaSuccess) return (int)e;
-  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > g.nunits) blocks = g.nunits;
-  kernel<<<(unsigned)blocks, F::W * 32, bytes, st>>>(g, a);
-  return (int)cudaGetLastError();
-}
-
 template <class V, bool kDbl, bool kDec>
-int launch_rank(void (*k2)(Geo<V>, typename Form<2, V, kDbl, kDec>::Args),
-                void (*k3)(Geo<V>, typename Form<3, V, kDbl, kDec>::Args),
-                const typename Form<3, V, kDbl, kDec>::Args& a, int rank,
+int launch_rank(void (*k2)(Geo<V>, typename Classic<2, V, kDbl, kDec>::Args),
+                void (*k3)(Geo<V>, typename Classic<3, V, kDbl, kDec>::Args),
+                const typename Classic<3, V, kDbl, kDec>::Args& a, int rank,
                 int nvol, int r1, int r2, int r3, const int* order,
                 int* flags, V* rows, V* planes, int nunits, void* stream) {
   Geo<V> g;
-  const int rc = make_geo(&g, rank, nvol, r1, r2, r3, order, flags, rows,
-                          planes, nunits);
+  const int rc = make_geo<Warps<V>::n>(&g, rank, nvol, r1, r2, r3, order,
+                                       flags, rows, planes, nunits);
   if (rc) return rc;
   if (rank == 2)
-    return launch<2, V, kDbl, kDec>(k2, g, a, (cudaStream_t)stream);
-  return launch<3, V, kDbl, kDec>(k3, g, a, (cudaStream_t)stream);
+    return launch<Classic<2, V, kDbl, kDec>>(k2, g, a, (cudaStream_t)stream);
+  return launch<Classic<3, V, kDbl, kDec>>(k3, g, a, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -862,11 +490,11 @@ extern "C" int sz_classic_quantize_4d(const float* data, int* types,
                                       radius, down_to_float(rp64)},
                      median, mask_of(ign, 32)};
   Geo<float> g;
-  const int rc = make_geo(&g, 3, nvol, r1, r2, r3, order, flags, rows,
-                          planes, nunits);
+  const int rc = make_geo<Warps<float>::n>(&g, 3, nvol, r1, r2, r3, order,
+                                           flags, rows, planes, nunits);
   if (rc) return rc;
-  return launch<3, float, true, false>(classic_quantize4d_kernel, g, a,
-                                       (cudaStream_t)stream);
+  return launch<Classic<3, float, true, false>>(classic_quantize4d_kernel, g,
+                                                a, (cudaStream_t)stream);
 }
 
 // K10, float64 data (rank 2, rank 3, or the volumes of rank 4).
@@ -915,11 +543,11 @@ extern "C" int sz_classic_decode_4d(const int* types, const float* esc,
   DecodeArgs<float> a{types, esc, n_esc, row_base, out,
                       Quantizer<float>{0.0f, rp64, 0.0, 0, radius, 0.0f}};
   Geo<float> g;
-  const int rc = make_geo(&g, 3, nvol, r1, r2, r3, order, flags, rows,
-                          planes, nunits);
+  const int rc = make_geo<Warps<float>::n>(&g, 3, nvol, r1, r2, r3, order,
+                                           flags, rows, planes, nunits);
   if (rc) return rc;
-  return launch<3, float, true, true>(classic_decode4d_kernel, g, a,
-                                      (cudaStream_t)stream);
+  return launch<Classic<3, float, true, true>>(classic_decode4d_kernel, g, a,
+                                               (cudaStream_t)stream);
 }
 
 // K11, float64 data.

@@ -50,9 +50,11 @@ SIGNATURES = {
     "sz_wavefront_quantize": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _F, _F, _F, _F, _I, _I, _P, _P, _I, _P),
     "sz_wavefront_decode": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
-    "sz_wavefront_quantize_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _D, _D, _D, _D, _I, _I, _P, _P, _I, _P),
-    "sz_wavefront_decode_f64": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "sz_wavefront_quantize_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _D, _D, _D, _D, _I, _I, _P, _P, _P, _P, _I,
+                                  _P),
+    "sz_wavefront_decode_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                                _P, _I, _P),
     "sz_histogram": (_P, _LL, _I, _I, _P, _P),
     "sz_pack_bits": (_P, _LL, _P, _P, _P, _I, _P, _P, _LL, _P),
     "sz_fsm_sweep": (_P, _P, _P, _I, _LL, _LL, _I, _I, _P, _P, _P, _P),

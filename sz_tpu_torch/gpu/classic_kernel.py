@@ -2,7 +2,8 @@
 Lorenzo recurrence of the classic SZ1.4 codec on 2-D, 3-D and 4-D
 fields, encode and decode, float32 and float64.
 
-CUDA kernels in ``csrc/classic.cu``.  They replace no Pallas kernel:
+CUDA kernels in ``csrc/classic.cu`` on the strip machinery of
+``csrc/strips.cuh`` (shared with K1d/K2d).  They replace no Pallas kernel:
 the JAX package solves this recurrence in XLA, a plane scan with a
 per-plane fixpoint and a serial scan pinning the first row
 (``sz_tpu/tpu/classic_engine.py::_encode_fn`` and ``::_decode_fn``).
@@ -11,8 +12,9 @@ dependency order: a warp walks a strip of 32 rows of one plane, a lane
 a row, skewed by its lane, its neighbours in registers and shuffles; a
 block's warps walk consecutive planes (rank 3) or strips (rank 2) and
 hand their rows on through shared-memory rings, blocks through device
-scratch, chunk by chunk, in the claim order :func:`strip_order` makes
-(a 4-D field's volumes side by side in that one order).
+scratch, chunk by chunk, in the claim order
+:func:`sz_tpu_torch.gpu.strips.strip_order` makes (a 4-D field's volumes
+side by side in that one order).
 ``classic.cu``'s note has the rules, the three numeric forms
 (``core.classic_nd.Form``) and the bound.
 
@@ -39,18 +41,17 @@ import ctypes
 import numpy as np
 import torch
 
-import functools
-
 from sz_tpu_torch.gpu import _build
+from sz_tpu_torch.gpu import strips
 from sz_tpu_torch.gpu.msst19_kernel import _diag
+from sz_tpu_torch.gpu.strips import (CHUNK, GROUP, LANES,  # noqa: F401
+                                     scratch_sizes, strip_grid, strip_order)
 
 _F32, _F64, _I32, _I64 = torch.float32, torch.float64, torch.int32, torch.int64
 
-# classic.cu's strip constants: rows a strip (a lane each), columns a
-# chunk (staging, output, hand-offs), slots of a ring row, steps between
-# two in-block progress marks by rank, and warps a block by element type
-LANES, CHUNK, RING = 32, 16, 64
-GROUP = {2: 8, 3: 4}
+# classic.cu's slots of a ring row and warps a block by element type (the
+# other strip constants are strips.cuh's, in gpu/strips.py)
+RING = 64
 WARPS = {_F32: 6, _F64: 4}
 
 
@@ -225,73 +226,20 @@ def lattice(shape) -> tuple:
     return (3,) + shape
 
 
-def strip_grid(rank: int, r1: int, r2: int, warps: int) -> tuple:
-    """(ng, ns): a volume's units, ng plane groups x ns strip groups.
-    Rank 3: groups of ``warps`` planes, one strip of LANES rows each;
-    rank 2: one plane, groups of ``warps`` strips."""
-    strips = -(-r2 // LANES)
-    if rank == 2:
-        return 1, -(-strips // warps)
-    return -(-r1 // warps), strips
-
-
-def strip_order(rank: int, nvol: int, r1: int, r2: int,
-                warps: int) -> np.ndarray:
-    """The units (v, g, s), numbered (v * ng + g) * ns + s, in the order
-    the kernel claims them: by diagonal g + s, then volume, then g.  A
-    unit's predecessors (g - 1, s), (g, s - 1) and (g - 1, s - 1) of its
-    volume lie on earlier diagonals, so they come first; a 4-D field's
-    volumes interleave, diagonal by diagonal."""
-    ng, ns = strip_grid(rank, r1, r2, warps)
-    v, g, s = (a.reshape(-1) for a in np.meshgrid(
-        np.arange(nvol), np.arange(ng), np.arange(ns), indexing="ij"))
-    return np.lexsort((g, v, g + s)).astype(np.int32)
-
-
-def scratch_sizes(rank: int, nvol: int, r1: int, r2: int, r3: int,
-                  warps: int) -> tuple:
-    """(rows, planes, flags) entries of a launch's scratch: the published
-    last rows [nvol][ns][r1][r3] (rank 2: [ns][r3]), the published last
-    planes by slot (column + row) [nvol][ng][r2][r3 + LANES] (rank 3;
-    rank 2 none), and the flags [units][warps + 1] with the claim
-    counter."""
-    ng, ns = strip_grid(rank, r1, r2, warps)
-    rows = nvol * ns * (r1 if rank == 3 else 1) * r3
-    planes = nvol * ng * r2 * (r3 + LANES) if rank == 3 else 0
-    return rows, planes, nvol * ng * ns * (warps + 1) + 1
-
-
 def shared_bytes(dtype, decode: bool) -> int:
-    """Dynamic shared memory of a block (classic.cu ``Form::bytes``):
-    warps + 1 value rings of 33 rows, warps staging rings of 32 rows
-    (K10: the data's type, K11: int32 types), each row RING + 1 entries,
-    and the progress marks."""
-    w, item = WARPS[dtype], (8 if dtype == _F64 else 4)
-    pitch = RING + 1
-    return ((w + 1) * (LANES + 1) * pitch * item
-            + w * LANES * pitch * (4 if decode else item) + (w + 1) * 4)
-
-
-@functools.lru_cache(maxsize=32)
-def _order_on(rank: int, nvol: int, r1: int, r2: int, warps: int, device):
-    """The claim order on ``device``, made once per lattice shape."""
-    return torch.from_numpy(strip_order(rank, nvol, r1, r2, warps)).to(
-        device)
+    """Dynamic shared memory of a block (strips.cuh ``shared_bytes`` of
+    classic.cu's rule): the value rings of the data's type, one staging
+    array (K10: the data's type, K11: int32 types)."""
+    item = 8 if dtype == _F64 else 4
+    return strips.shared_bytes(WARPS[dtype], item,
+                               LANES * (RING + 1) * (4 if decode else item),
+                               RING)
 
 
 def _strips(lat: tuple, dtype, device) -> tuple:
-    """A launch's strip arguments: (order, flags, rows, planes) as C
-    arguments and the unit count, and the tensors, which the caller keeps
-    alive until the launch is queued."""
-    rank, nvol, r1, r2, r3 = lat
-    w = WARPS[dtype]
-    order = _order_on(rank, nvol, r1, r2, w, device)
-    n_rows, n_planes, n_flags = scratch_sizes(rank, nvol, r1, r2, r3, w)
-    flags = torch.zeros(n_flags, dtype=_I32, device=device)
-    rows = torch.empty(max(n_rows, 1), dtype=dtype, device=device)
-    planes = torch.empty(max(n_planes, 1), dtype=dtype, device=device)
-    keep = (order, flags, rows, planes)
-    return (*(_p(t) for t in keep), int(order.numel())), keep
+    """A launch's strip arguments (:func:`strips.strip_args`) for blocks
+    of WARPS[dtype] warps."""
+    return strips.strip_args(lat, WARPS[dtype], dtype, device)
 
 
 def escape_row_base(types):

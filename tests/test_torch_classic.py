@@ -14,6 +14,7 @@ import re
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import jax.numpy as jnp
 
@@ -261,11 +262,15 @@ def test_wrappers_check_their_inputs():
 
 
 def test_tiles_mirror_classic_cu():
-    """classic_kernel's strip constants are classic.cu's: rows a strip,
-    columns a chunk, ring slots, steps between progress marks, warps a
-    block by element type; and its shared-memory count is Form::bytes."""
-    src = (pathlib.Path(ck.__file__).parent.parent / "csrc"
-           / "classic.cu").read_text()
+    """classic_kernel's strip constants are those classic.cu compiles
+    (with strips.cuh's, which it includes): rows a strip, columns a chunk,
+    ring slots, steps between progress marks, warps a block by element
+    type, column chunks; and its shared-memory count is strips.cuh's
+    shared_bytes."""
+    csrc = pathlib.Path(ck.__file__).parent.parent / "csrc"
+    assert '#include "strips.cuh"' in (csrc / "classic.cu").read_text()
+    src = "\n".join((csrc / f).read_text() for f in ("classic.cu",
+                                                     "strips.cuh"))
     got = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert {k: int(got[k]) for k in ("kLanes", "kChunk", "kRing")} == dict(
         kLanes=ck.LANES, kChunk=ck.CHUNK, kRing=ck.RING)
@@ -277,8 +282,11 @@ def test_tiles_mirror_classic_cu():
                       r"sizeof\(V\) == 8 \? (\d+) : (\d+);", src)
     assert (int(warps[1]), int(warps[2])) == (ck.WARPS[torch.float64],
                                               ck.WARPS[torch.float32])
-    assert "static constexpr int kRingV = (kLanes + 1) * kPitch;" in src
-    assert "static constexpr int kRingS = kLanes * kPitch;" in src
+    assert "constexpr int kRingV = (kLanes + 1) * kPitch;" in src
+    assert "constexpr int kRingS = kLanes * kPitch;" in src
+    assert ("static constexpr int kStageBytes = Ring<kRing>::kRingS * "
+            "sizeof(S);") in src
+    assert "static constexpr bool kSlotChunks = false;" in src
     # two float blocks an SM (228 KB, 1 KB reserved a block), one double
     for dtype, dec, per_sm in ((torch.float32, False, 2),
                                (torch.float32, True, 2),

@@ -15,12 +15,13 @@ held to the plain versions and to sz_tpu.
   comes from the lane above (the shuffle), C and E from the ring of the
   plane above, the rows above from the ring's row -1, every ring slot
   tagged with the point it holds and every read checked against the
-  point the step needs; staging and output by chunks, the last rows and
-  plane published by chunk with their flags.  Its types and
-  reconstruction (K10) and its decode from the compact escapes (K11)
-  equal the plain wavefront's and sz_tpu's XLA _encode_fn / _decode_fn,
-  in all three numeric forms, on rows of 1, 2, CHUNK - 1 and CHUNK + 1
-  columns as well;
+  point the step needs; staging and output by column chunks, the last
+  rows and plane published by chunk with their flags (the walk of
+  ``csrc/strips.cuh`` in its column-chunk mode, shared with K1d/K2d).
+  Its types and reconstruction (K10) and its decode from the compact
+  escapes (K11) equal the plain wavefront's and sz_tpu's XLA _encode_fn /
+  _decode_fn, in all three numeric forms, on rows of 1, 2, CHUNK - 1 and
+  CHUNK + 1 columns as well;
 - the compact escapes' raster ranks (``escape_row_base``) against
   _decode_fn's cumsum: no escape, every point, one in the last point,
   one on each row's first point, escapes across a chunk's edge;
@@ -34,6 +35,7 @@ Inputs from numpy seeds.  Tolerance: exact -- equal bits.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import jax.numpy as jnp
 

@@ -14,6 +14,7 @@ bytes).
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import jax
 import jax.numpy as jnp

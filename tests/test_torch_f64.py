@@ -10,6 +10,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import jax.numpy as jnp
 
@@ -29,7 +30,7 @@ from sz_tpu_torch.core import optimizer as topt
 from sz_tpu_torch.core import regnd as tregnd
 from sz_tpu_torch.gpu import engine as teng
 from sz_tpu_torch.gpu import geometry as geo
-from sz_tpu_torch.gpu import lorenzo_kernel, stages, tiles
+from sz_tpu_torch.gpu import lorenzo_kernel, stages
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 F64 = np.float64
@@ -225,71 +226,6 @@ def test_k1d_k2d_plain_match_the_xla_fixpoints(shape, use_mean):
         jnp.asarray(64, jnp.int32), raw["mean"])
     np.testing.assert_array_equal(_bits(D.numpy()), _bits(np.asarray(D_j)))
     np.testing.assert_array_equal(_bits(D.numpy()), _bits(R.numpy()))
-
-
-# --- the tiled K1d/K2d's geometry ---------------------------------------------
-
-def test_f64_tiles_fit_and_are_whole_warps():
-    """The float64 tiles' blocks are whole warps, and the wrapper picks
-    them by rank.  Whether a block fits the card's shared memory shows
-    where it is launched (tiles.cuh asks for its bytes and the launch
-    fails past the limit; chip_smoke.py launches every tile shape), and
-    lorenzo.cu's LorenzoTile note has the bytes: the 2-D double tile is
-    shorter on k than the float one to fit."""
-    for tile in (lorenzo_kernel.TILE3_F64, lorenzo_kernel.TILE2_F64):
-        assert tile[0] * tile[1] % 32 == 0
-    assert lorenzo_kernel.TILE2_F64[2] < lorenzo_kernel.TILE2[2]
-    assert lorenzo_kernel.tile_of((1, 9, 9), torch.float64) == \
-        lorenzo_kernel.TILE2_F64
-    assert lorenzo_kernel.tile_of((2, 9, 9), torch.float64) == \
-        lorenzo_kernel.TILE3_F64
-
-
-def _pred7(R, i, j, k):
-    def nb(a, b, c):
-        return R[a, b, c] if min(a, b, c) >= 0 else F64(0)
-    p = nb(i, j, k - 1) + nb(i, j - 1, k)
-    p = p + nb(i - 1, j, k)
-    p = p - nb(i, j - 1, k - 1)
-    p = p - nb(i - 1, j, k - 1)
-    p = p - nb(i - 1, j - 1, k)
-    return p + nb(i - 1, j - 1, k - 1)
-
-
-@pytest.mark.parametrize("shape", [(3, 5, 7), (9, 17, 70), (1, 70, 130)])
-def test_k2d_tile_walk_matches_decode_plain(shape):
-    """The tiled K2d's claim order over the float64 tiles and its point
-    rule, walked in numpy float64 (every neighbour done before its
-    point), equal decode_plain bit for bit."""
-    rng = np.random.default_rng(9)
-    km = rng.random(shape) < 0.2
-    kv = rng.standard_normal(shape)
-    q = rng.integers(-3, 4, shape) * 2e-3
-    tile = lorenzo_kernel.tile_of(shape, torch.float64)
-    grid, order, _ = tiles.tile_order(shape, tile)
-    R = np.zeros(shape, F64)
-    done = np.zeros(shape, bool)
-    for flat in order:
-        org = [int(n) * b for n, b in zip(np.unravel_index(flat, grid),
-                                          tile)]
-        ext = [min(b, r - o) for b, r, o in zip(tile, shape, org)]
-        for s in range(sum(ext) - 2):
-            for li in range(ext[0]):
-                for lj in range(ext[1]):
-                    lk = s - li - lj
-                    if not 0 <= lk < ext[2]:
-                        continue
-                    i, j, k = org[0] + li, org[1] + lj, org[2] + lk
-                    assert all(done[a, b, c] for a, b, c in (
-                        (i - 1, j, k), (i, j - 1, k), (i, j, k - 1))
-                        if min(a, b, c) >= 0)
-                    R[i, j, k] = kv[i, j, k] if km[i, j, k] else (
-                        _pred7(R, i, j, k) + q[i, j, k])
-                    done[i, j, k] = True
-    assert done.all()
-    got = lorenzo_kernel.decode_plain(*(torch.from_numpy(a)
-                                        for a in (km, kv, q)))
-    np.testing.assert_array_equal(_bits(got.numpy()), _bits(R))
 
 
 # --- the device optimizer -----------------------------------------------------

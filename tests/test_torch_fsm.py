@@ -13,6 +13,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 from sz_tpu.format import huffman as jhuff
 from sz_tpu.tpu import fsm_kernel as jfsm

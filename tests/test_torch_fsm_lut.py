@@ -27,6 +27,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 from sz_tpu_torch.format import huffman
 from sz_tpu_torch.gpu import fsm_kernel as fk

@@ -16,6 +16,7 @@ Tolerance: exact (equal bits, equal bytes).
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import sz_tpu
 from sz_tpu.config import ErrorBoundMode as JMode
@@ -376,9 +377,9 @@ def test_pwrel_on_card_matches_oracle(cuda, shape, ratio):
     (4097, 1, 1), (1, 4097), (7, 20)])
 @pytest.mark.parametrize("use_mean", [False, True])
 def test_lorenzo_f64_kernels_match_plain(cuda, shape, use_mean):
-    """K1d/K2d bit-equal to their plain float64 versions, twice, on the
-    float64 tile shapes (ragged, sub-tile, single-row lattices); K2d
-    rebuilds K1d's reconstruction."""
+    """K1d/K2d bit-equal to their plain float64 versions, twice, on
+    ragged, sub-strip and single-row lattices; K2d rebuilds K1d's
+    reconstruction."""
     args = SMOKE.k1_inputs(shape, 7, cuda, "mixed", np.float64)
     if not use_mean:
         args[4] = None
@@ -398,6 +399,36 @@ def test_lorenzo_f64_kernels_match_plain(cuda, shape, use_mean):
     D = lorenzo_kernel.wavefront_decode(*dec)
     assert torch.equal(D.view(torch.int64),
                        lorenzo_kernel.decode_plain(*dec).view(torch.int64))
+    assert torch.equal(D.view(torch.int64), R.view(torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SMOKE.LORENZO_F64_EDGES,
+                         ids=lambda c: "x".join(map(str, c[0])) + "_" + c[2])
+def test_lorenzo_f64_strip_edges_match_plain(cuda, case):
+    """K1d/K2d on their strips' edges (chip_smoke.LORENZO_F64_EDGES):
+    bit-equal to the plain versions, the types the same without R, and
+    the same from flag tensors whose data is not 8-byte aligned."""
+    shape, use_mean, regression = case
+    args = SMOKE.k1_inputs(shape, 11, cuda, regression, np.float64)
+    if not use_mean:
+        args[4] = None
+    scal = SMOKE.k1_scalars(np.float64)
+    t, R = lorenzo_kernel.wavefront_quantize(*args, *scal, use_mean=use_mean,
+                                             want_R=True)
+    t_p, R_p = lorenzo_kernel.quantize_plain(*args, *scal,
+                                             use_mean=use_mean)
+    assert torch.equal(t, t_p) and torch.equal(R.view(torch.int64),
+                                               R_p.view(torch.int64))
+    n = args[0].numel()
+    odd = [a if a is None or a.dtype != torch.bool else
+           torch.empty(n + 3, dtype=torch.bool, device=cuda)[3:].view(
+               shape).copy_(a) for a in args]
+    assert odd[3].data_ptr() % 8 != 0
+    assert torch.equal(lorenzo_kernel.wavefront_quantize(
+        *odd, *scal, use_mean=use_mean), t)
+    dec = SMOKE.k2_inputs(args, t, use_mean)
+    D = lorenzo_kernel.wavefront_decode(*dec)
     assert torch.equal(D.view(torch.int64), R.view(torch.int64))
 
 

@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import sz_tpu_torch
 from sz_tpu_torch.config import ErrorBoundMode, SZConfig
@@ -416,7 +417,8 @@ def test_kernel_build_keeps_ieee_floats():
                                       "fsm.cu", "msst19.cu", "classic.cu",
                                       "ra.cu", "temporal.cu"}
     assert {p.name for p in _build.headers()} == {"tiles.cuh",
-                                                  "lookback.cuh"}
+                                                  "lookback.cuh",
+                                                  "strips.cuh"}
     for p in srcs + _build.headers():
         text = p.read_text()
         assert "fast_math" not in text and "fmad=true" not in text

@@ -13,6 +13,8 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 from sz_tpu import api as japi
 from sz_tpu import config as jcfg

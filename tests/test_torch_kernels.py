@@ -16,6 +16,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import jax.numpy as jnp
 
@@ -229,27 +230,23 @@ def test_k4_plain_matches_huffman_encode_long_codes():
 # --- the tiled K1/K2's geometry and order -----------------------------------
 
 def test_tiles_match_the_cuda_source():
-    """TILE3 / TILE2 (float32) and TILE3_F64 / TILE2_F64, from which the
-    wrapper makes the claim order, are the tile shapes lorenzo.cu compiles
-    (LorenzoTile<3, V> / <2, V>; a double tile may differ where kWide),
-    which it hands to tiles.cuh's TileShape with a one-deep k-halo."""
+    """TILE3 / TILE2, from which the wrapper makes K1/K2's claim order, are
+    the tile shapes lorenzo.cu compiles (LorenzoTile<3> / <2>), which it
+    hands to tiles.cuh's TileShape with a one-deep k-halo; the float64
+    K1d/K2d have no tile (they run on strips.cuh)."""
     csrc = pathlib.Path(lorenzo_kernel.__file__).resolve().parent.parent / \
         "csrc"
     src = (csrc / "lorenzo.cu").read_text()
     dims = re.findall(
-        r"static constexpr int (b[ijk]) = kRank == 3 \? (\d+) : "
-        r"(?:kWide \? (\d+) : )?(\d+);", src)
+        r"static constexpr int (b[ijk]) = kRank == 3 \? (\d+) : (\d+);", src)
     assert [d[0] for d in dims] == ["bi", "bj", "bk"]
-    assert "static constexpr bool kWide = sizeof(V) == 8;" in src
     assert tuple(int(d[1]) for d in dims) == lorenzo_kernel.TILE3
-    assert tuple(int(d[1]) for d in dims) == lorenzo_kernel.TILE3_F64
-    assert tuple(int(d[3]) for d in dims) == lorenzo_kernel.TILE2
-    assert tuple(int(d[2] or d[3]) for d in dims) == lorenzo_kernel.TILE2_F64
-    assert ("using LorenzoGeo = Geo<TileShape<LorenzoTile<kRank, V>, 1>>;"
+    assert tuple(int(d[2]) for d in dims) == lorenzo_kernel.TILE2
+    assert ("using LorenzoGeo = Geo<TileShape<LorenzoTile<kRank>, 1>>;"
             in src)
     for rank in (3, 2):
-        for v in ("float", "double"):
-            assert f"LorenzoGeo<{rank}, {v}>" in src
+        assert f"LorenzoGeo<{rank}>" in src
+    assert "kWide" not in src and "LorenzoGeo<3, double>" not in src
     assert "struct TileShape {" in (csrc / "tiles.cuh").read_text()
 
 

@@ -9,6 +9,8 @@ bytes, equal bits.
 
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 from sz_tpu.format import tdps as jtdps
 

@@ -19,6 +19,7 @@ import re
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 from sz_tpu_torch.core import pwr
 from sz_tpu_torch.gpu import msst19_engine, msst19_kernel, tiles

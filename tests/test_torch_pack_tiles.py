@@ -28,6 +28,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 from sz_tpu_torch.format import huffman
 from sz_tpu_torch.gpu import hist_kernel, pack_kernel

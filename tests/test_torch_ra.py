@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import sz_tpu
 from sz_tpu import config as jcfg

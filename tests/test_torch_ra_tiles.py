@@ -31,6 +31,7 @@ import re
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import sz_tpu
 from sz_tpu import config as jcfg

@@ -9,6 +9,8 @@ same bits on any machine.  Tolerance: exact (equal hashes).
 
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import sz_tpu
 from sz_tpu.config import ErrorBoundMode, SZConfig

@@ -9,6 +9,8 @@ exact (equal hashes).
 """
 
 import numpy as np
+import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 from sz_tpu.config import ErrorBoundMode, SZConfig
 from sz_tpu.temporal import TemporalCompressor

@@ -17,6 +17,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import sz_tpu.temporal as jtmp
 from sz_tpu.config import CompressionType as JType
