@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 nvcc (CUDA_HOME, PATH or /usr/local/cuda) and a C compiler (cc):
 
     python3 chip_smoke.py [--out FILE.json] [--parent DIR]
+                          [--parent-kernels classic,lorenzo64,temporal]
 
 Phases (one line of numbers each; any failure raises and exits non-zero):
   1. environment: versions, card name and power limit, the kernel build
@@ -51,8 +52,9 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      float64), 1800x3600, 8x128x256x256 and 512^3 with the byte bound
      (and the parent's 12 B a point) and the chain bound; each kernel's
      registers, spills and shared memory; with --parent DIR, the parent
-     tree's K10/K11 and K1d/K2d timed beside this tree's
-     (tools/strip_timing.py, parent, this, this, parent);
+     tree's K10/K11, K1d/K2d and K14/K15 (wrappers and bare launches)
+     timed beside this tree's (tools/strip_timing.py, parent, this,
+     this, parent; --parent-kernels picks among them);
      K8d/K9d (MSST19 on float64 data) on K8/K9's shapes, the 1e-4 and
      1e-5 tables, timed at 256^3, 1800x3600 and 512^3; K12/K13 (the
      random-access codec's per-block scans; K13 on the compact escapes,
@@ -64,11 +66,15 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      256^3, 1800x3600, 2^24 (1-D) and 512^3 (the plain versions on the
      leading 2^16 blocks), with K13's bound before and after it took
      over the escape placement and the de-blocking; K14/K15 (the
-     temporal step and restore, float32 and float64, each called twice)
-     on a step equal to its history, a step that escapes everywhere, 3,
-     21 and 2049 points, subnormals, NaN and +-inf, fixed intervals, and
-     timed at 2^24 points; K15 must rebuild K14's reconstruction, and
-     count an escape past the end of its stream alike;
+     temporal step and restore, two launches each, float32 and float64,
+     each called twice) on a step equal to its history, a step that
+     escapes everywhere (also at 2^24 points), 3 and 21 points, a tile
+     less one, a tile, a tile plus one and three tiles plus three points,
+     subnormals, NaN and +-inf, fixed intervals, inputs at storage offset
+     1 (each of cur, prev, types, vals, and all four), and timed at 2^24
+     points, with each kernel's registers and spills; K15 must rebuild
+     K14's reconstruction, and count an escape past the end of its stream
+     alike;
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
      1e-3 (float32 and float64) and PW_REL 1e-3 streams and
      reconstructions hash to the SHA-256 of the host oracle's (sz_tpu,
@@ -100,7 +106,8 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      profile, the host<->device copies of a compress from a 256^3 tensor
      (no copy of the field up; down, besides the packed stream, under
      5 % of the field), and of the temporal chain's temporal steps from
-     CUDA tensors (the same frames; no copy up of 5 % of a field);
+     CUDA tensors (the same frames, steps 1 and 3 from views at storage
+     offset 1; no copy up of 5 % of a field);
   4. 512^3 float32 (NYX scale): the ABS error bound holds, compress and
      decompress MB/s (warm, best of 3) with per-span times and counts,
      the compress from a CUDA tensor of the same field, the kernel
@@ -2148,25 +2155,45 @@ def classic_strip_report(ptxas: list) -> list:
     return rows
 
 
-def strip_parent_timing(parent: str) -> list:
-    """K10/K11 and K1d/K2d of the parent tree at ``parent`` and of this
-    tree, timed by tools/strip_timing.py in fresh processes, in turns:
+TS_KERNELS = ("ts_quantize_kernel", "ts_quantize_f64_kernel",
+              "ts_quantize_escapes_kernel", "ts_quantize_escapes_f64_kernel",
+              "ts_decode_kernel", "ts_decode_f64_kernel",
+              "ts_decode_escapes_kernel", "ts_decode_escapes_f64_kernel")
+
+
+def temporal_report(ptxas: list) -> list:
+    """K14/K15's kernels (pass A and pass B of each, both dtypes):
+    ptxas's registers and spills."""
+    rows = []
+    for name in TS_KERNELS:
+        regs, spill = ptxas_of(ptxas, name)
+        rows.append(dict(kernel=name, registers=regs, spill=spill))
+        _log("K14/K15 kernels", **rows[-1])
+    return rows
+
+
+def strip_parent_timing(parent: str, kernels: str) -> list:
+    """The kernels of tools/strip_timing.py's ``--kernels`` list (classic:
+    K10/K11, lorenzo64: K1d/K2d, temporal: K14/K15) of the parent tree at
+    ``parent`` and of this tree, timed in fresh processes, in turns:
     parent, this, this, parent."""
+    keys = (("classic_quantize_ms", "classic_decode_ms"),
+            ("wavefront_quantize_f64_ms", "wavefront_decode_f64_ms"),
+            ("ts_quantize_ms", "ts_quantize_bare_ms", "ts_decode_ms",
+             "ts_decode_bare_ms"))
     runs = []
     for root in (parent, str(REPO), str(REPO), parent):
         res = subprocess.run(
             [sys.executable, str(REPO / "tools" / "strip_timing.py"),
-             "--root", root], capture_output=True, text=True)
+             "--root", root, "--kernels", kernels], capture_output=True,
+            text=True)
         if res.returncode:
             raise AssertionError(f"strip_timing.py --root {root} failed:"
                                  f"\n{res.stdout[-3000:]}\n"
                                  f"{res.stderr[-3000:]}")
         rec = json.loads(res.stdout.strip().splitlines()[-1])
-        _log("strip kernels timing", root=root, **{
-            r["case"]: ([r["classic_quantize_ms"], r["classic_decode_ms"]]
-                        if "classic_quantize_ms" in r else
-                        [r["wavefront_quantize_f64_ms"],
-                         r["wavefront_decode_f64_ms"]])
+        _log("strip and temporal kernels timing", root=root, **{
+            r["case"]: next([r[k] for k in ks] for ks in keys if ks[0] in r)
             for r in rec["rows"]})
         runs.append(rec)
     return runs
@@ -2175,18 +2202,38 @@ def strip_parent_timing(parent: str) -> list:
 # --- phase 2: K14/K15 -----------------------------------------------------
 
 TS_CASE_NAMES = ("equal", "all_escape", "n3", "n21", "tile_plus_one",
-                 "subnormal", "nan_inf", "fixed_intervals", "drift")
+                 "subnormal", "nan_inf", "fixed_intervals", "drift",
+                 "tile_minus_one", "tile", "tiles_plus_three")
+# the inputs K14/K15 read that phase 2 also hands them as views at storage
+# offset 1 (not 16-byte aligned), one at a time and all together, on
+# TS_OFFSET_CASE
+TS_OFFSETS = (("cur",), ("prev",), ("types",), ("vals",),
+              ("cur", "prev", "types", "vals"))
+TS_OFFSET_CASE = "tiles_plus_three"
 TS_REPS = 20
+
+
+def ts_points(name: str) -> int:
+    """The points of ts_case ``name``: the edges of temporal.cu's larger
+    tile, a multiple of the smaller, so edges of both (a tile less one, a
+    tile, a tile plus one, three tiles plus three: a ragged tail of a
+    slot), 3, 21, else 5000."""
+    from sz_tpu_torch.gpu import temporal_kernel as tk
+    tile = max(tk.QUANTIZE_TILE, tk.DECODE_TILE)
+    return {"n3": 3, "n21": 21, "tile_minus_one": tile - 1, "tile": tile,
+            "tile_plus_one": tile + 1,
+            "tiles_plus_three": 3 * tile + 3}.get(name, 5000)
 
 
 def ts_case(name: str, dtype) -> tuple:
     """(cur, prev, rp, compress_1d_ts keywords) of a K14/K15 edge case: a
     step equal to its history (every type radius but the first two), a
-    step in which every point escapes, 3, 21 and a tile plus one points,
-    subnormal values under a subnormal bound, NaN and +-inf in the step
-    and the history, fixed intervals, and a drift with jumps."""
+    step in which every point escapes, 3, 21 points and the tile edges
+    of ts_points, subnormal values under a subnormal bound, NaN and +-inf
+    in the step and the history, fixed intervals, and a drift with
+    jumps."""
     rng = np.random.default_rng(TS_CASE_NAMES.index(name))
-    n = {"n3": 3, "n21": 21, "tile_plus_one": 2049}.get(name, 5000)
+    n = ts_points(name)
     prev = np.sin(np.linspace(0, 30, n)).astype(dtype)
     cur = (prev + 0.002 * rng.standard_normal(n)).astype(dtype)
     cur[::97] += dtype(1.5)
@@ -2243,19 +2290,35 @@ def ts_params(cur, prev, rp: float, kw: dict) -> tuple:
     return intervals, intervals // 2, req, med
 
 
-def ts_vs_plain(name, cur, prev, rp: float, kw: dict, timed: bool) -> tuple:
+def offset_view(t, shift: int = 1):
+    """``t``'s values from ``shift`` elements into a buffer of its own on
+    its device: a contiguous view whose data_ptr is not 16-byte
+    aligned."""
+    buf = t.new_empty(t.numel() + shift)
+    buf[shift:].copy_(t.reshape(-1))
+    return buf[shift:].view(t.shape)
+
+
+def ts_vs_plain(name, cur, prev, rp: float, kw: dict, timed: bool,
+                offset=()) -> tuple:
     """K14 and K15 against their plain versions on one step (tensors on
     the card), each called twice, bit-equal: K14's types, reconstruction,
     compact escapes and count; K15 on K14's types with the escapes'
     reconstructions (what a decoder reads from the stream), which must
     rebuild K14's reconstruction, and with one escape too few (the last
-    escape NaN, the count unchanged).  Timed: the kernels' mean time, the
-    plain versions' one call, the bounds (each input read once, each
-    output written once: 16 bytes a float32 point and 28 a float64 one for
-    K14, 12 and 20 for K15, and each escape's value once)."""
+    escape NaN, the count unchanged).  The inputs named in ``offset``
+    (cur, prev, types, vals) reach the kernels as offset_view()s.  Timed:
+    the kernels' mean time, the plain versions' one call, the bounds
+    (each input read once, each output written once: 16 bytes a float32
+    point and 28 a float64 one for K14, 12 and 20 for K15, and each
+    escape's value once)."""
     from sz_tpu_torch.gpu import temporal_kernel as tk
     intervals, radius, req, med = ts_params(cur, prev, rp, kw)
     qa = (rp, intervals, radius, req, med)
+    if "cur" in offset:
+        cur = offset_view(cur)
+    if "prev" in offset:
+        prev = offset_view(prev)
     k = tk.ts_quantize(cur, prev, *qa)
     again = tk.ts_quantize(cur, prev, *qa)
     p, q_plain_ms = cuda_once(lambda: tk.ts_quantize_plain(cur, prev, *qa))
@@ -2267,6 +2330,10 @@ def ts_vs_plain(name, cur, prev, rp: float, kw: dict, timed: bool) -> tuple:
                 and same_bits(a[2][:count], b[2][:count]))
     types, recon = k[0], k[1]
     dvals = recon[types == 0]
+    if "types" in offset:
+        types = offset_view(types)
+    if "vals" in offset:
+        dvals = offset_view(dvals)
     da = (radius, 2 * rp)
     d = tk.ts_decode(types, prev, dvals, *da)
     d_again = tk.ts_decode(types, prev, dvals, *da)
@@ -2276,7 +2343,8 @@ def ts_vs_plain(name, cur, prev, rp: float, kw: dict, timed: bool) -> tuple:
     short_p = tk.ts_decode_plain(types, prev, dvals[:-1], *da)
     row = dict(
         case=name, dtype=str(cur.dtype).removeprefix("torch."),
-        points=cur.numel(), intervals=intervals, escapes=count,
+        points=cur.numel(), offset=list(offset), intervals=intervals,
+        escapes=count,
         quantize_bit_equal=q_equal(k, p), quantize_repeat=q_equal(k, again),
         decode_bit_equal=same_bits(d[0], dp[0]) and int(d[1]) == int(dp[1])
         == count, decode_repeat=same_bits(d[0], d_again[0]),
@@ -2286,7 +2354,7 @@ def ts_vs_plain(name, cur, prev, rp: float, kw: dict, timed: bool) -> tuple:
     if name == "equal" and not (count == 2 and bool(
             (types[2:] == radius).all())):
         raise AssertionError(f"{name}: {count} escapes")
-    if name == "all_escape" and count != cur.numel():
+    if name.startswith("all_escape") and count != cur.numel():
         raise AssertionError(f"{name}: {count} escapes")
     entries = {}
     if timed:
@@ -2315,8 +2383,10 @@ def ts_vs_plain(name, cur, prev, rp: float, kw: dict, timed: bool) -> tuple:
 
 def phase_ts_cases(dev) -> tuple:
     """Phase 2, K14/K15: the edge cases of ts_case in float32 and float64,
-    then 2^24 points (256^3's field and field64, step 1 against step 0 of
-    ts_step), timed.  Returns (rows, the float32 2^24 entries)."""
+    TS_OFFSET_CASE with the inputs of TS_OFFSETS at storage offset 1, an
+    all-escape step of 2^24 points (the staging full), then 2^24 points
+    (256^3's field and field64, step 1 against step 0 of ts_step), timed.
+    Returns (rows, the float32 2^24 entries)."""
     import torch
     rows, entries = [], {}
     for T in (np.float32, np.float64):
@@ -2325,6 +2395,19 @@ def phase_ts_cases(dev) -> tuple:
             rows.append(ts_vs_plain(
                 name, torch.from_numpy(cur).to(dev),
                 torch.from_numpy(prev).to(dev), rp, kw, False)[0])
+        cur, prev, rp, kw = ts_case(TS_OFFSET_CASE, T)
+        for offset in TS_OFFSETS:
+            rows.append(ts_vs_plain(
+                TS_OFFSET_CASE, torch.from_numpy(cur).to(dev),
+                torch.from_numpy(prev).to(dev), rp, kw, False, offset)[0])
+        g = torch.Generator(device=dev).manual_seed(16)
+        prev = torch.rand(1 << 24, generator=g, device=dev,
+                          dtype=torch.float64).to(getattr(torch, T.__name__))
+        cur = prev + 10 + torch.rand(1 << 24, generator=g, device=dev,
+                                     dtype=prev.dtype)
+        rows.append(ts_vs_plain("all_escape_2^24", cur, prev, ABS,
+                                dict(opt_quant_mode=0, fixed_intervals=64),
+                                False)[0])
         x0 = (field if T is np.float32 else field64)((256, 256, 256), 42)
         cur, prev = (torch.from_numpy(ts_step(x0, s, 42).reshape(-1)).to(dev)
                      for s in (1, 0))
@@ -2538,10 +2621,12 @@ def main_path_temporal(dev, rows: list, steps: dict) -> None:
 
 
 def phase_temporal_tensor_input(dev, record: dict, steps: dict) -> None:
-    """The temporal chain from CUDA tensors (every variable on the card):
-    the same frames as from host arrays (the oracle's), and the copies
-    of each temporal step's compress (a torch.profiler trace): no copy up
-    of 5 % of the smaller field or more."""
+    """The temporal chain from CUDA tensors (every variable on the card;
+    on the temporal steps 1 and 3 views at storage offset 1, which K14
+    reads unaligned): the same frames as from host arrays (the
+    oracle's), and the copies of each temporal step's compress (a
+    torch.profiler trace): no copy up of 5 % of the smaller field or
+    more."""
     import torch
     enc, _ = ts_compressors(dev)
     small = min(xs[0].nbytes for xs in steps.values())
@@ -2549,6 +2634,9 @@ def phase_temporal_tensor_input(dev, record: dict, steps: dict) -> None:
     for s, (want_frame, _) in enumerate(ORACLE_TEMPORAL):
         step = {vid: torch.from_numpy(xs[s]).to(dev)
                 for vid, xs in steps.items()}
+        offset = s in (1, 3)
+        if offset:
+            step = {vid: offset_view(x) for vid, x in step.items()}
         torch.cuda.synchronize()
         temporal = 0 < s % TS_SNAPSHOT_STEP
         if temporal:
@@ -2559,7 +2647,7 @@ def phase_temporal_tensor_input(dev, record: dict, steps: dict) -> None:
             raise AssertionError(f"temporal step {s} from tensors: the frame "
                                  f"differs from the host arrays'")
         row = dict(case=f"temporal_step{s}_tensor_input",
-                   frame_sha256_equal=True)
+                   storage_offset_1=offset, frame_sha256_equal=True)
         if copies is not None:
             up, down = sorted(copies["HtoD"]), sorted(copies["DtoH"])
             row.update(h2d_copies=len(up), h2d_bytes=sum(up),
@@ -3442,7 +3530,11 @@ DEVICE_NAMES = (
     ("ra_decode2d_kernel", "ra_decode"), ("ra_decode3d_kernel", "ra_decode"),
     ("ts_quantize_kernel", "ts_quantize"),
     ("ts_quantize_f64_kernel", "ts_quantize"),
+    ("ts_quantize_escapes_kernel", "ts_quantize"),
+    ("ts_quantize_escapes_f64_kernel", "ts_quantize"),
     ("ts_decode_kernel", "ts_decode"), ("ts_decode_f64_kernel", "ts_decode"),
+    ("ts_decode_escapes_kernel", "ts_decode"),
+    ("ts_decode_escapes_f64_kernel", "ts_decode"),
     ("Memcpy", "memcpy"), ("Memset", "memset"),
 )
 
@@ -3545,8 +3637,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON")
     ap.add_argument("--parent", help="a checkout of the parent commit: "
-                    "time its K10/K11 and K1d/K2d beside this tree's "
-                    "(phase 2)")
+                    "time its kernels of --parent-kernels beside this "
+                    "tree's (phase 2)")
+    ap.add_argument("--parent-kernels", default="classic,lorenzo64,temporal",
+                    help="tools/strip_timing.py's --kernels for --parent")
     args = ap.parse_args()
 
     import torch
@@ -3599,6 +3693,7 @@ def main() -> int:
         record["lorenzo_tiles"] = lorenzo_tiles(record["ptxas"])
         record["lorenzo_strips"] = lorenzo_strip_report(record["ptxas"])
         record["classic_strips"] = classic_strip_report(record["ptxas"])
+        record["temporal_kernels"] = temporal_report(record["ptxas"])
 
     # phase 2: each kernel against its plain version
     record["lorenzo_cases"], entries = phase_lorenzo(dev)
@@ -3612,7 +3707,8 @@ def main() -> int:
         phase_classic_cases(dev)
     entries.update(classic_entries)
     if args.parent:
-        record["strip_parent_timing"] = strip_parent_timing(args.parent)
+        record["strip_parent_timing"] = strip_parent_timing(
+            args.parent, args.parent_kernels)
     record["msst19_f64_cases"], msst19_f64_entries = \
         phase_msst19_f64_cases(dev)
     entries.update(msst19_f64_entries)

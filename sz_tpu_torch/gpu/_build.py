@@ -92,12 +92,13 @@ SIGNATURES = {
     "sz_ra_encode": (_P, _P, _P, _LL, _I, _P, _D, _I, _I, _I, _F, _P, _P),
     "sz_ra_decode": (_P, _P, _LL, _P, _P, _P, _P, _I, *(_I,) * 9, _D, _I,
                      _I, _F, _P, _P, _P),
-    "sz_ts_quantize": (_P, _P, _LL, _D, _D, _D, _I, _ULL, _F, _P, _P, _P, _P,
-                       _P, _P),
-    "sz_ts_quantize_f64": (_P, _P, _LL, _D, _D, _D, _I, _ULL, _D, _P, _P, _P,
-                           _P, _P, _P),
-    "sz_ts_decode": (_P, _P, _LL, _P, _LL, _I, _D, _P, _P, _P, _P),
-    "sz_ts_decode_f64": (_P, _P, _LL, _P, _LL, _I, _D, _P, _P, _P, _P),
+    "sz_ts_quantize": (_P, _P, _LL, _D, _D, _D, _I, _ULL, _F, _I, _P, _P, _P,
+                       _P, _P, _P, _P),
+    "sz_ts_quantize_f64": (_P, _P, _LL, _D, _D, _D, _I, _ULL, _D, _I, _P, _P,
+                           _P, _P, _P, _P, _P),
+    "sz_ts_decode": (_P, _P, _LL, _P, _LL, _I, _D, _I, _P, _P, _P, _P, _P),
+    "sz_ts_decode_f64": (_P, _P, _LL, _P, _LL, _I, _D, _I, _P, _P, _P, _P,
+                         _P),
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)

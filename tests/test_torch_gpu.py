@@ -724,6 +724,20 @@ def test_ts_kernels_match_plain(cuda, name, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("offset", SMOKE.TS_OFFSETS, ids="+".join)
+def test_ts_kernels_at_storage_offsets(cuda, offset, dtype):
+    """K14/K15 on inputs that are views at storage offset 1 (not 16-byte
+    aligned: the kernels peel a head and read such an array a point at a
+    time) against their plain versions."""
+    cur, prev, rp, kw = SMOKE.ts_case(SMOKE.TS_OFFSET_CASE, dtype)
+    row, _ = SMOKE.ts_vs_plain("offset", torch.from_numpy(cur).to(cuda),
+                               torch.from_numpy(prev).to(cuda), rp, kw,
+                               False, offset)
+    assert row["quantize_bit_equal"] and row["decode_rebuilds_recon"]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("tensors", [False, True], ids=["numpy", "tensor"])
 def test_temporal_on_card_matches_sz_tpu(cuda, tensors):
     """Five steps of a float32 3-D and a float64 2-D variable (snapshots

@@ -80,7 +80,8 @@ def _imports_of_sz_tpu(path: pathlib.Path) -> list:
 
 def test_no_module_of_the_port_imports_sz_tpu():
     files = sorted((REPO / "sz_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", REPO / "tools" / "strip_timing.py",
+        REPO / "tools" / "temporal_variants.py"]
     assert len(files) > 20
     bad = [hit for f in files for hit in _imports_of_sz_tpu(f)]
     assert not bad, bad
@@ -471,7 +472,10 @@ def test_profiler_names_cover_every_kernel():
     kernels = _global_kernels()
     assert len(kernels) >= 11
     assert {"ts_quantize_kernel", "ts_quantize_f64_kernel",
-            "ts_decode_kernel", "ts_decode_f64_kernel"} <= kernels
+            "ts_quantize_escapes_kernel", "ts_quantize_escapes_f64_kernel",
+            "ts_decode_kernel", "ts_decode_f64_kernel",
+            "ts_decode_escapes_kernel",
+            "ts_decode_escapes_f64_kernel"} <= kernels
     missing = sorted(k for k in kernels if not any(p in k for p in parts))
     assert not missing, missing
     # and no entry names a kernel that no longer exists

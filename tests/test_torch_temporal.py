@@ -7,8 +7,10 @@ interval optimizer, whole ``TemporalCompressor``
 chains (several variables, float32 and float64, ranks 1-4, every
 ``CompressionType``, numpy and tensor input) frame for frame with their
 decodes and histories after every step, PW_REL (what sz_tpu does, the
-port does), and the reference library's ts goldens.  Tolerance: exact --
-equal bytes, equal bits.
+port does), the reference library's ts goldens, and a numpy model of the
+kernels' two passes (tile ranks, tile prefix, staging, the head peel at
+offset inputs) against the plain versions and the XLA step and restore.
+Tolerance: exact -- equal bytes, equal bits.
 """
 
 import dataclasses
@@ -316,13 +318,260 @@ def test_ts_goldens():
 
 
 def test_tile_matches_the_kernel():
-    """temporal_kernel.TILE (the look-back scratch's tiles, and
-    ts_case's tile plus one) is temporal.cu's kTile."""
+    """temporal_kernel's tiling (THREADS, VEC, QUANTIZE_SLOTS,
+    DECODE_SLOTS, the two tiles, GROUP, PLACE_BLOCKS: the scratch's tile
+    counts, head(), the model below, and ts_case's tile edges) is
+    temporal.cu's; the larger tile is a multiple of the smaller, so
+    ts_case's edges are both kernels' tile edges."""
     import re
     src = (pathlib.Path(__file__).resolve().parent.parent / "sz_tpu_torch"
            / "csrc" / "temporal.cu").read_text()
     const = {k: int(v) for k, v in re.findall(
-        r"constexpr int (kThreads|kPer) = (\d+);", src)}
-    assert "constexpr int kTile = kThreads * kPer;" in src
-    assert tk.TILE == const["kThreads"] * const["kPer"]
-    assert len(SMOKE.ts_case("tile_plus_one", np.float32)[0]) == tk.TILE + 1
+        r"constexpr int (kThreads|kVec|kQuantizeSlots|kDecodeSlots|kGroup"
+        r"|kPlaceBlocks) = (\d+);", src)}
+    assert "static constexpr int kTile = kThreads * kSlots * kVec;" in src
+    assert "using QuantizeTiling = Tiling<kQuantizeSlots>;" in src
+    assert "using DecodeTiling = Tiling<kDecodeSlots>;" in src
+    assert (tk.THREADS, tk.VEC, tk.QUANTIZE_SLOTS, tk.DECODE_SLOTS,
+            tk.GROUP, tk.PLACE_BLOCKS) == (
+        const["kThreads"], const["kVec"], const["kQuantizeSlots"],
+        const["kDecodeSlots"], const["kGroup"], const["kPlaceBlocks"])
+    assert tk.QUANTIZE_TILE == tk.THREADS * tk.QUANTIZE_SLOTS * tk.VEC
+    assert tk.DECODE_TILE == tk.THREADS * tk.DECODE_SLOTS * tk.VEC
+    assert "lookback" not in src
+    small, big = sorted((tk.QUANTIZE_TILE, tk.DECODE_TILE))
+    assert big % small == 0
+    for name, n in (("tile_minus_one", big - 1), ("tile", big),
+                    ("tile_plus_one", big + 1),
+                    ("tiles_plus_three", 3 * big + 3)):
+        assert len(SMOKE.ts_case(name, np.float32)[0]) == n
+
+
+# --- a numpy model of the kernels' two passes (temporal.cu) ---------------
+
+WARPS = tk.THREADS // 32
+
+
+def _addr(offset: int, size: int) -> int:
+    """An array's address ``offset`` elements of ``size`` bytes into an
+    allocation aligned as torch's caching allocator aligns (512 bytes)."""
+    return 512 * 97 + offset * size
+
+
+def _pass_a(esc: np.ndarray, h: int, slots: int) -> tuple:
+    """Pass A's index arithmetic on the escape mask ``esc``, ``slots``
+    slots a thread, slots from point h - VEC (h > 0) or 0: (the points in
+    staging order, a staging slot a point, -1 where none is staged; the
+    tile counts).  Every rank is as the kernel forms it: the
+    step-and-warp counts' exclusive scan in (step, warp) order, a warp's
+    lanes' exclusive scan of their step's escapes, and the point's place
+    in its slot."""
+    tile = tk.THREADS * slots * tk.VEC
+    n, lead = esc.size, (tk.VEC - h) % tk.VEC
+    ntiles = tk.tiles(n, h, tile)
+    pts = (np.arange(ntiles * tile) - lead).reshape(
+        ntiles, slots, tk.THREADS, tk.VEC)
+    inside = (pts >= 0) & (pts < n)
+    e = np.zeros(pts.shape, bool)
+    e[inside] = esc[pts[inside]]
+    c = e.sum(-1)                                    # (tile, step, thread)
+    per_warp = c.reshape(ntiles, slots * WARPS, 32)
+    flat = per_warp.sum(-1)                          # (tile, step * warp)
+    s_off = np.cumsum(flat, 1) - flat
+    lane = (np.cumsum(per_warp, -1) - per_warp).reshape(c.shape)
+    rank = (np.repeat(s_off, 32, 1).reshape(c.shape) + lane)[..., None] \
+        + np.cumsum(e, -1) - e
+    counts = flat.sum(1).astype(np.int32)
+    first = np.maximum(np.arange(ntiles) * tile - lead, 0)
+    where = (first[:, None, None, None] + rank)[e]
+    ends = np.minimum(np.arange(1, ntiles + 1) * tile - lead, n)
+    tile = np.broadcast_to(np.arange(ntiles)[:, None, None, None], e.shape)[e]
+    # a tile stages inside its own points, so tiles never overlap
+    assert (where >= first[tile]).all() and (where < ends[tile]).all()
+    stage = np.full(n, -1, np.int64)
+    stage[where] = pts[e]
+    assert np.unique(where).size == where.size
+    return stage, counts
+
+
+def _pass_b(counts: np.ndarray) -> tuple:
+    """Pass B's blocks, groups and sums over the tile counts: (for each
+    tile, the rank in the field of its first escape; the count the last
+    block writes).  Each block sums the counts before its first tile
+    itself, from a multiple of 4 (whole int4 loads)."""
+    ntiles = counts.size
+    groups = -(-ntiles // tk.GROUP)
+    per = -(-groups // tk.PLACE_BLOCKS)
+    blocks = -(-groups // per)
+    assert blocks <= tk.PLACE_BLOCKS
+    dst = np.full(ntiles, -1, np.int64)
+    count = None
+    for b in range(blocks):
+        g0 = b * per * tk.GROUP
+        g1 = min(g0 + per * tk.GROUP, ntiles)
+        assert g0 % 4 == 0 and g0 < g1
+        base = int(counts[:g0].astype(np.int64).sum())
+        for t0 in range(g0, g1, tk.GROUP):
+            c = counts[t0:min(t0 + tk.GROUP, g1)].astype(np.int64)
+            dst[t0:t0 + c.size] = base + np.cumsum(c) - c
+            base += int(c.sum())
+        if g1 == ntiles:
+            count = base
+    return dst, count
+
+
+def _placed(esc: np.ndarray, h: int, slots: int) -> tuple:
+    """Both passes, ``slots`` slots a thread: (the points in the order
+    pass B places the escapes, the count)."""
+    stage, counts = _pass_a(esc, h, slots)
+    lead = (tk.VEC - h) % tk.VEC
+    dst, count = _pass_b(counts)
+    order = np.full(count, -1, np.int64)
+    for t, c in enumerate(counts):
+        first = max(t * tk.THREADS * slots * tk.VEC - lead, 0)
+        order[dst[t]:dst[t] + c] = stage[first:first + c]
+    return order, count
+
+
+# element offsets of (cur, prev) for K14 and (types, prev) for K15, the
+# outputs at offset 0 (the wrapper's torch.empty)
+OFFSETS = [(0, 0), (1, 0), (0, 3), (1, 1), (2, 1)]
+
+
+def _heads(size: int, offsets) -> tuple:
+    """(K14's head, K15's head) for inputs at ``offsets``."""
+    a, b = offsets
+    q = tk.head([(_addr(a, size), size), (_addr(b, size), size),
+                 (_addr(0, 4), 4), (_addr(0, size), size)])
+    d = tk.head([(_addr(a, 4), 4), (_addr(b, size), size),
+                 (_addr(0, size), size)])
+    return q, d
+
+
+@pytest.mark.parametrize("offsets", OFFSETS, ids=str)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", SMOKE.TS_CASE_NAMES)
+def test_pass_model_matches_plain(name, dtype, offsets):
+    """The model of the two passes, on the escapes of ts_quantize_plain,
+    places K14's escape values and K15's escapes as the plain versions
+    do, bit for bit, with their counts (K15 also with one escape too
+    few: NaN at the last escape), at every head the inputs' offsets
+    give."""
+    cur, prev, rp, kw = SMOKE.ts_case(name, dtype)
+    vr, med = _median_range(cur)
+    intervals = kw.get("fixed_intervals", 1024)
+    req, m = tclassic.req_length_median(rp, vr, med, dtype)
+    types, recon, vals, count = tk.ts_quantize_plain(
+        torch.from_numpy(cur), torch.from_numpy(prev), rp, intervals,
+        intervals // 2, req, m)
+    esc = (types == 0).numpy()
+    hq, hd = _heads(np.dtype(dtype).itemsize, offsets)
+    order, c = _placed(esc, hq, tk.QUANTIZE_SLOTS)
+    assert c == int(count) == esc.sum()
+    np.testing.assert_array_equal(_bits(cur[order]),
+                                  _bits(vals[:c].numpy()))
+    dvals = recon.numpy()[esc]
+    order, c = _placed(esc, hd, tk.DECODE_SLOTS)
+    for given in (dvals, dvals[:-1]):
+        out, seen = tk.ts_decode_plain(types, torch.from_numpy(prev),
+                                       torch.from_numpy(given),
+                                       intervals // 2, 2 * rp)
+        model = out.numpy().copy()
+        model[order] = np.concatenate([given, [np.nan] * (c - given.size)]
+                                      ).astype(dtype)
+        assert int(seen) == c
+        np.testing.assert_array_equal(_bits(out.numpy()), _bits(model))
+    np.testing.assert_array_equal(_bits(model[order[:-1]]),
+                                  _bits(recon.numpy()[order[:-1]]))
+
+
+EDGES = ["tile_minus_one", "tile", "tile_plus_one", "tiles_plus_three",
+         "all_escape"]
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1)], ids=str)
+@pytest.mark.parametrize("name", EDGES)
+def test_pass_model_matches_xla(name, offsets):
+    """The model of the two passes against sz_tpu's XLA step and restore
+    (_ts_device_step_fn on float32, _ts_decode_fn in both dtypes) at the
+    tile edges and on the all-escape step: K14's compact escape values
+    and count, K15's field, exactly."""
+    for dtype in (np.float32, np.float64):
+        cur, prev, rp, kw = SMOKE.ts_case(name, dtype)
+        vr, med = _median_range(cur)
+        intervals = kw.get("fixed_intervals", 1024)
+        req, m = tclassic.req_length_median(rp, vr, med, dtype)
+        n = cur.size
+        k = 1 << max(n - 1, 1).bit_length()
+        types, recon, _, _ = tk.ts_quantize_plain(
+            torch.from_numpy(cur), torch.from_numpy(prev), rp, intervals,
+            intervals // 2, req, m)
+        esc = (types == 0).numpy()
+        hq, hd = _heads(np.dtype(dtype).itemsize, offsets)
+        if dtype == np.float32:
+            t_x, _, hist_x, vals_x, _ = jtmp._ts_device_step_fn(n, k)(
+                cur, prev, np.float64(rp), np.int32(intervals),
+                np.int32(intervals // 2), np.int32(req), np.float32(m))
+            order, c = _placed(esc, hq, tk.QUANTIZE_SLOTS)
+            assert c == int(np.asarray(hist_x)[0])
+            np.testing.assert_array_equal(types.numpy(),
+                                          np.asarray(t_x).astype(np.int32))
+            np.testing.assert_array_equal(_bits(cur[order]),
+                                          _bits(np.asarray(vals_x)[:c]))
+        dvals = recon.numpy()[esc]
+        order, c = _placed(esc, hd, tk.DECODE_SLOTS)
+        pad = np.zeros(k, dtype)
+        pad[:c] = dvals
+        want = np.asarray(jtmp._ts_decode_fn(
+            n, k, np.dtype(dtype).str.lstrip("<>="))(
+                types.numpy(), prev, np.int32(intervals // 2),
+                np.float64(2 * rp), pad))
+        model = want.copy()
+        model[order] = dvals
+        np.testing.assert_array_equal(_bits(model), _bits(want))
+        np.testing.assert_array_equal(_bits(want[esc]), _bits(dvals))
+        assert (order == np.flatnonzero(esc)).all()
+
+
+@pytest.mark.parametrize("ntiles", [1, 3, 32, 33, 4 * 32 * 256 + 5,
+                                    32 * 256 * 3 + 97])
+def test_pass_b_prefix_over_many_blocks(ntiles):
+    """Pass B's blocks (several groups a block past GROUP x PLACE_BLOCKS
+    tiles) give each tile the exclusive prefix of the tile counts, and
+    the count, whatever the counts (none, a whole tile, random)."""
+    rng = np.random.default_rng(ntiles)
+    for counts in (np.zeros(ntiles, np.int32),
+                   np.full(ntiles, tk.DECODE_TILE, np.int32),
+                   rng.integers(0, 40, ntiles).astype(np.int32)):
+        dst, count = _pass_b(counts)
+        c = counts.astype(np.int64)
+        np.testing.assert_array_equal(dst, np.cumsum(c) - c)
+        assert count == c.sum()
+
+
+def test_head_aligns_the_most_bytes():
+    """head() picks the first point at which the most bytes a point are
+    16-byte aligned, the smallest such on a tie; every full slot of an
+    array aligned at it is 16-byte aligned."""
+    f, d, i = 4, 8, 4
+    assert tk.head([(_addr(0, f), f)] * 4) == 0
+    # K14 float32 with cur at offset 1: the outputs and prev win
+    assert tk.head([(_addr(1, f), f), (_addr(0, f), f), (_addr(0, i), i),
+                    (_addr(0, f), f)]) == 0
+    # K15 with types and prev at offset 1 outweigh the output
+    assert tk.head([(_addr(1, i), i), (_addr(1, f), f),
+                    (_addr(0, f), f)]) == 3
+    # float64 inputs at offset 1 (16 bytes) against types and recon (12)
+    assert tk.head([(_addr(1, d), d), (_addr(1, d), d), (_addr(0, i), i),
+                    (_addr(0, d), d)]) == 1
+    for size in (4, 8):
+        for offsets in OFFSETS:
+            for h in _heads(size, offsets):
+                lead = (tk.VEC - h) % tk.VEC
+                for off, es in ((offsets[0], size), (offsets[1], size),
+                                (0, 4), (0, size)):
+                    a = _addr(off, es)
+                    if (a + es * h) % 16 == 0:
+                        starts = np.arange(-lead, 64, tk.VEC)
+                        starts = starts[starts >= 0]
+                        assert ((a + es * starts) % 16 == 0).all()
