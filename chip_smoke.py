@@ -108,8 +108,28 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      5 % of the field), and of the temporal chain's temporal steps from
      CUDA tensors (the same frames, steps 1 and 3 from views at storage
      offset 1; no copy up of 5 % of a field);
+  3b. multi-device (sz_tpu_torch.parallel.slab, the launch counters
+     covering exactly this phase): Hurricane ISABEL's 100x500x500
+     float32 and CESM-ATM's 1800x3600 float64 (K1d/K2d) under ABS 1e-3
+     in 4 slabs on this card at once (compress_sharded(n_devices=4), a
+     stream a slab) hash container and decode to ORACLE_SLAB
+     (tests/test_torch_smoke_oracle_slab.py) from a host array, one CUDA
+     tensor, a list of four slab tensors and the serial pool
+     (SZ_TPU_HOST_THREADS=1), decompress_sharded and its as_tensor slabs;
+     K1 (K1d) and K3 launch 4 times a compress, K2 (K2d) 4 times a
+     decode, K4-K7 as often in every run; the random-access 256^3 stream
+     with its blocks over ["cuda:0", "cuda:0"] (K12/K13 and the
+     lattice's K3 once a device) hashes to ORACLE_RA, its 64^3 corner to
+     ORACLE_RA_REGION; four torch.distributed ranks (gloo over
+     127.0.0.1, tests/_torch_mh_worker.py, all on this card) each
+     compress a slab of the Hurricane field and rank 0's container
+     hashes to ORACLE_SLAB (the wall logged);
   4. 512^3 float32 (NYX scale): the ABS error bound holds, compress and
      decompress MB/s (warm, best of 3) with per-span times and counts,
+     the same field in 4 slabs of 128x512x512 (each payload equal to
+     the slab's own compress, decompress_sharded equal to
+     Reader.decode; MB/s and peak device memory of the 4 slabs at once,
+     of the serial pool and of the whole field),
      the compress from a CUDA tensor of the same field, the kernel
      launches of one decompress, the device-to-host copy of 537 MB, the
      decompress of bench.py's synth field (the earlier records' input);
@@ -142,6 +162,7 @@ imports neither jax nor any module of sz_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import pathlib
@@ -302,6 +323,21 @@ ORACLE_RA = {
 ORACLE_RA_REGION = (
     (0, 0, 0), (64, 64, 64),
     "d484457307f5e07dbfc51ff9c315e5f3a0b2f673bc5b2ef7bbcefc9accc5424f")
+
+
+# the multi-device slab codec, ABS 1e-3: name -> (maker, shape, seed,
+# slabs, SHA-256 of the oracle's SZRA container (sz_tpu.ra.compress with
+# n_slabs), of its decode); maker as in classic_input
+ORACLE_SLAB = {
+    "field": (
+        "field", (100, 500, 500), 5, 4,
+        "ef4656bebc258b7daea474ad74587b0ec80e62a708a43c40dd8055e42f3a740e",
+        "8a24aa9e35ded02b1cb6121f37368f63f69fd5369863356d4c7f66d4b0f31755"),
+    "field64": (
+        "field64", (1800, 3600), 6, 4,
+        "f3491615f32c5adb2fce20a9d6d6cd09340d16d056245e9a713687a74ef33264",
+        "2813c51e6dfced89e9f918d23928f69b894850aba635e25eac0dab50591a3685"),
+}
 
 
 # the classic, 1-D and pre-log main path: name -> (maker, shape, seed,
@@ -2667,6 +2703,303 @@ def phase_temporal_tensor_input(dev, record: dict, steps: dict) -> None:
     record["temporal_tensor_input"] = rows
 
 
+def _rises(wrappers: dict, before: dict) -> dict:
+    """Each wrapper's launches since ``before`` (names with none left
+    out)."""
+    return {k: w.launches - before[k] for k, w in wrappers.items()
+            if w.launches - before[k]}
+
+
+def _counted(wrappers: dict, fn):
+    """(fn()'s result, its seconds, the launches it made)."""
+    before = {k: w.launches for k, w in wrappers.items()}
+    t0 = time.perf_counter()
+    out = fn()
+    dt = time.perf_counter() - t0
+    return out, dt, _rises(wrappers, before)
+
+
+@contextlib.contextmanager
+def host_threads(k: int):
+    """SZ_TPU_HOST_THREADS set to ``k`` inside the ``with``."""
+    import os
+    old = os.environ.get("SZ_TPU_HOST_THREADS")
+    os.environ["SZ_TPU_HOST_THREADS"] = str(k)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["SZ_TPU_HOST_THREADS"]
+        else:
+            os.environ["SZ_TPU_HOST_THREADS"] = old
+
+
+def phase_multi_device(dev, record: dict, wrappers: dict) -> None:
+    """Phase 3b, the multi-device slab codec (sz_tpu_torch.parallel.slab)
+    with its slabs in flight at once on streams of this card, and the
+    random-access blocks split over two devices; the launch counters
+    cover exactly this phase, and every kernel of its path must rise."""
+    import torch
+
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+    from sz_tpu_torch.parallel import slab
+
+    for w in wrappers.values():
+        w.launches = 0
+    cfg = SZConfig().with_bound(ErrorBoundMode.ABS, ABS)
+    rows = []
+    for name, (maker, shape, seed, n, want_blob, want_out) in \
+            ORACLE_SLAB.items():
+        x = classic_input(maker, shape, seed)
+        f64 = "_f64" if x.dtype == np.float64 else ""
+        xt = torch.from_numpy(x).to(dev)
+        starts = [x.shape[0] * i // n for i in range(n)] + [x.shape[0]]
+        slabs = [xt[a:b] for a, b in zip(starts[:-1], starts[1:])]
+        runs = {
+            "host_array": lambda: slab.compress_sharded(x, cfg, n_devices=n),
+            "cuda_tensor": lambda: slab.compress_sharded(xt, cfg,
+                                                         n_devices=n),
+            "slab_tensors": lambda: slab.compress_sharded(slabs, cfg),
+        }
+        row = dict(case=name, shape=list(shape), dtype=x.dtype.name,
+                   slabs=n, devices=[str(dev)] * n)
+        launches = {}
+        for run, fn in list(runs.items()) + [("serial_pool", None)]:
+            if fn is None:
+                with host_threads(1):
+                    blob, dt, rise = _counted(wrappers, runs["host_array"])
+            else:
+                blob, dt, rise = _counted(wrappers, fn)
+            if sha256(blob) != want_blob:
+                raise AssertionError(f"{name} ({run}): the container "
+                                     f"differs from the oracle")
+            for k in (f"wavefront_quantize{f64}", "histogram"):
+                if rise.get(k) != n:
+                    raise AssertionError(f"{name} ({run}): {k} launched "
+                                         f"{rise.get(k)} times, not {n}")
+            if rise.get("pack_bits", 0) < n:
+                raise AssertionError(f"{name} ({run}): pack_bits {rise}")
+            launches[run] = rise
+            row[f"compress_{run}_s"] = dt
+        if any(v != launches["host_array"] for v in launches.values()):
+            raise AssertionError(f"{name}: launches differ between the "
+                                 f"runs: {launches}")
+        out, dt, rise = _counted(
+            wrappers, lambda: slab.decompress_sharded(blob, n_devices=n))
+        parts, dt_t, rise_t = _counted(
+            wrappers, lambda: slab.decompress_sharded(blob, n_devices=n,
+                                                      as_tensor=True))
+        if sha256(out.tobytes()) != want_out:
+            raise AssertionError(f"{name}: the decode differs from the "
+                                 f"oracle")
+        if len(parts) != n or any(p.device != dev for p in parts) or \
+                sha256(torch.cat(parts).cpu().numpy().tobytes()) != want_out:
+            raise AssertionError(f"{name}: the as_tensor slabs differ")
+        for r in (rise, rise_t):
+            if r.get(f"wavefront_decode{f64}") != n or any(
+                    r.get(k, 0) < n for k in ("fsm_sweep", "fsm_scan",
+                                              "fsm_emit")) or r != rise:
+                raise AssertionError(f"{name}: decode launches {r}")
+        err = float(np.abs(out.astype(np.float64) - x).max())
+        if err > ABS:
+            raise AssertionError(f"{name}: error {err} above the bound")
+        row.update(container_sha256_equal=True, decode_sha256_equal=True,
+                   ratio=x.nbytes / len(blob), max_abs_err=err,
+                   decompress_s=dt, decompress_as_tensor_s=dt_t,
+                   compress_launches=launches["host_array"],
+                   decompress_launches=rise)
+        _log("multi-device", **row)
+        rows.append(row)
+        del x, xt, slabs, out, parts
+    rows.append(ra_over_devices(dev, wrappers, [dev, dev]))
+    rows.append(four_ranks(dev))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    _log("multi-device launches", **launches)
+    want = ["wavefront_quantize", "wavefront_decode", "wavefront_quantize_f64",
+            "wavefront_decode_f64", "histogram", "pack_bits", "fsm_sweep",
+            "fsm_scan", "fsm_emit", "ra_encode", "ra_decode"]
+    idle = [k for k in want if not launches[k]]
+    if idle:
+        raise AssertionError(f"the multi-device path never launched {idle}")
+    record["multi_device"] = rows
+    record["multi_device_launches"] = launches
+
+
+def ra_over_devices(dev, wrappers: dict, devices: list) -> dict:
+    """The random-access codec with its block batch split over
+    ``devices`` (core.rablock's devices=): ORACLE_RA's 256^3 stream, its
+    decode and ORACLE_RA_REGION's corner, each hashed to the oracle's;
+    K12 and K13 launched once a device."""
+    from sz_tpu_torch import ErrorBoundMode, SZConfig, framing
+    from sz_tpu_torch.config import data_type
+    from sz_tpu_torch.core import rablock
+
+    maker, shape, seed, want_blob, want_out = ORACLE_RA["ra_256"]
+    x = classic_input(maker, shape, seed)
+    cfg = SZConfig(random_access=True).with_bound(ErrorBoundMode.ABS, ABS)
+    dt = data_type(x.dtype)
+    fmin, fmax, _, rp, _, hdr_cfg, _ = framing._fp_stream_params(x, cfg, dt)
+    _, _, rise_one = _counted(wrappers, lambda: rablock.compress_ra(
+        x, rp, cfg, device=dev))
+    res, tc, rise_c = _counted(wrappers, lambda: rablock.compress_ra(
+        x, rp, cfg, device=dev, devices=devices))
+    blob = framing._frame_ra_stream(cfg, hdr_cfg, dt, fmin, fmax, x.size,
+                                    res.body)
+    if sha256(blob) != want_blob:
+        raise AssertionError("ra_256 over devices: the stream differs")
+    out, td, rise_d = _counted(wrappers, lambda: rablock.decompress_ra(
+        res.body, shape, size_type=cfg.size_type, device=dev,
+        devices=devices))
+    if sha256(out.tobytes()) != want_out:
+        raise AssertionError("ra_256 over devices: the decode differs")
+    start, end, want_reg = ORACLE_RA_REGION
+    reg, tr, rise_r = _counted(wrappers, lambda: rablock.decompress_ra(
+        res.body, shape, start, end, cfg.size_type, device=dev,
+        devices=devices))
+    if sha256(reg.tobytes()) != want_reg:
+        raise AssertionError("ra_256 over devices: the region differs")
+    k = len(devices)   # K12, K13 and the type lattice's K3 once a device
+    if (rise_c.get("ra_encode"), rise_d.get("ra_decode"),
+            rise_r.get("ra_decode"), rise_c.get("histogram", 0)
+            - rise_one.get("histogram", 0)) != (k, k, k, k - 1):
+        raise AssertionError(f"ra_256 over devices: launches {rise_c} "
+                             f"{rise_d} {rise_r}")
+    row = dict(case="ra_256_over_devices", devices=[str(d) for d in devices],
+               stream_sha256_equal=True, decode_sha256_equal=True,
+               region_sha256_equal=True, compress_s=tc, decompress_s=td,
+               region_s=tr, compress_launches=rise_c,
+               decompress_launches=rise_d, region_launches=rise_r)
+    _log("multi-device", **row)
+    return row
+
+
+def four_ranks(dev, nprocs: int = 4) -> dict:
+    """Four torch.distributed processes (gloo over 127.0.0.1; NCCL takes
+    one rank a card) on this card, each compressing its slab of
+    ORACLE_SLAB's Hurricane field (tests/_torch_mh_worker.py); rank 0's
+    container must hash to the oracle's.  The wall runs from the spawn
+    to the last exit."""
+    import os
+    import socket
+
+    _, shape, _, n, want_blob, _ = ORACLE_SLAB["field"]
+    if n != nprocs:
+        raise AssertionError("ORACLE_SLAB['field'] holds 4 slabs")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = REPO / "build" / "four_ranks.szra"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "tests" / "_torch_mh_worker.py"),
+         str(i), str(nprocs), str(port), str(out), "--device",
+         str(dev), "--field", "hurricane"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(nprocs)]
+    try:
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, (_, err) in zip(procs, results):
+        if p.returncode:
+            raise AssertionError(f"a rank failed ({p.returncode}): "
+                                 f"{err[-2000:]}")
+    blob = out.read_bytes()
+    out.unlink()
+    if sha256(blob) != want_blob:
+        raise AssertionError("four ranks: the container differs from the "
+                             "oracle")
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o, _ in results]
+    row = dict(case="four_ranks_gloo", shape=list(shape), ranks=nprocs,
+               device=str(dev), container_sha256_equal=True, wall_s=wall,
+               rank_compress_s=[r["compress_s"] for r in ranks])
+    _log("multi-device", **row)
+    return row
+
+
+def phase_full_size_slabs(dev, record: dict) -> None:
+    """512^3 float32 (NYX scale) in 4 slabs of 128x512x512 on this card:
+    the bound, each payload equal to sz_tpu_torch.compress of its slab,
+    decompress_sharded bit-equal to Reader.decode; compress and
+    decompress MB/s (warm, best of 3) and the peak device memory of the
+    4 slabs at once, of the same 4 slabs one after another
+    (SZ_TPU_HOST_THREADS=1), and of the whole field through
+    compress / decompress (its MB/s from phase 4's full-size row)."""
+    import torch
+
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig, ra
+    from sz_tpu_torch.parallel import slab
+
+    cfg = SZConfig().with_bound(ErrorBoundMode.ABS, ABS)
+    x = field((512, 512, 512), 42)
+    mb = x.nbytes / 1e6
+    n = 4
+    blob = slab.compress_sharded(x, cfg, n_devices=n)
+    r = ra.Reader(blob)
+    for i in range(n):
+        a, b = int(r.starts[i]), int(r.starts[i + 1])
+        if r.slab_bytes(i) != sz_tpu_torch.compress(x[a:b], cfg, device=dev):
+            raise AssertionError(f"512^3 slab {i} differs from its own "
+                                 f"compress")
+    out = slab.decompress_sharded(blob, n_devices=n)
+    if not np.array_equal(out.view(np.uint32), r.decode(dev).view(np.uint32)):
+        raise AssertionError("512^3: decompress_sharded differs from "
+                             "Reader.decode")
+    err = float(np.abs(out.astype(np.float64) - x).max())
+    if err > ABS:
+        raise AssertionError(f"512^3 slabs: error {err} above the bound")
+    del out
+
+    def peak(fn) -> int:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        return torch.cuda.max_memory_allocated(dev) - held
+
+    whole = sz_tpu_torch.compress(x, cfg, device=dev)
+    full = record["full_512"]
+    rows = {"whole_field": dict(
+        compress_MBps=full["compress_MBps"],
+        decompress_MBps=full["decompress_MBps"],
+        compress_peak_device_bytes=peak(
+            lambda: sz_tpu_torch.compress(x, cfg, device=dev)),
+        decompress_peak_device_bytes=peak(
+            lambda: sz_tpu_torch.decompress(whole, x.shape, np.float32,
+                                            device=dev)))}
+    del whole
+    def comp():
+        return slab.compress_sharded(x, cfg, n_devices=n)
+
+    def dec():
+        return slab.decompress_sharded(blob, n_devices=n)
+
+    for mode, k in (("four_slabs_at_once", None), ("four_slabs_serial", 1)):
+        with host_threads(k) if k else contextlib.nullcontext():
+            pc, pd = peak(comp), peak(dec)   # the warm runs
+            tc, spans_c, _ = _best_of(comp, 3, warm=False)
+            td, spans_d, _ = _best_of(dec, 3, warm=False)
+        rows[mode] = dict(compress_MBps=mb / tc, decompress_MBps=mb / td,
+                          compress_s=tc, decompress_s=td,
+                          compress_spans_s=spans_c,
+                          decompress_spans_s=spans_d,
+                          compress_peak_device_bytes=pc,
+                          decompress_peak_device_bytes=pd)
+    row = dict(shape=[512, 512, 512], slabs=n, devices=[str(dev)] * n,
+               ratio=x.nbytes / len(blob), max_abs_err=err,
+               payloads_equal_compress=True, decode_equal_reader=True,
+               **rows)
+    _log("full size 512^3 slabs", **row)
+    record["full_512_slabs"] = row
+
+
 def classic_err(name: str, x: np.ndarray, out: np.ndarray, bound_: tuple,
                 blob: bytes, dev) -> dict:
     """The error of a classic, 1-D or pre-log case against its bound
@@ -2982,12 +3315,13 @@ def phase_device_input_copies(dev, record: dict) -> None:
 
 # --- phase 4: full size ---------------------------------------------------
 
-def _best_of(fn, reps: int):
+def _best_of(fn, reps: int, warm: bool = True):
     """(best seconds, spans, counts of the best run) over reps runs after
-    a warm one; spans and counts from sz_tpu_torch.utils.trace, spans
-    summed by name."""
+    a warm one (the caller's, if ``warm`` is false); spans and counts
+    from sz_tpu_torch.utils.trace, spans summed by name."""
     from sz_tpu_torch.utils import trace as tr
-    fn()
+    if warm:
+        fn()
     best = None
     for _ in range(reps):
         tr.reset()
@@ -3655,6 +3989,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     sys.path.insert(0, str(REPO))
     record = {}
+    walls = [("start", time.perf_counter())]   # each phase's end
 
     # phase 1: environment
     smi = subprocess.run(
@@ -3695,6 +4030,7 @@ def main() -> int:
         record["classic_strips"] = classic_strip_report(record["ptxas"])
         record["temporal_kernels"] = temporal_report(record["ptxas"])
 
+    walls.append(("1 environment", time.perf_counter()))
     # phase 2: each kernel against its plain version
     record["lorenzo_cases"], entries = phase_lorenzo(dev)
     entries.update(phase_kernels(dev))
@@ -3717,6 +4053,7 @@ def main() -> int:
     record["ts_cases"], ts_entries = phase_ts_cases(dev)
     entries.update(ts_entries)
 
+    walls.append(("2 kernels", time.perf_counter()))
     # phase 3: the main path; the launch counters cover exactly this run
     wrappers = {"wavefront_quantize": lorenzo_kernel.wavefront_quantize,
                 "wavefront_decode": lorenzo_kernel.wavefront_decode,
@@ -3757,11 +4094,15 @@ def main() -> int:
         raise AssertionError(f"main path never launched {idle}")
     phase_device_input_copies(dev, record)
     phase_temporal_tensor_input(dev, record, ts_steps)
+    walls.append(("3 main path", time.perf_counter()))
+    phase_multi_device(dev, record, wrappers)
+    walls.append(("3b multi-device", time.perf_counter()))
 
     # phase 4: full size (float32 from a host array and from a tensor),
     # PW_REL, then float64 (after the float32 phases, which so run as
     # before it), then K5-K7 timed on their streams
     blob, calls = phase_full_size(dev, record, wrappers)
+    phase_full_size_slabs(dev, record)
     streams, pw_calls = phase_full_size_pwrel(dev, record, wrappers)
     phase_full_size_f64(dev, record, wrappers)
     phase_full_size_classic(dev, record, wrappers)
@@ -3777,6 +4118,10 @@ def main() -> int:
     # K3/K4 on the main path's own inputs replace phase 2's 2^24 entries
     entries.update(pack_hist_timing(calls))
 
+    walls.append(("4 full size", time.perf_counter()))
+    record["phase_s"] = {name: t - walls[i][1]
+                         for i, (name, t) in enumerate(walls[1:])}
+    _log("phase walls", **record["phase_s"])
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.") or m == "sz_tpu"
                  or m.startswith("sz_tpu."))

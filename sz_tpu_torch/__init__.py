@@ -17,6 +17,17 @@ each runs on the card unless the caller passes ``device="cpu"``:
     decompress(blob, shape, dtype, device="cuda", as_tensor=False)
     decompress_region(blob, shape, start, end, dtype, device="cuda",
                       as_tensor=False)
+
+Submodules, reached as in sz_tpu (not exported here):
+    sz_tpu_torch.ra -- the SZRA slab container: compress(data, cfg,
+        slab_points, n_slabs, device="cuda"), build_container(shape,
+        dtype, starts, payloads), Reader(blob), decompress(blob, device)
+    sz_tpu_torch.parallel.slab -- the slabs at once over several devices
+        (or streams of one card): compress_sharded(data, cfg, n_devices,
+        devices=None) -> bytes, from a numpy array, a tensor or a list
+        of slab tensors; decompress_sharded(blob, n_devices,
+        devices=None, as_tensor=False)
+    sz_tpu_torch.temporal -- TemporalCompressor
 """
 
 from sz_tpu_torch.api import compress, decompress, decompress_region

@@ -301,10 +301,12 @@ def prepare(data: np.ndarray, rp: float, cfg) -> Blocks:
 
 
 def compress_ra(data: np.ndarray, real_precision, cfg, *,
-                device) -> RAStream:
+                device, devices=None) -> RAStream:
     """The randomAccess body from the block-size field on (the caller
     frames it with the header and the element count); byte-equal to
-    ``sz_tpu.core.rablock.compress_ra``."""
+    ``sz_tpu.core.rablock.compress_ra``, with ``n_devices`` too.
+    ``devices`` splits the block batch's K12 and K3 over several devices
+    (``ra_engine.encode_blocks``); the rest runs on ``device``."""
     dev = devmod.resolve(device)
     rank = data.ndim
     rp = float(real_precision)
@@ -315,19 +317,24 @@ def compress_ra(data: np.ndarray, real_precision, cfg, *,
     indicator, ctypes_, cunpred, precision = (p.indicator, p.ctypes,
                                               p.cunpred, p.precision)
 
-    t_dev = ra_engine.encode_blocks(blocks, indicator, p.qc_full, rank, bs,
+    parts = ra_engine.encode_blocks(blocks, indicator, p.qc_full, rank, bs,
                                     rp, intervals, use_mean, mean,
-                                    device=dev)
+                                    device=dev, devices=devices)
     state_num = 2 * int(intervals)
     with _tr.trace("quantize"):
-        hist = hist_kernel.histogram(t_dev.reshape(-1),
-                                     int(intervals) // 2).cpu().numpy()
+        hists = []
+        for t in parts:
+            with devmod.current(t.device):
+                hists.append(hist_kernel.histogram(t.reshape(-1),
+                                                   int(intervals) // 2))
+        hist = sum(h.cpu().numpy().astype(np.int64) for h in hists)
     freq = np.zeros(2 * state_num, np.int64)
     m = min(hist_kernel.NBINS, 2 * state_num)
     freq[:m] = hist[:m]
     with _tr.trace("download"):
-        types = t_dev.cpu().numpy()
-        del t_dev
+        types = [t.cpu().numpy() for t in parts]
+        types = types[0] if len(types) == 1 else np.concatenate(types)
+        del parts
     with _tr.trace("escapes"):
         esc_mask = types == 0
         bw_counts = esc_mask.sum(axis=1).astype(np.int32)
@@ -386,13 +393,15 @@ def compress_ra(data: np.ndarray, real_precision, cfg, *,
 
 
 def decompress_ra(body, shape, start=None, end=None, size_type: int = 8, *,
-                  device, as_tensor: bool = False):
+                  device, as_tensor: bool = False, devices=None):
     """Decode the region [start, end) (per-dimension corners, end
     exclusive; None: the whole field) of a randomAccess body, touching
     only the blocks it covers (the given_areas decoders,
     szd_float.c:6567/6872/7213); bit-equal to
-    ``sz_tpu.core.rablock.decompress_ra``.  Returns float32 numpy, or the
-    tensor on ``device`` when ``as_tensor``."""
+    ``sz_tpu.core.rablock.decompress_ra``, with ``n_devices`` too.
+    ``devices`` splits the blocks' K13 over several devices by rows of
+    the region (``ra_engine.decode_blocks``).  Returns float32 numpy, or
+    the tensor on ``device`` when ``as_tensor``."""
     dev = devmod.resolve(device)
     shape = tuple(int(r) for r in shape)
     rank = len(shape)
@@ -479,7 +488,7 @@ def decompress_ra(body, shape, start=None, end=None, size_type: int = 8, *,
     out = ra_engine.decode_blocks(
         types, rank, bs, indicator[sel], qc_full[sel], rp,
         int(intervals) // 2, bool(use_mean), F32(mean), unpred,
-        unpred_offsets[sel], grid, lo, ext, device=dev)
+        unpred_offsets[sel], grid, lo, ext, device=dev, devices=devices)
     if as_tensor:
         return out
     with _tr.trace("download"):

@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "lookback.cuh"
 
 namespace {
@@ -726,12 +728,19 @@ __global__ void __launch_bounds__(kEmitThreads)
   }
 }
 
+// A kernel's dynamic shared memory limit is one attribute for the
+// process, and the sizes here depend on the call (the table's bits, the
+// depth): a thread setting it and launching must not let another thread
+// lower it in between (slabs decode in several threads at once).
+std::mutex smem_attribute;
+
 // Launches a kernel with `smem` bytes of dynamic shared memory, one
 // thread a chunk.
 template <class K, class... Args>
 int launch(K kernel, size_t smem, int threads, long long nchunks,
            void* stream, Args... args) {
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(smem_attribute);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -805,6 +814,7 @@ extern "C" int sz_fsm_scan(const int* g, const long long* n,
   const size_t smem =
       12 * ((size_t)tile * D + kScanWarps * D + tile + kWindow * padded(D));
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(smem_attribute);
   e = cudaFuncSetAttribute(fsm_scan_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);

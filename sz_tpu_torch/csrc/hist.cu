@@ -127,20 +127,26 @@ extern "C" int sz_histogram(const int* sym, long long n, int center, int lo,
   cudaError_t e = cudaMemsetAsync(hist, 0, kBins * sizeof(int), st);
   if (e != cudaSuccess) return (int)e;
   if (n <= 0) return (int)cudaSuccess;
-  static int per_sm = 0, sms = 0;
-  if (!per_sm) {
-    int dev;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, histogram_window_kernel, kThreads, 0);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) per_sm = 1;
-  }
+  // resident blocks, found once (a static's initialization is
+  // thread-safe: slabs launch from several threads at once)
+  struct Resident {
+    cudaError_t e;
+    long long blocks;
+  };
+  static const Resident resident = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, histogram_window_kernel, kThreads, 0);
+    return Resident{err, (long long)sms * (per_sm < 1 ? 1 : per_sm)};
+  }();
+  if (resident.e != cudaSuccess) return (int)resident.e;
   const long long per_block = (long long)kThreads * kVecs * 4;
   long long blocks = (n + per_block - 1) / per_block;
-  if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
+  if (blocks > resident.blocks) blocks = resident.blocks;
   histogram_window_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
       sym, n, center, lo, hist);
   return (int)cudaGetLastError();

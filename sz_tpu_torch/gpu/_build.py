@@ -23,6 +23,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -184,6 +185,16 @@ def lib() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return dll
+
+
+_launch_lock = threading.Lock()
+
+
+def launched(wrapper) -> None:
+    """Add one to ``wrapper.launches``, its kernel having just been
+    launched; under a lock, since slabs launch from several threads."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 def check(rc: int, what: str) -> None:

@@ -324,7 +324,7 @@ def classic_quantize(data, rp, recip, intervals: int, radius: int, median,
             float(rp), float(recip), intervals, radius, float(median), ign,
             *sargs, _stream(data))
     _build.check(rc, "classic_quantize")
-    classic_quantize.launches += 1
+    _build.launched(classic_quantize)
     del keep
     return types, R
 
@@ -368,7 +368,7 @@ def classic_decode(types, escapes, rp, radius: int, row_base=None):
         rc = lib.sz_classic_decode(*head, *lat, float(np.float32(rp)),
                                    radius, *sargs, _stream(out))
     _build.check(rc, "classic_decode")
-    classic_decode.launches += 1
+    _build.launched(classic_decode)
     del keep
     return out
 

@@ -9,6 +9,9 @@ eagerly, one rounding per op, and the port never uses ``torch.compile``.
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 
@@ -34,6 +37,38 @@ def resolve(device) -> torch.device:
 
 
 def sync(dev: torch.device) -> None:
-    """Wait for the device's queued work (spans then time the device)."""
+    """Wait for the work this thread queued on the device: its current
+    stream, not the whole card, so a span times its own thread's work
+    while other threads' slabs run on their own streams (on the one
+    stream of a single-threaded caller this is all its work)."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
+
+
+@contextlib.contextmanager
+def current(dev: torch.device):
+    """Make ``dev`` the thread's current CUDA device, on which the C
+    entry points launch (nothing to do for the CPU)."""
+    if dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev):
+        yield
+
+
+def cache_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a`` copied to ``dev`` for a device cache, the copy finished
+    before the tensor is published: threads on other streams read it at
+    once."""
+    t = torch.from_numpy(a).to(dev)
+    sync(dev)
+    return t
+
+
+def cached(t: torch.Tensor) -> torch.Tensor:
+    """A device cache's tensor, marked as in use by this thread's stream:
+    if the cache drops it, its memory is reused only once the work queued
+    here is done."""
+    if t.is_cuda:
+        t.record_stream(torch.cuda.current_stream(t.device))
+    return t

@@ -339,7 +339,7 @@ def fsm_sweep(coded: Coded):
         *_ptrs(bits, trans, lut), min(LUT_BITS, depth), total_bits, L, F,
         depth, *_ptrs(g, n, scratch), _stream(bits))
     _build.check(rc, "fsm_sweep")
-    fsm_sweep.launches += 1
+    _build.launched(fsm_sweep)
     return g, n
 
 
@@ -396,7 +396,7 @@ def _scan(g, n, tile: int):
                                   *_ptrs(scratch, entry, offsets, total),
                                   _stream(g))
     _build.check(rc, "fsm_scan")
-    fsm_scan.launches += 1
+    _build.launched(fsm_scan)
     return entry, offsets, total
 
 
@@ -420,7 +420,7 @@ def fsm_emit(coded: Coded, entry, offsets, n_sym: int):
         chunk_bits(depth), depth, *_ptrs(entry, offsets), n_sym,
         *_ptrs(out), _stream(bits))
     _build.check(rc, "fsm_emit")
-    fsm_emit.launches += 1
+    _build.launched(fsm_emit)
     return out
 
 

@@ -57,7 +57,7 @@ def histogram(sym: torch.Tensor, radius: int = NBINS // 2) -> torch.Tensor:
         ctypes.c_void_p(hist.data_ptr()),
         torch.cuda.current_stream(sym.device).cuda_stream)
     _build.check(rc, "histogram")
-    histogram.launches += 1
+    _build.launched(histogram)
     return hist
 
 

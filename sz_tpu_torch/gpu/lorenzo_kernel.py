@@ -275,7 +275,7 @@ def _quantize(wrapper, entry, dt, data, t_reg, rec_reg, reg_pts, mean_mask,
         rc = getattr(_build.lib(), entry)(*head, _ptr(R), *shape3, *scal,
                                           *targs, stream)
     _build.check(rc, name)
-    wrapper.launches += 1
+    _build.launched(wrapper)
     return (t, R) if want_R else t
 
 
@@ -330,7 +330,7 @@ def _decode(wrapper, entry, dt, known_mask, known, q_lor):
         targs, flags = tiles.tiled(shape3, tile_of(shape3), known.device)
         rc = getattr(_build.lib(), entry)(*head, *shape3, *targs, stream)
     _build.check(rc, name)
-    wrapper.launches += 1
+    _build.launched(wrapper)
     return R
 
 

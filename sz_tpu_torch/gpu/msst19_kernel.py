@@ -259,7 +259,7 @@ def _encode(wrapper, rank: int, V, tile, plain, data, table, pt, base: int,
         _p(data), _p(table), _p(pt), pt.numel(), base, top, bits, ign,
         _p(types), _p(R), *data.shape, *targs, _stream(data))
     _build.check(rc, name)
-    wrapper.launches += 1
+    _build.launched(wrapper)
     return types, R
 
 
@@ -276,7 +276,7 @@ def _decode(wrapper, rank: int, V, tile, plain, types, known, pt):
         _p(types), _p(known), _p(pt), pt.numel(), _p(out), *types.shape,
         *targs, _stream(types))
     _build.check(rc, name)
-    wrapper.launches += 1
+    _build.launched(wrapper)
     return out
 
 

@@ -106,7 +106,7 @@ def pack_bits(sym, code_hi, code_lo, code_len,
         p(words.data_ptr()), nwords,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "pack_bits")
-    pack_bits.launches += 1
+    _build.launched(pack_bits)
     return words[:nbytes]
 
 

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from sz_tpu_torch.gpu import _build
+from sz_tpu_torch.gpu import device as devmod
 
 _F32, _F64, _I32, _I64 = torch.float32, torch.float64, torch.int32, torch.int64
 
@@ -204,7 +205,7 @@ def diag_table(rank: int, bs: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def _diag_on(dev, rank: int, bs: int):
-    return torch.from_numpy(diag_table(rank, bs)).to(dev)
+    return devmod.cache_tensor(diag_table(rank, bs), dev)
 
 
 # --- wrappers -------------------------------------------------------------
@@ -268,14 +269,15 @@ def ra_encode(blocks, lor, qc, rank: int, bs: int, rp: float, cap: int,
     if kind == "cpu":
         return ra_encode_plain(blocks, lor, qc, rank, bs, rp, cap, radius,
                                use_mean, mean)
-    diag = _diag_on(blocks.device, rank, bs) if rank > 1 else None
+    diag = (devmod.cached(_diag_on(blocks.device, rank, bs))
+            if rank > 1 else None)
     types = torch.empty(blocks.shape, dtype=_I32, device=blocks.device)
     rc = _build.lib().sz_ra_encode(
         _p(blocks), _p(lor), _p(qc), blocks.shape[0], rank, _p(diag),
         float(rp), int(cap), int(radius), int(bool(use_mean)),
         float(np.float32(mean)), _p(types), _stream(blocks))
     _build.check(rc, "ra_encode")
-    ra_encode.launches += 1
+    _build.launched(ra_encode)
     return types
 
 
@@ -299,7 +301,8 @@ def ra_decode(types, unpred, esc_base, lor, qc, rank: int, bs: int,
     bad = torch.zeros((), dtype=_I64, device=types.device)
     if out.numel() == 0:
         return out, bad
-    diag = _diag_on(types.device, rank, bs) if rank > 1 else None
+    diag = (devmod.cached(_diag_on(types.device, rank, bs))
+            if rank > 1 else None)
     pad = 3 - rank
     rc = _build.lib().sz_ra_decode(
         _p(types), _p(unpred), unpred.numel(), _p(esc_base), _p(lor),
@@ -307,7 +310,7 @@ def ra_decode(types, unpred, esc_base, lor, qc, rank: int, bs: int,
         *[1] * pad, float(rp), int(radius), int(bool(use_mean)),
         float(np.float32(mean)), _p(out), _p(bad), _stream(types))
     _build.check(rc, "ra_decode")
-    ra_decode.launches += 1
+    _build.launched(ra_decode)
     return out, bad
 
 

@@ -19,6 +19,7 @@ positions in C order, vectorized over blocks.  Float scalars enter as
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ from sz_tpu_torch.core import blocks as B
 from sz_tpu_torch.core import optimizer as opt
 from sz_tpu_torch.core import regnd
 
+from sz_tpu_torch.gpu import device as devmod
 from sz_tpu_torch.gpu import geometry as geo
 
 def scalar(v, device, dtype=torch.float32) -> torch.Tensor:
@@ -70,6 +72,24 @@ def _region_blocks(data, dbs, ranges, lens):
     return s.reshape(tuple(lens) + (nblk,)), flat_idx
 
 
+# coeff_sums and select issue a few small launches an in-block position,
+# thousands a call.  From several threads at once (the slab codec's
+# pool) each launch hands the GIL round the threads: on an H100 host
+# four threads issuing tiny ops ran 10x slower in all than one (PERF.md,
+# the multi-device findings), so one thread at a time issues these two
+# (ROADMAP 2.13 would make each a kernel).
+_launch_storm = threading.Lock()
+
+
+def _one_thread(fn):
+    @functools.wraps(fn)
+    def locked(*args, **kwargs):
+        with _launch_storm:
+            return fn(*args, **kwargs)
+    return locked
+
+
+@_one_thread
 def coeff_sums(data: torch.Tensor, block_size: int) -> torch.Tensor:
     """Per-block regression sums [fx, fy(, fz), f] (nblocks, rank+1), in
     the serial C accumulation order (sz_float.c:6596-6637)."""
@@ -186,6 +206,7 @@ def _select_samples(lens, rank: int):
     return idxs, pcs
 
 
+@_one_thread
 def select(data: torch.Tensor, coeffs: torch.Tensor, noise, mean,
            use_mean: bool, block_size: int) -> torch.Tensor:
     """Predictor selection per block (sz_float.c:6746-6786): True where
@@ -245,8 +266,8 @@ def dense_mean(data: torch.Tensor, dense_pos, rp):
 def _walks_on(shape: tuple, sample_distance: int, device):
     """The optimizer's walk indices on ``device``, once per shape."""
     midx, sidx = opt.walks(shape, sample_distance)
-    return (torch.from_numpy(midx).to(device),
-            torch.from_numpy(sidx).to(device))
+    return (devmod.cache_tensor(midx, device),
+            devmod.cache_tensor(sidx, device))
 
 
 def optimizer_samples(data: torch.Tensor, sample_distance: int):
@@ -256,7 +277,8 @@ def optimizer_samples(data: torch.Tensor, sample_distance: int):
     predictions, each sum in the data's dtype in the serial order of the
     C.  Returns (that vector, mean-walk length, sample-walk length)."""
     shape = tuple(int(r) for r in data.shape)
-    midx, sidx = _walks_on(shape, int(sample_distance), data.device)
+    midx, sidx = map(devmod.cached,
+                     _walks_on(shape, int(sample_distance), data.device))
     flat = data.reshape(-1)
     if len(shape) == 3:
         r3, r23 = shape[2], shape[1] * shape[2]

@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from sz_tpu_torch.gpu import device as devmod
+
 # strips.cuh's constants: rows a strip (a lane each), steps a slot chunk
 # (staging, output, hand-offs), and steps between two in-block progress
 # marks by rank
@@ -76,8 +78,8 @@ def shared_bytes(warps: int, item: int, stage_bytes: int, ring: int) -> int:
 @functools.lru_cache(maxsize=32)
 def _order_on(rank: int, nvol: int, r1: int, r2: int, warps: int, device):
     """The claim order on ``device``, made once per lattice shape."""
-    return torch.from_numpy(strip_order(rank, nvol, r1, r2, warps)).to(
-        device)
+    return devmod.cache_tensor(strip_order(rank, nvol, r1, r2, warps),
+                               device)
 
 
 def strip_args(lat: tuple, warps: int, dtype, device) -> tuple:
@@ -87,7 +89,7 @@ def strip_args(lat: tuple, warps: int, dtype, device) -> tuple:
     caller keeps alive until the launch is queued (rows and planes of
     the values' ``dtype``)."""
     rank, nvol, r1, r2, r3 = lat
-    order = _order_on(rank, nvol, r1, r2, warps, device)
+    order = devmod.cached(_order_on(rank, nvol, r1, r2, warps, device))
     n_rows, n_planes, n_flags = scratch_sizes(rank, nvol, r1, r2, r3, warps)
     flags = torch.zeros(n_flags, dtype=torch.int32, device=device)
     rows = torch.empty(max(n_rows, 1), dtype=dtype, device=device)

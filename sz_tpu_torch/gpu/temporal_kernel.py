@@ -216,7 +216,7 @@ def ts_quantize(cur, prev, rp: float, intervals: int, radius: int,
     outs = _quantize_outputs(cur, prev)
     _quantize_launch(cur, prev, rp, intervals, radius, req_length, median,
                      outs)
-    ts_quantize.launches += 1
+    _build.launched(ts_quantize)
     return outs[:4]
 
 
@@ -258,7 +258,7 @@ def ts_decode(types, prev, vals, radius: int, interval2: float):
         return ts_decode_plain(types, prev, vals, radius, interval2)
     outs = _decode_outputs(types, prev)
     _decode_launch(types, prev, vals, radius, interval2, outs)
-    ts_decode.launches += 1
+    _build.launched(ts_decode)
     return outs[:2]
 
 

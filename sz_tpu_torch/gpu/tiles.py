@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from sz_tpu_torch.gpu import device as devmod
+
 
 def tile_order(shape3, tile):
     """The tiles of a rank-3 lattice in the order the kernel claims them.
@@ -40,7 +42,7 @@ def tile_order(shape3, tile):
 def _order_on(shape3, tile, device):
     """(order on ``device``, tile count): made once per lattice shape."""
     _, order, _ = tile_order(shape3, tile)
-    return torch.from_numpy(order).to(device), int(order.size)
+    return devmod.cache_tensor(order, device), int(order.size)
 
 
 def tiled(shape3, tile, device):
@@ -49,6 +51,7 @@ def tiled(shape3, tile, device):
     tile count, as C arguments; and the flags tensor, which the caller
     keeps alive until the launch is queued."""
     order, ntiles = _order_on(tuple(shape3), tuple(tile), device)
+    devmod.cached(order)
     flags = torch.zeros(ntiles + 1, dtype=torch.int32, device=device)
     return (ctypes.c_void_p(order.data_ptr()),
             ctypes.c_void_p(flags.data_ptr()), ntiles), flags

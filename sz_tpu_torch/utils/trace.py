@@ -7,16 +7,20 @@
     print(last_spans(), last_counts())
 
 Device spans in the port end with a synchronize inside the ``with``, so
-they time the device work, not its enqueue.
+they time the device work, not its enqueue.  The record is one for the
+process: spans of slabs compressed in several threads at once interleave
+in it (the sharded codec records its own ``slabs`` span around them).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 _spans: list = []
 _counts: dict = {}
+_lock = threading.Lock()
 
 
 def reset() -> None:
@@ -35,7 +39,8 @@ def last_counts() -> dict:
 
 
 def count(name: str, n: int) -> None:
-    _counts[name] = _counts.get(name, 0) + n
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + n
 
 
 @contextlib.contextmanager
@@ -44,6 +49,7 @@ def trace(name: str):
     try:
         yield
     finally:
-        _spans.append((name, time.perf_counter() - t0))
-        if len(_spans) > 4096:
-            del _spans[:2048]
+        with _lock:
+            _spans.append((name, time.perf_counter() - t0))
+            if len(_spans) > 4096:
+                del _spans[:2048]

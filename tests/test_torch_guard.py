@@ -17,10 +17,12 @@ import torch
 torch.set_num_threads(1)  # xdist workers share the cores: one thread each
 
 import sz_tpu_torch
+from sz_tpu_torch import ra
 from sz_tpu_torch.config import ErrorBoundMode, SZConfig
 from sz_tpu_torch.gpu import (_build, fsm_kernel, hist_kernel, lorenzo_kernel,
                               msst19_kernel, pack_kernel, ra_kernel,
                               temporal_kernel)
+from sz_tpu_torch.parallel import slab
 from sz_tpu_torch.temporal import TemporalCompressor
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -44,6 +46,12 @@ for c in (enc, dec):
 for s in range(2):
     z = dec.decompress_step(enc.compress_step({0: x + np.float32(s)}))[0]
     assert np.abs(z - x - np.float32(s)).max() <= 1e-3
+from sz_tpu_torch import ra
+from sz_tpu_torch.parallel import slab
+sharded = slab.compress_sharded(x, cfg, devices=["cpu"] * 3)
+assert sharded == ra.compress(x, cfg, n_slabs=3, device="cpu")
+y = slab.decompress_sharded(sharded, devices=["cpu"] * 3)
+assert np.abs(y - x).max() <= 1e-3
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "sz_tpu" or m.startswith("sz_tpu."))
 assert not bad, bad
@@ -81,7 +89,9 @@ def _imports_of_sz_tpu(path: pathlib.Path) -> list:
 def test_no_module_of_the_port_imports_sz_tpu():
     files = sorted((REPO / "sz_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "strip_timing.py",
-        REPO / "tools" / "temporal_variants.py"]
+        REPO / "tools" / "temporal_variants.py",
+        REPO / "tools" / "slab_threads.py",
+        REPO / "tests" / "_torch_mh_worker.py"]
     assert len(files) > 20
     bad = [hit for f in files for hit in _imports_of_sz_tpu(f)]
     assert not bad, bad
@@ -121,6 +131,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
         TemporalCompressor()
     with pytest.raises(RuntimeError, match="cuda"):
         TemporalCompressor(3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        slab.compress_sharded(x, SZConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        slab.compress_sharded(x, SZConfig(), 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        slab.compress_sharded([torch.zeros((4, 8, 8))] * 2, SZConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        slab.decompress_sharded(ra.build_container((8, 8, 8), np.float32,
+                                                   ra._slab_bounds(8, 1),
+                                                   [b""]))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ra.compress(x, SZConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        ra.decompress(ra.build_container((8, 8, 8), np.float32,
+                                         ra._slab_bounds(8, 1), [b""]))
 
 
 _X3 = np.linspace(0, 1, 10 * 11 * 12, dtype=np.float32).reshape(10, 11, 12)

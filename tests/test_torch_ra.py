@@ -167,9 +167,9 @@ def test_plain_k12_k13_match_jax_engine(case):
     want = jra.encode_blocks(p.blocks, p.indicator, p.qc_full, rank, p.bs,
                              rp, p.intervals, p.use_mean,
                              p.mean).reshape(nb, -1)
-    t_dev = ra_engine.encode_blocks(p.blocks, p.indicator, p.qc_full, rank,
-                                    p.bs, rp, p.intervals, p.use_mean,
-                                    p.mean, device=CPU)
+    (t_dev,) = ra_engine.encode_blocks(p.blocks, p.indicator, p.qc_full,
+                                       rank, p.bs, rp, p.intervals,
+                                       p.use_mean, p.mean, device=CPU)
     np.testing.assert_array_equal(t_dev.numpy(), want)
     unpred, base = _escapes(p, want)
     start = tuple(min(p.bs + 1, r - 1) for r in shape)
