@@ -17,9 +17,12 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      strips' edges (LORENZO_F64_EDGES), each called twice, K1d's types
      the same with R and without, and timed at the main path's shapes
      (K1/K2: 256^3, 100x500x500, 1800x3600, 512^3; K1d/K2d: 256^3,
-     1800x3600, 512^3, K1d without R as the main path calls it; at 512^3
-     the plain versions run on the first planes only), with each tile's
-     and strip kernel's shared memory and ptxas registers;
+     1800x3600, 512^3, K1d without R as the main path calls it), with
+     each tile's and strip kernel's shared memory and ptxas registers;
+     past 2^20 points every plain version of a recurrence runs on a
+     leading box of the lattice (plain_box: the first 65 rows and 300
+     columns of its first planes, or 385 rows and 300 columns of a 2-D
+     one), whose time the record keeps beside its shape;
      K3/K4 timed at their 2^24-symbol test
      shapes, and on their edge cases (pack_cases, hist_cases: tile and
      run sizes, codes of 1 to 128 bits, holes, symbols past the table or
@@ -74,7 +77,14 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      1 (each of cur, prev, types, vals, and all four), and timed at 2^24
      points, with each kernel's registers and spills; K15 must rebuild
      K14's reconstruction, and count an escape past the end of its stream
-     alike;
+     alike; K16/K17 (the integer codecs' recurrence as warp strips, both
+     directions, each called twice, K17 on the escapes as a stream holds
+     them, one launch a call) on the strips' edges (INT_EDGE_SHAPES:
+     strips of 31, 33 and 65 rows, CHUNK +- 1 columns, one row, one
+     plane, 4-D fields) in int8, uint16, int32, uint32, int64 and uint64,
+     on fields that reach the traps (a difference of 2^63, int64 values
+     next to 2^63, whole-range random data of five types), and timed at
+     512^3 int32 with the bound, each kernel's registers and spills;
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
      1e-3 (float32 and float64) and PW_REL 1e-3 streams and
      reconstructions hash to the SHA-256 of the host oracle's (sz_tpu,
@@ -99,8 +109,14 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      CESM-ATM's 1800x3600 float64, ABS 1e-3, snapshots at steps 0 and 5,
      temporal steps 1-4) hashes frame and decode to ORACLE_TEMPORAL
      (tests/test_torch_smoke_oracle_temporal.py) on every step and holds
-     the bound, its histories on the card; the
-     launch counters of K1-K15, K1d/K2d and K8d/K9d must all rise; run
+     the bound, its histories on the card; the integer codecs
+     (ORACLE_INT: int_field in all eight dtypes at ranks 1-4, 256^3
+     int32, CESM-ATM's 1800x3600 as int16, 8x64x64x64 int32) hash stream
+     and decode to the oracle's (tests/test_torch_smoke_oracle_int.py)
+     and hold their bound, from a host array and (ranks 2-4) a CUDA
+     tensor with an as_tensor decode, and the reference's integer
+     goldens decode bit-equal and compress to their inner streams; the
+     launch counters of K1-K17, K1d/K2d and K8d/K9d must all rise; run
      under torch.profiler: each kernel's device time summed
      over the phase, and the device's idle share; then, under its own
      profile, the host<->device copies of a compress from a 256^3 tensor
@@ -143,10 +159,13 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      float64: the bound, MB/s, spans and launches; PW_REL 1e-3 on 512^3
      float64 (|field64|, 1.07 GB) and the random-access codec on 512^3
      float32 (and a 64^3 region of it): the bound, MB/s, spans,
-     launches and the decompress's peak device memory; the temporal
-     chain again, warm: each step's compress_step and decompress_step
-     wall with spans and launches, and K14/K15 timed on each variable's
-     step 1 against its history; then K5-K7 timed
+     launches and the decompress's peak device memory; the integer
+     codecs on 512^3 int32 (also from a CUDA tensor, no copy of the field
+     up, and decoded as_tensor) and 1800x3600 int16, ABS 4: the bound,
+     MB/s, spans and launches; the temporal chain again, warm: each
+     step's compress_step and decompress_step wall with spans and
+     launches, and K14/K15 timed on each variable's step 1 against its
+     history; then K5-K7 timed
      against their plain versions on the type streams
      of 512^3 ABS, 512^3 PW_REL and 1800x3600 PW_REL (node count,
      longest code and codeword-table bits of each; K6 also at each tile
@@ -165,6 +184,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -180,8 +200,13 @@ OPS_PER_S_32BIT = 67e12       # H100 SXM 32-bit rate outside tensor cores
 OPS_PER_S_64BIT = 34e12       # H100 SXM f64 rate outside tensor cores
 
 
+_T0 = time.perf_counter()
+
+
 def _log(phase: str, **nums) -> None:
-    print(f"[{phase}] " + json.dumps(nums, default=float), flush=True)
+    """One line of numbers, with the seconds since the script started."""
+    print(f"[{phase}] " + json.dumps(nums, default=float)
+          + f" @{time.perf_counter() - _T0:.1f}s", flush=True)
 
 
 # --- phase 3/4 inputs: exact float32 arithmetic, the same on any machine --
@@ -648,13 +673,43 @@ LORENZO_TIMED = [(256, 256, 256), (100, 500, 500), (1800, 3600),
                  (512, 512, 512)]
 # and K1d/K2d, on the float64 main path's shapes
 LORENZO_TIMED_F64 = [(256, 256, 256), (1800, 3600), (512, 512, 512)]
-# above this many points the plain versions (minutes at 512^3) run only
-# on the lattice's first planes: no point depends on a later plane, so
-# the kernel's first planes must equal the plain version's on those
-# planes alone.  K1/K2: two layers of 3-D tiles and a plane of the third;
-# K1d/K2d: two plane groups of the widest block and a plane of the third;
-# so that two hand-offs along i are held against the plain version.
-PLAIN_MAX_POINTS = 1 << 26
+# above this many points the plain versions (a second and more from 2^20
+# points on, minutes at 512^3) run only on a leading box of the lattice,
+# :func:`plain_box`: no point depends on a later plane, row or column, so
+# the kernel's box must equal the plain version's on the box alone.
+# K1/K2: two layers of 3-D tiles and a plane of the third; K1d/K2d: two
+# plane groups of the widest block and a plane of the third; so that two
+# hand-offs along i are held against the plain version.  Their time on
+# the box is what the kernel record's plain_ms holds (plain_shape).
+PLAIN_MAX_POINTS = 1 << 20
+# a 2-D box: two strip units of the widest rank-2 block (6 warps of 32
+# rows) and a row, and columns across several chunks and tiles; a plane
+# of a 3-D box: two strips and a row (four 3-D tiles and a row), and the
+# same columns
+PLAIN_BOX_2D = (385, 300)
+PLAIN_BOX_3D = (65, 300)
+
+
+def plain_box(shape, lead: int) -> tuple:
+    """The index of the box the plain versions run on: the whole lattice
+    up to PLAIN_MAX_POINTS, else PLAIN_BOX_2D's rows and columns (rank
+    2), the first ``lead`` planes of PLAIN_BOX_3D's (rank 3), or those of
+    its first two volumes (rank 4).  A plain version steps a diagonal at
+    a time, so its time goes with the box's sum of sides."""
+    if int(np.prod(shape)) <= PLAIN_MAX_POINTS:
+        return (slice(None),)
+    if len(shape) == 2:
+        return tuple(slice(0, r) for r in PLAIN_BOX_2D)
+    plane = tuple(slice(0, r) for r in PLAIN_BOX_3D)
+    if len(shape) == 4:
+        return (slice(0, 2), slice(0, lead)) + plane
+    return (slice(0, lead),) + plane
+
+
+# the long single rows and columns of the K8/K9 and K10/K11 cases: past
+# 16 tiles of 96 columns (K8/K9) and 96 chunks of 16 (K10/K11), whose
+# plain versions step one diagonal a point along them
+LONG_ROW = 16 * 96 + 1
 
 
 def plain_planes(wide: bool) -> int:
@@ -682,7 +737,7 @@ def lorenzo_case(dev, shape, use_mean, regression, timed,
         args[4] = None
     n = int(np.prod(shape))
     whole = n <= PLAIN_MAX_POINTS
-    sub = slice(None) if whole else slice(0, plain_planes(wide))
+    sub = plain_box(shape, plain_planes(wide))
 
     def k1(want_R=True):
         return lk.wavefront_quantize(*args, *scal, use_mean=use_mean,
@@ -711,17 +766,16 @@ def lorenzo_case(dev, shape, use_mean, regression, timed,
             ms = cuda_ms(lambda: k1(False), 5 if whole else 3)
             b_ms, b_by = bound(nbytes(*args, t_k))
             row["K1"] = dict(ms=ms, ms_with_R=cuda_ms(k1, 5 if whole else 3),
-                             plain_ms=plain_ms if whole else None,
-                             bound_ms=b_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms,
                              bound_with_R_ms=bound(nbytes(*args, t_k, R_k))[0])
         else:      # K1 reads its five inputs and writes t and R
             ms = cuda_ms(k1, 5 if whole else 3)
             b_ms, b_by = bound(nbytes(*args, t_k, R_k))
-            row["K1"] = dict(ms=ms, plain_ms=plain_ms if whole else None,
-                             bound_ms=b_ms)
+            row["K1"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
         entries["wavefront_quantize" + sfx] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms if whole else None,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=list(shape))
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            plain_shape=row["plain_on"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, shape=list(shape))
     del t_p, R_p, part
     dec = k2_inputs(args, t_k, use_mean)
     del args, t_k
@@ -736,11 +790,11 @@ def lorenzo_case(dev, shape, use_mean, regression, timed,
     if timed:
         ms = cuda_ms(lambda: lk.wavefront_decode(*dec), 5 if whole else 3)
         b_ms, b_by = bound(nbytes(*dec, D_k))
-        row["K2"] = dict(ms=ms, plain_ms=plain_ms if whole else None,
-                         bound_ms=b_ms)
+        row["K2"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
         entries["wavefront_decode" + sfx] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms if whole else None,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=list(shape))
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            plain_shape=row["plain_on"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, shape=list(shape))
     _log(f"kernel {k1_name}/{k2_name} vs plain", **row)
     if not all(row[k] for k in ("K1_bit_equal", "K1_repeat_bit_equal",
                                 "K1_types_without_R_equal", "K2_bit_equal",
@@ -1389,7 +1443,7 @@ def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
     versions on one field; each kernel called twice, bit-equal; the
     decode gets the escapes' stored values and must also rebuild the
     encode's reconstruction.  Above PLAIN_MAX_POINTS the plain versions
-    run on the first planes only (no point depends on a later plane).
+    run on a leading box (plain_box).
     Timed: the kernels' mean time, the plain version's one call, the
     bound."""
     import torch
@@ -1403,8 +1457,7 @@ def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
     # the plain versions take either dtype
     enc_p = getattr(mk, pre + "_encode_plain")
     dec_p = getattr(mk, pre + "_decode_plain")
-    whole = int(np.prod(shape)) <= PLAIN_MAX_POINTS
-    sub = slice(None) if whole else slice(0, 2 * mk.TILE3[0] + 1)
+    sub = plain_box(shape, 2 * mk.TILE3[0] + 1)
     t_k, R_k = enc(*args)
     t_2, R_2 = enc(*args)
     e_again = bit_equal(t_k, t_2) and bit_equal(R_k, R_2)
@@ -1445,11 +1498,11 @@ def msst19_vs_plain(name, kid, shape, x, ratio, dev, timed: bool) -> dict:
         }
         for key, (err, kern, plain_ms, (b_ms, b_by)) in runs.items():
             ms = cuda_ms(kern, 3)
-            plain_ms = plain_ms if whole else None
             row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
             entries["msst19_" + key] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, shape=list(shape))
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                plain_shape=plain_on, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, shape=list(shape))
     _log(f"kernel {kid} msst19 vs plain", **row)
     if not all(row[k] for k in (
             "encode_bit_equal", "encode_repeat_bit_equal", "decode_bit_equal",
@@ -1480,9 +1533,9 @@ def phase_msst19_cases(dev) -> tuple:
         ("ragged", (9, 17, 70), "signed", 15, 1e-3),
         ("ragged", (33, 9, 65), "abs", 16, 1e-3),
         ("sub_tile", (3, 5, 7), "signed", 17, 1e-3),
-        ("long_first_row", (2, 3, 4097), "abs", 18, 1e-3),
-        ("single_row_2d", (1, 5000), "abs", 19, 1e-3),
-        ("single_column_2d", (5000, 1), "abs", 20, 1e-3),
+        ("long_first_row", (2, 3, LONG_ROW), "abs", 18, 1e-3),
+        ("single_row_2d", (1, LONG_ROW), "abs", 19, 1e-3),
+        ("single_column_2d", (LONG_ROW, 1), "abs", 20, 1e-3),
         ("ragged_2d_small", (70, 130), "signed", 21, 1e-3),
         ("main_path_256", (256, 256, 256), "signed", 42, PW_REL),
         ("main_path_cesm_atm", (1800, 3600), "abs", 6, PW_REL),
@@ -1525,9 +1578,9 @@ def phase_msst19_f64_cases(dev) -> tuple:
         ("signed_with_zeros", (64, 64, 64), "signed", 3, 1e-3),
         ("ragged", (9, 17, 70), "signed", 15, 1e-3),
         ("sub_tile", (3, 5, 7), "signed", 17, 1e-3),
-        ("long_first_row", (2, 3, 4097), "abs", 18, 1e-3),
-        ("single_row_2d", (1, 5000), "abs", 19, 1e-3),
-        ("single_column_2d", (5000, 1), "abs", 20, 1e-3),
+        ("long_first_row", (2, 3, LONG_ROW), "abs", 18, 1e-3),
+        ("single_row_2d", (1, LONG_ROW), "abs", 19, 1e-3),
+        ("single_column_2d", (LONG_ROW, 1), "abs", 20, 1e-3),
         ("ragged_2d_small", (70, 130), "signed", 21, 1e-3),
         ("table_1e-4", (64, 64, 64), "abs", 22, 1e-4),
         ("ragged_2d_1e-4", (777, 1031), "abs", 4, 1e-4),
@@ -1568,9 +1621,11 @@ def ra_mean_field(shape, seed: int) -> np.ndarray:
 
 # K12/K13's timed launches (sub-millisecond kernels: fewer read low)
 RA_REPS = 10
-# blocks the plain K12/K13 run on past PLAIN_MAX_POINTS: the leading
+# blocks the plain K12/K13 run on past RA_PLAIN_MAX_CELLS cells (their
+# plain versions take a tenth of a second at 256^3): the leading
 # block-planes holding at most this many (the blocks are independent, so
 # those are a whole computation)
+RA_PLAIN_MAX_CELLS = 1 << 26
 RA_PLAIN_BLOCKS = 1 << 16
 
 
@@ -1679,7 +1734,7 @@ def ra_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
     in stream order, the field's layout) and must hold the bound, then
     each region of ``regions`` (start, end) from its blocks alone, equal
     to its plain version and to the whole decode's crop.  Above
-    PLAIN_MAX_POINTS the plain versions run on the leading block-planes
+    RA_PLAIN_MAX_CELLS the plain versions run on the leading block-planes
     of at most RA_PLAIN_BLOCKS blocks.  Timed: the kernels' mean time,
     the plain version's one call, the bounds (K13's also as it was
     before it read the compact escapes and wrote the field's layout:
@@ -1697,7 +1752,7 @@ def ra_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
     radius = p.intervals // 2
     enc_args = (rank, bs, rp, p.intervals, radius, p.use_mean, p.mean)
     dec_args = (rank, bs, rp, radius, p.use_mean, p.mean)
-    whole = b.numel() <= PLAIN_MAX_POINTS
+    whole = b.numel() <= RA_PLAIN_MAX_CELLS
     if whole:
         sub_end = x.shape
     else:
@@ -1769,11 +1824,11 @@ def ra_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
         for key, (e, kern, plain_ms, (b_ms, b_by)) in runs.items():
             cuda_ms(kern, RA_REPS)          # the clocks up after the plain
             ms = cuda_ms(kern, RA_REPS)
-            plain_ms = plain_ms if whole else None
             row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
             entries[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                library_ms=None, shape=list(x.shape))
+                                plain_shape=list(sub_end), bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None,
+                                shape=list(x.shape))
         row["ra_decode"]["bound_old_ms"] = old_ms
     _log("kernel K12/K13 random access vs plain", **row)
     if not all(row[k] for k in (
@@ -1967,7 +2022,8 @@ def classic_vs_plain(name, x, p, dev, timed: bool, step_ns=None) -> tuple:
     called twice, bit-equal; K10's types the same with R asked for and
     without it; K11 on the escapes' reconstructions (compact, in raster
     order) must rebuild K10's; one launch a call, 4-D included.  Above
-    PLAIN_MAX_POINTS the plain versions run on the first planes only.
+    PLAIN_MAX_POINTS the plain versions run on a leading box (plain_box;
+    K11's on the box's escapes).
     Timed: the kernels' mean time (K10 without R, as the main path asks;
     K11 with the row bases the main path computes beside the escape
     count), the plain version's one call, the byte bound (and the
@@ -1977,9 +2033,7 @@ def classic_vs_plain(name, x, p, dev, timed: bool, step_ns=None) -> tuple:
     from sz_tpu_torch.gpu import classic_kernel as ck
     xt = torch.from_numpy(x).to(dev)
     args = (p.rp, p.recip, p.intervals, p.radius, p.median, p.req_length)
-    whole = x.size <= PLAIN_MAX_POINTS
-    w = ck.WARPS[xt.dtype]
-    sub = slice(None) if whole else slice(0, 2 * w + 1)
+    sub = plain_box(x.shape, 2 * ck.WARPS[xt.dtype] + 1)
     launches = ck.classic_quantize.launches
     t_k, R_k = ck.classic_quantize(xt, *args)
     launches = ck.classic_quantize.launches - launches
@@ -2002,10 +2056,11 @@ def classic_vs_plain(name, x, p, dev, timed: bool, step_ns=None) -> tuple:
     d_launches = ck.classic_decode.launches - d_launches
     d_again = bit_equal(o_k, ck.classic_decode(*dec, row_base=rb))
     t_sub = t_k[sub].contiguous()
+    esc_sub = R_k[sub].reshape(-1)[t_sub.reshape(-1) == 0]
     o_p, dec_plain_ms = cuda_once(lambda: ck.classic_decode_plain(
-        t_sub, esc[:int((t_sub == 0).sum())], p.rp, p.radius))
+        t_sub, esc_sub, p.rp, p.radius))
     d_err = max_abs_err(o_k[sub], o_p)
-    del o_p, t_sub
+    del o_p, t_sub, esc_sub
     escapes = int(esc.numel())
     dbl, f64 = p.form.dbl, x.dtype == np.float64
     row = dict(case=name, shape=list(x.shape), dtype=x.dtype.name,
@@ -2035,15 +2090,15 @@ def classic_vs_plain(name, x, p, dev, timed: bool, step_ns=None) -> tuple:
         for key, (err, kern, plain_ms, (nb, nb_old), ops) in runs.items():
             ms = cuda_ms(kern, 3)
             b_ms, b_by = bound(nb, *ops)
-            plain_ms = plain_ms if whole else None
             row[key] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 bound_12B_ms=bound(nb_old, *ops)[0], chain_steps=steps,
                 chain_ms=(steps * step[key + "_ns"] * 1e-6 if step
                           else None))
             entries[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                library_ms=None, shape=list(x.shape))
+                                plain_shape=plain_on, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None,
+                                shape=list(x.shape))
         row["classic_quantize"]["ms_with_R"] = cuda_ms(
             lambda: ck.classic_quantize(xt, *args), 3)
     _log("kernel K10/K11 classic vs plain", **row)
@@ -2131,9 +2186,9 @@ def phase_classic_cases(dev) -> tuple:
         ("ragged_2d", (777, 1031), f32, 1e-4, 6, 0.1, False),
         ("ragged_3d", (33, 17, 300), f32, 1e-3, 7, 0.1, False),
         ("sub_tile", (3, 5, 7), f32, 1e-3, 8, 0.1, False),
-        ("long_first_row", (3, 5, 4100), f32, 1e-3, 9, 0.1, False),
-        ("single_row_2d", (2, 5000), f32, 1e-3, 10, 0.1, False),
-        ("single_column_2d", (5000, 2), f32, 1e-3, 11, 0.1, False),
+        ("long_first_row", (3, 5, LONG_ROW), f32, 1e-3, 9, 0.1, False),
+        ("single_row_2d", (2, LONG_ROW), f32, 1e-3, 10, 0.1, False),
+        ("single_column_2d", (LONG_ROW, 2), f32, 1e-3, 11, 0.1, False),
         ("4d", (5, 9, 12, 10), f32, 1e-4, 12, 0.1, False),
         ("4d", (3, 20, 33, 70), f32, 1e-4, 13, 0.1, False),
         ("4d_f64", (3, 2, 2, 2), f64, 1e-4, 14, 0.1, False),
@@ -2233,6 +2288,260 @@ def strip_parent_timing(parent: str, kernels: str) -> list:
             for r in rec["rows"]})
         runs.append(rec)
     return runs
+
+
+# --- phase 2: K16/K17 -----------------------------------------------------
+
+# int_field's scale (a power of two) and offset by dtype: values of about
+# -5500 to 12600 times 2^(scale - 12) about the offset (the middle of an
+# unsigned type)
+INT_FIELD = {np.dtype(t): v for t, v in (
+    (np.int8, (3, 0)), (np.uint8, (3, 1 << 7)), (np.int16, (10, 0)),
+    (np.uint16, (10, 1 << 15)), (np.int32, (12, 0)),
+    (np.uint32, (12, 1 << 31)), (np.int64, (12, 0)),
+    (np.uint64, (12, 1 << 63)))}
+
+
+def int_field(shape, seed: int, dtype) -> np.ndarray:
+    """An integer field of ``dtype``: ``field`` times 2^scale, rounded,
+    plus the dtype's offset (INT_FIELD), modulo the dtype's width.
+    ``field`` is exact and so is every step here, so the values are the
+    same on every machine; uint64's straddle 2^63 (they read as int64
+    values near both its ends, where the reconstruction's double
+    conversion leaves the int64 range)."""
+    dt = np.dtype(dtype)
+    scale, off = INT_FIELD[dt]
+    v = np.rint(field(shape, seed).astype(np.float64) * 2.0 ** scale)
+    return (v.astype(np.int64).view(np.uint64) + np.uint64(off)).astype(
+        f"u{dt.itemsize}").view(dt)
+
+
+def int_trap_field(kind: str, shape, seed: int) -> np.ndarray:
+    """Fields that reach the recurrence's traps: "wrap_int64", rows of
+    +-2^62 (a difference of 2^63 wraps to INT64_MIN: its |diff| stays
+    negative, "in range", and its type is INT32_MIN + radius); "near_max",
+    int64 just below 2^63 (the reconstruction's double rounds to 2^63 and
+    converts to INT64_MIN, as x86 does); "random_<dtype>", the whole
+    range of a type (escapes, and differences that wrap in DN bits)."""
+    rng = np.random.default_rng(seed)
+    if kind == "wrap_int64":
+        x = rng.integers(-4, 5, shape).astype(np.int64) << 61
+        x[..., ::2] = 1 << 62
+        return x
+    if kind == "near_max":
+        return (np.int64(2 ** 63 - 1) - rng.integers(0, 3000, shape)) \
+            .astype(np.int64)
+    dt = np.dtype(kind.removeprefix("random_"))
+    bits = rng.integers(0, 256, int(np.prod(shape)) * dt.itemsize,
+                        dtype=np.uint8)
+    return bits.view(dt).reshape(shape)
+
+
+def int_params(xt, dt, rp: float, sample_distance: int) -> int:
+    """The intervals the integer codec's optimizer picks (threshold 0.99,
+    radius 32768)."""
+    from sz_tpu_torch.core import intc
+    from sz_tpu_torch.gpu import int_kernel as ik
+    perr = ik.optimizer_samples_int(xt, dt, sample_distance)
+    return intc.optimize_intervals(perr, perr.size, rp, 32768,
+                                   np.float32(0.99))
+
+
+def int_escapes(xt, t, dt):
+    """The escapes' values in raster order as a stream holds them (int64;
+    the escaped 4-D quirk cells, (l, 0, 0, 1), hold the first element)."""
+    import torch
+    from sz_tpu_torch.gpu import int_kernel as ik
+    w = ik.widen(xt, dt)
+    if xt.dim() == 4 and xt.shape[-1] > 1:
+        v = w.reshape(xt.shape[0], -1)
+        v[:, 1] = torch.where(t.reshape(xt.shape[0], -1)[:, 1] == 0,
+                              w.reshape(-1)[0], v[:, 1])
+    return w.reshape(-1)[t.reshape(-1) == 0].contiguous()
+
+
+def int_ops(shape, escapes: int, decode: bool) -> tuple:
+    """(32-bit, 64-bit) operations of one K16/K17 call: the stencil's
+    64-bit adds by position (two 32-bit operations each; counted as
+    classic_ops counts them), the encoder's quantizer at every point but
+    a volume's first (the difference and its wrap as two 64-bit integer
+    operations; the divide, add, two multiplies and add in double), the
+    decoder's reconstruction (a multiply and an add in double) at every
+    point that is not an escape."""
+    pred32 = classic_ops(shape, escapes, True, False, True)[0]  # stencil
+    n = int(np.prod(shape))
+    vol = shape[-3:] if len(shape) >= 3 else (1,) + tuple(shape)
+    q = n - n // int(np.prod(vol))
+    if decode:
+        return 2 * pred32, 2 * (n - escapes)
+    return 2 * pred32 + 4 * q, 5 * q
+
+
+def int_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
+                 bound_ok: bool) -> tuple:
+    """K16 and K17 against their plain versions on one field: each kernel
+    called twice, bit-equal; K17 on the escapes as the stream holds them;
+    one launch a call, 4-D included; where ``bound_ok`` (no wrap, values
+    below 2^53), K17's values within rp of the data but at the 4-D quirk
+    cells.  Above PLAIN_MAX_POINTS the plain versions run on a leading
+    box (plain_box).  Timed: the kernels' mean time, the plain versions'
+    one call on the box, the byte bound."""
+    from sz_tpu_torch.gpu import int_kernel as ik
+    dt = x.dtype
+    xt = ik.to_carrier(x, dev)
+    quirk = x.ndim == 4
+    # the main path's sample distance at full size; every 5th point on
+    # the small fields, where 100 would leave the histogram empty
+    iv = int_params(xt, dt, rp, 100 if timed else 5)
+    radius = iv // 2
+    sub = plain_box(x.shape, 2 * ik.WARPS + 1)
+    launches = ik.int_quantize.launches
+    t_k = ik.int_quantize(xt, dt, rp, iv, radius, quirk)
+    launches = ik.int_quantize.launches - launches
+    e_again = bit_equal(t_k, ik.int_quantize(xt, dt, rp, iv, radius, quirk))
+    t_p, enc_plain_ms = cuda_once(lambda: ik.int_quantize_plain(
+        xt[sub].contiguous(), dt, rp, iv, radius, quirk))
+    e_err = max_abs_err(t_k[sub], t_p)
+    plain_on = list(t_p.shape)
+    del t_p
+    esc = int_escapes(xt, t_k, dt)
+    d_launches = ik.int_decode.launches
+    o_k = ik.int_decode(t_k, esc, dt, 2 * rp, radius)
+    d_launches = ik.int_decode.launches - d_launches
+    rb = ik.escape_row_base(t_k)[0]
+    d_again = bit_equal(o_k, ik.int_decode(t_k, esc, dt, 2 * rp, radius,
+                                           row_base=rb))
+    t_sub = t_k[sub].contiguous()
+    esc_sub = int_escapes(xt[sub].contiguous(), t_sub, dt)
+    o_p, dec_plain_ms = cuda_once(lambda: ik.int_decode_plain(
+        t_sub, esc_sub, dt, 2 * rp, radius))
+    d_err = max_abs_err(o_k[sub], o_p)
+    del o_p, t_sub, esc_sub
+    escapes = int(esc.numel())
+    row = dict(case=name, shape=list(x.shape), dtype=dt.name, rp=rp,
+               intervals=iv, escapes=escapes,
+               negative_types=int((t_k < 0).sum()), plain_on=plain_on,
+               launches_a_call=launches, decode_launches_a_call=d_launches,
+               encode_bit_equal=e_err == 0.0,
+               encode_repeat_bit_equal=e_again,
+               decode_bit_equal=d_err == 0.0, decode_repeat_bit_equal=d_again)
+    if bound_ok:
+        err = (ik.widen(o_k, dt) - ik.widen(xt, dt)).abs()
+        if quirk:
+            err.reshape(x.shape[0], -1)[:, 1] = 0
+        row["decode_max_abs_err"] = int(err.max())
+        row["decode_within_bound"] = row["decode_max_abs_err"] <= rp
+    entries = {}
+    if timed:
+        runs = {  # each input read once, each output written once
+            "int_quantize": (
+                e_err, lambda: ik.int_quantize(xt, dt, rp, iv, radius,
+                                               quirk),
+                enc_plain_ms, nbytes(xt, t_k), int_ops(x.shape, escapes,
+                                                       False)),
+            "int_decode": (
+                d_err, lambda: ik.int_decode(t_k, esc, dt, 2 * rp, radius,
+                                             row_base=rb),
+                dec_plain_ms, nbytes(t_k, esc, rb, o_k),
+                int_ops(x.shape, escapes, True)),
+        }
+        for key, (err, kern, plain_ms, nb, ops) in runs.items():
+            ms = cuda_ms(kern, 3)
+            b_ms, b_by = bound(nb, *ops)
+            row[key] = dict(ms=ms, plain_ms=plain_ms, plain_on=plain_on,
+                            bound_ms=b_ms, bound_by=b_by)
+            entries[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                plain_shape=plain_on, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None,
+                                shape=list(x.shape))
+    _log("kernel K16/K17 int vs plain", **row)
+    if not all(row[k] for k in (
+            "encode_bit_equal", "encode_repeat_bit_equal", "decode_bit_equal",
+            "decode_repeat_bit_equal")) or not row.get(
+                "decode_within_bound", True):
+        raise AssertionError(f"K16/K17 differ from their plain versions or "
+                             f"from themselves on {name}: {row}")
+    if launches != 1 or d_launches != 1:
+        raise AssertionError(f"K16/K17 took {launches} / {d_launches} "
+                             f"launches on {name}, not one a call")
+    return row, entries
+
+
+# K16/K17's strip edges (as CLASSIC_EDGE_SHAPES): strips of 31, 33 and 65
+# rows, rank-2 fields of several strip groups, plane counts no multiple of
+# a block's warps, rows of 2, CHUNK - 1 and CHUNK + 1 columns, one row,
+# one plane, 4-D fields (their quirk cell in every volume)
+INT_EDGE_SHAPES = [
+    (31, 40), (33, 17), (65, 15), (300, 70), (1, 700), (7, 31, 40),
+    (13, 33, 17), (5, 65, 15), (9, 40, 2), (1, 70, 90), (4, 1, 300),
+    (3, 7, 33, 17), (5, 2, 65, 15), (16, 8, 8, 8),
+]
+INT_EDGE_DTYPES = (np.int8, np.uint16, np.int32, np.uint32, np.int64,
+                   np.uint64)
+# the main path's 512^3 int32 field, timed (ABS 4)
+INT_TIMED = ("full_size_512", (512, 512, 512), np.int32, 42, 4.0)
+
+
+def phase_int_cases(dev) -> tuple:
+    """Phase 2, K16/K17: the strip edges in six dtypes, the traps, and
+    the main path's 512^3 int32 timed.  Returns (rows, timed record
+    entries)."""
+    import torch
+    rows, turn = [], {2: 0, 3: 0, 4: 0}
+    for n, shape in enumerate(INT_EDGE_SHAPES):
+        # two dtypes a shape, in turn by rank: each dtype meets each rank
+        for m in range(2):
+            dt = np.dtype(INT_EDGE_DTYPES[turn[len(shape)] % 6])
+            turn[len(shape)] += 1
+            x = int_field(shape, 300 + 7 * n + m, dt)
+            rows.append(int_vs_plain(
+                f"edge_{'x'.join(map(str, shape))}_{dt.name}", x, 4.0, dev,
+                False, dt != np.uint64)[0])
+    for kind, shape, rp in (
+            ("wrap_int64", (40, 70), 4.0), ("wrap_int64", (6, 33, 40), 4.0),
+            ("near_max", (9, 40, 35), 1000.0),
+            ("near_max", (2, 5, 33, 17), 4.0),
+            ("random_int8", (33, 70), 0.5),
+            ("random_uint16", (5, 40, 33), 4.0),
+            ("random_int32", (70, 33), 0.5),
+            ("random_uint32", (5, 33, 20), 4.0),
+            ("random_int64", (3, 4, 33, 17), 0.5),
+            ("random_uint64", (40, 33), 2.0 ** 40)):
+        x = int_trap_field(kind, shape, 17)
+        rows.append(int_vs_plain(f"trap_{kind}_{'x'.join(map(str, shape))}",
+                                 x, rp, dev, False, False)[0])
+    if not any(r["negative_types"] for r in rows):
+        raise AssertionError("no K16 case reached a negative type")
+    name, shape, dt, seed, rp = INT_TIMED
+    row, entries = int_vs_plain(name, int_field(shape, seed, dt), rp, dev,
+                                True, True)
+    rows.append(row)
+    torch.cuda.empty_cache()
+    return rows, entries
+
+
+INT_KERNELS = tuple(
+    f"int_quantize{r}_{f}_kernel" for f in ("small", "i32", "u32", "i64")
+    for r in ("2d", "3d")) + tuple(
+    f"int_decode{r}_{b}_kernel" for b in (8, 16, 32, 64) for r in ("2d", "3d"))
+
+
+def int_strip_report(ptxas: list) -> list:
+    """K16/K17's sixteen kernels: ptxas's registers, stack and spills, and
+    the block's dynamic shared memory (int_kernel's mirror of strips.cuh
+    shared_bytes)."""
+    from sz_tpu_torch.gpu import int_kernel as ik
+    rows = []
+    for name in INT_KERNELS:
+        regs, spill = ptxas_of(ptxas, name)
+        wide = name.endswith("i64_kernel")
+        rows.append(dict(kernel=name, warps=ik.WARPS,
+                         shared_bytes=ik.shared_bytes(
+                             np.int64 if wide else np.int32,
+                             "decode" in name),
+                         registers=regs, spill=spill))
+        _log("K16/K17 strips", **rows[-1])
+    return rows
 
 
 # --- phase 2: K14/K15 -----------------------------------------------------
@@ -2529,6 +2838,7 @@ def phase_main_path(dev, record: dict, ts_steps: dict) -> None:
     main_path_pwrel64(dev, rows)
     main_path_ra(dev, rows)
     main_path_temporal(dev, rows, ts_steps)
+    main_path_int(dev, rows)
     record["main_path"] = rows
 
 
@@ -3085,6 +3395,235 @@ def main_path_classic(dev, rows: list) -> None:
         raise AssertionError("synth_signed differs from sz_tpu's stream")
     _log("main path", case="synth_signed_pwrel1e-3_compress",
          stream_sha256_equal=True)
+
+
+# the integer codecs' main path: name -> (shape, seed, dtype, bound, SHA-256
+# of the oracle's stream, of its decode); int_field's values (a 1-D field:
+# int_field over (1024, 1024), flattened)
+ORACLE_INT = {
+    "int32_256": (
+        (256, 256, 256), 42, "int32", ("ABS", 4),
+        "5b31357f3387f6e24b0b660ddeba6975ebeb4737a6a7a41c8a8db5f9ed39a764",
+        "8e6b1175323ed76753633d63a71ae80fc1ac3d7aabd1d91d97cee06629cdbf9f"),
+    "int16_cesm_atm_1800x3600": (
+        (1800, 3600), 6, "int16", ("ABS", 4),
+        "36a7e98fd4e24713715cb201eee03b316ca91ad2ead8d28a96f482ab79efe1d0",
+        "385aacd97c947959c08023df072ac410e5f2a7ddbc4dedbec14e6ddf6ab8ee70"),
+    "int32_4d_8x64x64x64": (
+        (8, 64, 64, 64), 9, "int32", ("ABS", 4),
+        "526ca7ad359b0881d826a5e7a0fd1e774ee8026e31a8e7a5c4d9076e72c13c90",
+        "8298ab5e349bfb3065791d141ed91b6d2ded3bbdae4986874e3f59a56db66e3d"),
+    "int8_300x400": (
+        (300, 400), 11, "int8", ("ABS", 0.5),
+        "3f675e4854ecad342183290709c358add6a84d4ae96ab94d663e4cce39c33c68",
+        "6da0b1b0f6d57e1497b8b5f96bea879de15027958974773774279deb1c334bb8"),
+    "uint8_40x50x60": (
+        (40, 50, 60), 12, "uint8", ("REL", 0.01),
+        "f8da92422801cbdf3060d8881d03a0f2f308c8e6a2cd647eb801aa724e9f84a8",
+        "a8f68b9a327109b9d51e17943479a9da9e268b9200e5c245bc99fd3319b7134d"),
+    "uint16_64^3": (
+        (64, 64, 64), 13, "uint16", ("PSNR", 80),
+        "6dce7644e575fd05120a93acca40a2bca54476c50225bb5bd22240d90623fa36",
+        "94896c8d2d48a8448a7efb7b978ee757d6efaffa47b18992950222a5e8f4ff9c"),
+    "uint32_4d_3x20x33x70": (
+        (3, 20, 33, 70), 14, "uint32", ("ABS", 16),
+        "13572b43dffed87007adf47239425baa0e8c39b69f94ef39f82d4751ad16a2cb",
+        "19086e8065282057a918669189f87ce814571371374ac00b520a91aec3356857"),
+    "int64_64^3": (
+        (64, 64, 64), 15, "int64", ("ABS", 4),
+        "a62910c1cc32be51309168fbb38761591b2b78a4e148ba1fd2edc226f963f9d3",
+        "48b6498f865d79bc14c4a18bb0ae763a95e456ddd90877496c62bc3d4b6cb959"),
+    "uint64_300x400": (
+        (300, 400), 16, "uint64", ("ABS", 4),
+        "9fa44d502997a81cce14c348647855bb1bbbfdffb8a820ae4137ddc142fdf4dd",
+        "6f6384a8744cdeab21532895446b99300e232576d49c00049499c22fef180533"),
+    "uint16_1d_2^20": (
+        (1 << 20,), 17, "uint16", ("ABS", 4),
+        "67e04a57ecdda4f4494e9489124eb2a3e55d021409c57103b959bac86fbae87b",
+        "1e59e1c7dd7a2fb2c0f2bfd92fd10c718a497d287bd56bb7b7c3faaeeca4db6d"),
+}
+
+
+def int_input(shape, seed: int, dtype) -> np.ndarray:
+    """An ORACLE_INT field."""
+    if len(shape) == 1:
+        return int_field((1024, shape[0] // 1024), seed, dtype).reshape(-1)
+    return int_field(shape, seed, dtype)
+
+
+def int_err(name: str, x: np.ndarray, out: np.ndarray, bnd: tuple) -> dict:
+    """The largest |decode - data| of an integer case, raising past the
+    absolute bound where the reference's codec holds it: values below
+    2^53 (the reconstruction is a double) and not at the 4-D quirk cells
+    (l, 0, 0, 1), which miss it by design.  REL and PSNR resolve to an
+    absolute bound from the range (framing._compress_int); the truncated
+    reconstruction stays within its ceiling."""
+    w = x.astype(np.int64) if x.dtype != np.uint64 else None
+    if w is None or np.abs(w).max() >= 2 ** 53:
+        return dict(max_abs_err=None, bound_checked=False)
+    err = np.abs(out.astype(np.int64) - w)
+    if x.ndim == 4:
+        err.reshape(x.shape[0], -1)[:, 1] = 0
+    mode, value = bnd
+    vr = float(w.max() - w.min())
+    pt = float(np.float32(0.99))
+    rp = {"ABS": value, "REL": value * vr,
+          "PSNR": vr * 10.0 ** ((value + 10 * math.log10(1 - 2.0 / 3.0 * pt))
+                                / -20.0)}[mode]
+    limit = math.ceil(rp)
+    if err.max() > limit:
+        raise AssertionError(f"{name}: error {err.max()} above {limit}")
+    return dict(max_abs_err=int(err.max()), bound_checked=True)
+
+
+# the reference binary's integer streams (testint_compress, ABS 4) and
+# their shapes (tests/test_golden_int.py)
+GOLDEN_INT = (("int_i32_4d", np.int32, (8, 16, 8, 8)),
+              ("int_i32_3d", np.int32, (32, 32, 8)),
+              ("int_i8_3d", np.int8, (32, 32, 8)),
+              ("int_i64_3d", np.int64, (32, 32, 8)),
+              ("int_ui16_1d", np.uint16, (8192,)))
+
+
+def main_path_int(dev, rows: list) -> None:
+    """Phase 3, the integer codecs (K16/K17, and K3-K7 on their type
+    streams): the ORACLE_INT fields of all eight dtypes at ranks 1-4
+    hash stream and decode to the oracle's and hold their bound; the
+    reference's integer goldens decode bit-equal and their data compress
+    to the golden's inner stream (the params' unset fmin/fmax aside); a
+    CUDA tensor of rank 2-4 compresses to the host array's bytes and
+    decodes as_tensor to a tensor of its dtype on the card."""
+    import torch
+    import sz_tpu_torch
+    from sz_tpu_torch.format import lossless as ll
+    from sz_tpu_torch.gpu import int_kernel as ik
+    for name, (shape, seed, dt, bnd, want_stream, want_recon) in \
+            ORACLE_INT.items():
+        x = int_input(shape, seed, dt)
+        cfg = classic_config(bnd, {})
+        t0 = time.perf_counter()
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        t1 = time.perf_counter()
+        out = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=dev)
+        t2 = time.perf_counter()
+        if sha256(blob) != want_stream:
+            raise AssertionError(f"{name}: stream differs from the oracle")
+        if out.dtype != x.dtype or sha256(out.tobytes()) != want_recon:
+            raise AssertionError(f"{name}: decode differs from the oracle")
+        row = dict(case=name, dtype=x.dtype.name, shape=list(x.shape),
+                   bound=f"{bnd[0]} {bnd[1]}", stream_sha256_equal=True,
+                   decode_sha256_equal=True, ratio=x.nbytes / len(blob),
+                   **int_err(name, x, out, bnd), port_compress_s=t1 - t0,
+                   port_decompress_s=t2 - t1)
+        if x.ndim >= 2:
+            xt = ik.to_carrier(x, dev).view(ik.torch_dtype(x.dtype))
+            if sz_tpu_torch.compress(xt, cfg, device=dev) != blob:
+                raise AssertionError(f"{name}: a tensor's stream differs "
+                                     f"from the host array's")
+            ot = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=dev,
+                                         as_tensor=True)
+            if (ot.device != xt.device or ot.dtype != xt.dtype
+                    or sha256(ot.cpu().numpy().tobytes()) != want_recon):
+                raise AssertionError(f"{name}: as_tensor decode differs")
+            row.update(tensor_input_stream_equal=True,
+                       as_tensor=f"{ot.dtype} on {ot.device}")
+            del xt, ot
+        _log("main path", **row)
+        rows.append(row)
+    golden = REPO / "tests" / "golden"
+    cfg = classic_config(("ABS", 4), {})
+    for name, dt, shape in GOLDEN_INT:
+        stem = name.rsplit("_", 1)[0]
+        x = np.fromfile(golden / f"{stem}.dat", dtype=dt).reshape(shape)
+        sz = (golden / f"{name}.sz").read_bytes()
+        want = np.fromfile(golden / f"{name}.out", dtype=dt)
+        got = sz_tpu_torch.decompress(sz, shape, dt, device=dev)
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"golden {name} decodes differently")
+        cap = x.nbytes * 4 + 128
+        ours = bytearray(ll.decompress(sz_tpu_torch.compress(
+            x, cfg, device=dev), expected_size=cap))
+        theirs = bytearray(ll.decompress(sz, expected_size=cap))
+        ours[24:32] = theirs[24:32] = bytes(8)
+        if ours != theirs:
+            raise AssertionError(f"golden {name}: the inner stream differs")
+        _log("main path", case=f"golden_{name}", decode_bit_equal=True,
+             inner_stream_equal=True)
+    torch.cuda.empty_cache()
+
+
+def phase_full_size_int(dev, record: dict, wrappers: dict) -> None:
+    """The integer codecs at full size: 512^3 int32 (537 MB, a field of
+    counts or labels at NYX scale) and CESM-ATM's 1800x3600 as int16,
+    ABS 4: the bound, compress and decompress MB/s (warm, best of 3) with
+    spans and the kernel launches of one compress and one decompress; the
+    512^3 field also from a CUDA tensor, with the bytes of each copy (no
+    copy of the field up)."""
+    import torch
+    import sz_tpu_torch
+    from sz_tpu_torch.gpu import int_kernel as ik
+    cfg = classic_config(("ABS", 4), {})
+    rows = {}
+    for name, shape, dt, seed in (
+            ("int32_512", (512, 512, 512), np.int32, 42),
+            ("int16_cesm_atm_1800x3600", (1800, 3600), np.int16, 6)):
+        x = int_field(shape, seed, dt)
+        mb = x.nbytes / 1e6
+        blob = sz_tpu_torch.compress(x, cfg, device=dev)
+        out = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=dev)
+        err = int_err(name, x, out, ("ABS", 4))
+        tc, spans_c, _ = _best_of(
+            lambda: sz_tpu_torch.compress(x, cfg, device=dev), 3)
+        td, spans_d, counts_d = _best_of(
+            lambda: sz_tpu_torch.decompress(blob, x.shape, x.dtype,
+                                            device=dev), 3)
+        launches = {}
+        for what, fn in (("compress", lambda: sz_tpu_torch.compress(
+                x, cfg, device=dev)), ("decompress", lambda: (
+                    sz_tpu_torch.decompress(blob, x.shape, x.dtype,
+                                            device=dev)))):
+            for w in wrappers.values():
+                w.launches = 0
+            fn()
+            launches[what] = {k: w.launches for k, w in wrappers.items()
+                              if w.launches}
+        row = dict(shape=list(shape), dtype=x.dtype.name, bound="ABS 4",
+                   ratio=x.nbytes / len(blob), **err, compress_MBps=mb / tc,
+                   decompress_MBps=mb / td, compress_s=tc, decompress_s=td,
+                   compress_spans_s=spans_c, decompress_spans_s=spans_d,
+                   decompress_counts=counts_d, launches=launches)
+        if name == "int32_512":
+            xt = torch.from_numpy(x).to(dev)
+            if sz_tpu_torch.compress(xt, cfg, device=dev) != blob:
+                raise AssertionError("int32_512: a tensor's stream differs "
+                                     "from the host array's")
+            tt, spans_t, _ = _best_of(
+                lambda: sz_tpu_torch.compress(xt, cfg, device=dev), 3)
+            _, copies = copies_of(
+                lambda: sz_tpu_torch.compress(xt, cfg, device=dev))
+            if any(b >= x.nbytes for b in copies["HtoD"]):
+                raise AssertionError("int32_512: a tensor's compress copied "
+                                     "the field up")
+            ot = sz_tpu_torch.decompress(blob, x.shape, x.dtype, device=dev,
+                                         as_tensor=True)
+            td_t, _, _ = _best_of(lambda: sz_tpu_torch.decompress(
+                blob, x.shape, x.dtype, device=dev, as_tensor=True), 3)
+            row.update(tensor_compress_MBps=mb / tt, tensor_compress_s=tt,
+                       tensor_compress_spans_s=spans_t,
+                       tensor_copies_bytes={k: sum(v) for k, v in
+                                            copies.items()},
+                       as_tensor_decompress_s=td_t,
+                       as_tensor_decompress_MBps=mb / td_t,
+                       as_tensor_equal=bool(torch.equal(
+                           ot, ik.to_carrier(out, dev))))
+            if not row["as_tensor_equal"]:
+                raise AssertionError("int32_512: as_tensor decode differs")
+            del xt, ot
+        _log(f"full size {name}", **row)
+        rows[name] = row
+        del x, out
+        torch.cuda.empty_cache()
+    record["full_int"] = rows
 
 
 # the float64 goldens (the reference binary's streams) and their shapes
@@ -3757,38 +4296,42 @@ def fsm_timing(name: str, coded, n: int, nodes: int) -> dict:
     g, m = fk.fsm_sweep(coded)
     entry, off, total = fk.fsm_scan(g, m)
     syms = fk.fsm_emit(coded, entry, off, n)
+    # each plain version once, timed on that run (K5's plain version takes
+    # seconds on a 512^3 stream)
+    (gp, mp), sweep_ms = cuda_once(lambda: fk.fsm_sweep_plain(
+        bits, trans, tb, depth))
+    scan_p, scan_ms = cuda_once(lambda: fk.fsm_scan_plain(g, m))
+    emit_p, emit_ms = cuda_once(lambda: fk.fsm_emit_plain(
+        bits, trans, tb, depth, entry, off, n))
     errs = {
-        "fsm_sweep": max(max_abs_err(a, b) for a, b in zip(
-            (g, m), fk.fsm_sweep_plain(bits, trans, tb, depth))),
+        "fsm_sweep": max(max_abs_err(a, b) for a, b in zip((g, m),
+                                                            (gp, mp))),
         "fsm_scan": max(max_abs_err(a, b) for a, b in zip(
-            (entry, off, total), fk.fsm_scan_plain(g, m))),
-        "fsm_emit": max_abs_err(syms, fk.fsm_emit_plain(
-            bits, trans, tb, depth, entry, off, n)),
+            (entry, off, total), scan_p)),
+        "fsm_emit": max_abs_err(syms, emit_p),
     }
+    del gp, mp, scan_p, emit_p
+    plain_ms = {"fsm_sweep": sweep_ms, "fsm_scan": scan_ms,
+                "fsm_emit": emit_ms}
     if any(errs.values()):
         raise AssertionError(f"K5-K7 differ from their plain versions on "
                              f"the {name} stream: {errs}")
     runs = {
         "fsm_sweep": (lambda: fk.fsm_sweep(coded),
-                      lambda: fk.fsm_sweep_plain(bits, trans, tb, depth),
                       # reads the stream and the tables, writes the maps;
                       # walks every coded bit at least once
                       bound(nbytes(bits, trans, lut, g, m), tb)),
         "fsm_scan": (lambda: fk.fsm_scan(g, m),
-                     lambda: fk.fsm_scan_plain(g, m),
                      # reads the maps once, writes entry and offsets once
                      bound(nbytes(g, m, entry, off, total))),
         "fsm_emit": (lambda: fk.fsm_emit(coded, entry, off, n),
-                     lambda: fk.fsm_emit_plain(bits, trans, tb, depth, entry,
-                                               off, n),
                      bound(nbytes(bits, trans, lut, entry, off, syms), tb)),
     }
     entries = {}
-    for kname, (kern, plain, (b_ms, b_by)) in runs.items():
+    for kname, (kern, (b_ms, b_by)) in runs.items():
         ms = cuda_ms(kern, 5)
-        plain_ms = cuda_ms(plain, 1)
         entries[kname] = dict(max_abs_err=errs[kname], ms=ms,
-                              plain_ms=plain_ms, bound_ms=b_ms,
+                              plain_ms=plain_ms[kname], bound_ms=b_ms,
                               bound_by=b_by, library_ms=None,
                               shape=list(g.shape) + [tb])
     # K6 at every tile size of its windowed path that fits a block
@@ -3869,6 +4412,22 @@ DEVICE_NAMES = (
     ("ts_decode_kernel", "ts_decode"), ("ts_decode_f64_kernel", "ts_decode"),
     ("ts_decode_escapes_kernel", "ts_decode"),
     ("ts_decode_escapes_f64_kernel", "ts_decode"),
+    ("int_quantize2d_small_kernel", "int_quantize"),
+    ("int_quantize3d_small_kernel", "int_quantize"),
+    ("int_quantize2d_i32_kernel", "int_quantize"),
+    ("int_quantize3d_i32_kernel", "int_quantize"),
+    ("int_quantize2d_u32_kernel", "int_quantize"),
+    ("int_quantize3d_u32_kernel", "int_quantize"),
+    ("int_quantize2d_i64_kernel", "int_quantize"),
+    ("int_quantize3d_i64_kernel", "int_quantize"),
+    ("int_decode2d_8_kernel", "int_decode"),
+    ("int_decode3d_8_kernel", "int_decode"),
+    ("int_decode2d_16_kernel", "int_decode"),
+    ("int_decode3d_16_kernel", "int_decode"),
+    ("int_decode2d_32_kernel", "int_decode"),
+    ("int_decode3d_32_kernel", "int_decode"),
+    ("int_decode2d_64_kernel", "int_decode"),
+    ("int_decode3d_64_kernel", "int_decode"),
     ("Memcpy", "memcpy"), ("Memset", "memset"),
 )
 
@@ -3964,6 +4523,12 @@ KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
                     "sz_tpu/temporal.py:237"),
     "ts_decode": ("K15", "sz_tpu_torch/csrc/temporal.cu",
                   "sz_tpu/temporal.py:399"),
+    # the integer codecs' recurrence runs in host C in the JAX package:
+    # K16/K17 replace its encoder and decoder
+    "int_quantize": ("K16", "sz_tpu_torch/csrc/intc.cu",
+                     "sz_tpu/native/core.c:2247"),
+    "int_decode": ("K17", "sz_tpu_torch/csrc/intc.cu",
+                   "sz_tpu/native/core.c:2354"),
 }
 
 
@@ -3999,8 +4564,9 @@ def main() -> int:
     print(smi, flush=True)
     from sz_tpu_torch import native
     from sz_tpu_torch.gpu import (_build, classic_kernel, fsm_kernel,
-                                  hist_kernel, lorenzo_kernel, msst19_kernel,
-                                  pack_kernel, ra_kernel, temporal_kernel)
+                                  hist_kernel, int_kernel, lorenzo_kernel,
+                                  msst19_kernel, pack_kernel, ra_kernel,
+                                  temporal_kernel)
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     t0 = time.perf_counter()
@@ -4029,6 +4595,7 @@ def main() -> int:
         record["lorenzo_strips"] = lorenzo_strip_report(record["ptxas"])
         record["classic_strips"] = classic_strip_report(record["ptxas"])
         record["temporal_kernels"] = temporal_report(record["ptxas"])
+        record["int_strips"] = int_strip_report(record["ptxas"])
 
     walls.append(("1 environment", time.perf_counter()))
     # phase 2: each kernel against its plain version
@@ -4052,6 +4619,8 @@ def main() -> int:
     entries.update(ra_entries)
     record["ts_cases"], ts_entries = phase_ts_cases(dev)
     entries.update(ts_entries)
+    record["int_cases"], int_entries = phase_int_cases(dev)
+    entries.update(int_entries)
 
     walls.append(("2 kernels", time.perf_counter()))
     # phase 3: the main path; the launch counters cover exactly this run
@@ -4080,7 +4649,9 @@ def main() -> int:
                 "ra_encode": ra_kernel.ra_encode,
                 "ra_decode": ra_kernel.ra_decode,
                 "ts_quantize": temporal_kernel.ts_quantize,
-                "ts_decode": temporal_kernel.ts_decode}
+                "ts_decode": temporal_kernel.ts_decode,
+                "int_quantize": int_kernel.int_quantize,
+                "int_decode": int_kernel.int_decode}
     ts_steps = ts_chain_inputs()
     for w in wrappers.values():
         w.launches = 0
@@ -4107,6 +4678,7 @@ def main() -> int:
     phase_full_size_f64(dev, record, wrappers)
     phase_full_size_classic(dev, record, wrappers)
     phase_full_size_pwrel64_ra(dev, record, wrappers)
+    phase_full_size_int(dev, record, wrappers)
     # K14/K15 at the chain's full size replace phase 2's 2^24 entries
     entries.update(phase_full_size_temporal(dev, record, wrappers, ts_steps))
     del ts_steps
@@ -4137,7 +4709,7 @@ def main() -> int:
             launches=launches[name], max_abs_err=e["max_abs_err"],
             ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"], id=kid,
-            shape=e["shape"]))
+            shape=e["shape"], plain_shape=e.get("plain_shape", e["shape"])))
     record["kernels"] = kernels
     if args.out:
         out = pathlib.Path(args.out)

@@ -44,16 +44,32 @@ from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
 from sz_tpu_torch.format import tdps as tdps_mod
 from sz_tpu_torch.gpu import device as devmod
-from sz_tpu_torch.gpu import classic_engine, engine, msst19_engine
+from sz_tpu_torch.gpu import (classic_engine, engine, int_kernel,
+                              msst19_engine)
 
 
-def _check_slice(dtype) -> None:
+def _check_slice(dtype) -> bool:
+    """True for the eight integer dtypes, False for float32 and float64;
+    TypeError for any other."""
     dt = np_dtype(dtype)
-    if dt.kind in "iu":
-        raise NotImplementedError(
-            "integer data is not ported yet (ROADMAP 1.10)")
+    if dt.kind in "iu" and dt.itemsize in (1, 2, 4, 8):
+        return True
     if dt not in (np.float32, np.float64):
         raise TypeError(f"unsupported dtype {dt}")
+    return False
+
+
+def _compress_int(data, cfg: SZConfig, dev, on_dev: bool) -> bytes:
+    """The integer route (sz_tpu/api.py:187-188), before the float path
+    and MIN_NUM_OF_ELEMENTS: a tensor on ``dev`` of rank 2-4 stays there
+    (as its carrier, made contiguous there if it is not); rank 1 is
+    downloaded, as the 1-D float route does."""
+    dt = np_dtype(data.dtype)
+    if on_dev and len(framing._filter_dims(data.shape)) >= 2:
+        x = data.view(int_kernel.carrier(dt)).contiguous()
+        return framing._compress_int(x, cfg, dev, dt)
+    return framing._compress_int(framing._host(data), cfg, dev)
+
 
 def _ra_route(cfg: SZConfig, dtype, ndim: int) -> bool:
     """The random-access block codec takes float32 fields of rank 1-3
@@ -85,7 +101,8 @@ def compress(data, cfg: SZConfig = DEFAULT_CONFIG, *,
     on_dev = torch.is_tensor(data) and data.device == dev
     data = data.detach() if on_dev else framing._host(data)
     dims = framing._filter_dims(data.shape)
-    _check_slice(data.dtype)
+    if _check_slice(data.dtype):
+        return _compress_int(data, cfg, dev, on_dev)
     n = int(np.prod(dims))
     if n <= MIN_NUM_OF_ELEMENTS:
         # SZ_skip_compress_float: raw bytes
@@ -164,7 +181,10 @@ def decompress(blob: bytes, shape, dtype=np.float32, *, device="cuda",
     dev = devmod.resolve(device)
     native.tune_malloc()
     dims = framing._filter_dims(shape)
-    _check_slice(dtype)
+    if _check_slice(dtype):
+        out = framing._decompress_int(blob, dims, np_dtype(dtype), dev,
+                                      as_tensor)
+        return out.reshape(tuple(shape))
     n = int(np.prod(dims))
     T = np_dtype(dtype).type
 
@@ -238,7 +258,7 @@ def decompress_region(blob: bytes, shape, start, end, dtype=np.float32, *,
     dims = framing._filter_dims(shape)
     _check_slice(dtype)
     n = int(np.prod(dims))
-    dt = data_type(dtype)
+    dt = data_type(dtype)   # TypeError for an integer dtype
     mlen = md.meta_length(dt)
     if len(blob) not in (8 + 4 + mlen, 8 + 8 + mlen):
         inner = ll.decompress(

@@ -29,6 +29,7 @@ from sz_tpu_torch.config import float_type
 from sz_tpu_torch.core import blocks as B
 from sz_tpu_torch.format import bytes_util as bu
 from sz_tpu_torch.format import huffman
+from sz_tpu_torch.utils import stats as _stats
 
 COEFF_CAPACITY = 65536
 COEFF_RADIUS = COEFF_CAPACITY // 2
@@ -133,6 +134,20 @@ def assemble_body(spec: _Spec, rp, quantization_intervals: int,
     coefficient's type stream to bytes (``huffman.encode``'s result)."""
     reg_count = int(np.count_nonzero(use_reg))
     total_unpred = len(unpred_arr)
+    n_points, n_blocks = int(np.sum(freq)), len(use_reg)
+    _stats.record(
+        use_mean=bool(use_mean), block_size=spec.block_size,
+        regression_blocks=reg_count, lorenzo_blocks=n_blocks - reg_count,
+        regression_percent=reg_count / n_blocks if n_blocks else 0.0,
+        lorenzo_percent=(n_blocks - reg_count) / n_blocks
+        if n_blocks else 0.0,
+        quantization_intervals=quantization_intervals,
+        unpredict_count=total_unpred,
+        unpredict_percent=total_unpred / n_points if n_points else 0.0,
+        huffman_tree_size=len(tables.tree_bytes),
+        huffman_coding_size=len(encoded),
+        huffman_node_count=tables.node_count,
+        huffman_avg_bits=len(encoded) * 8 / n_points if n_points else 0.0)
     out = bytearray()
     out += bu.i32_be(spec.block_size)
     out += spec.val_be(rp)

@@ -10,10 +10,10 @@ scanned there (min and max do not depend on order, so the result is
 exact), and it is downloaded only where a fallback needs its values (the
 constant stream's first value, the StoreOri verbatim copy).
 
-The 1-D integer streams that the random-access body nests are framed
-here too (``_compress_int`` / ``_decompress_int``, SZ_compress_args_int32
-sz_int32.c:1193 and its decoder); the public entry points still refuse
-integer data (ROADMAP 1.10).
+Integer streams of rank 1 to 4 are framed here too (``_compress_int`` /
+``_decompress_int``, SZ_compress_args_int32 sz_int32.c:1193 and its
+decoder): the public entry points' integer route, and the 1-D streams the
+random-access body nests.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ from sz_tpu_torch.format import bytes_util as bu
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
 from sz_tpu_torch.format import tdps as tdps_mod
+from sz_tpu_torch.gpu import int_kernel
+from sz_tpu_torch.utils import stats as _stats
 from sz_tpu_torch.utils import trace as _tr
 
 
@@ -147,8 +149,9 @@ def _frame_regression_stream(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
     (sz_float.c:2978-3039)."""
     header = md.make_header(hdr_cfg, dt, fmin, fmax, regression=True,
                             random_access=cfg.random_access)
-    return _finish(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
-                   header + bu.size_be(n, cfg.size_type) + res.body)
+    return _recorded(dt, n, _finish(
+        cfg, hdr_cfg, dt, fmin, fmax, flat, n,
+        header + bu.size_be(n, cfg.size_type) + res.body))
 
 
 def _frame_pwrel_stream(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
@@ -168,9 +171,10 @@ def _frame_classic_stream(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
     """The same tail around a classic (SZ1.4) TDPS body
     (sz_float.c:3016-3039): a header without the regression flag."""
     header = md.make_header(hdr_cfg, dt, fmin, fmax)
-    return _finish(cfg, hdr_cfg, dt, fmin, fmax, flat, n,
-                   header + bu.size_be(n, cfg.size_type)
-                   + tdps_mod.to_bytes(tdps, cfg.size_type))
+    return _recorded(dt, n, _finish(
+        cfg, hdr_cfg, dt, fmin, fmax, flat, n,
+        header + bu.size_be(n, cfg.size_type)
+        + tdps_mod.to_bytes(tdps, cfg.size_type)))
 
 
 def _frame_ra_stream(cfg, hdr_cfg, dt, fmin, fmax, n, body) -> bytes:
@@ -180,9 +184,17 @@ def _frame_ra_stream(cfg, hdr_cfg, dt, fmin, fmax, n, body) -> bytes:
     out = (md.make_header(hdr_cfg, dt, fmin, fmax, regression=True,
                           random_access=True)
            + bu.size_be(n, cfg.size_type) + body)
-    if cfg.sz_mode == SZMode.BEST_SPEED:
-        return out
-    return ll.compress(out, cfg.lossless, cfg.lossless_level)
+    if cfg.sz_mode != SZMode.BEST_SPEED:
+        out = ll.compress(out, cfg.lossless, cfg.lossless_level)
+    return _recorded(dt, n, out)
+
+
+def _recorded(dt: DataType, n: int, out: bytes) -> bytes:
+    """``out``, its size and the field's recorded in the stats
+    (sz_tpu/api.py:341-347, :405-410, :429-434)."""
+    esize = 4 if dt == DataType.FLOAT else 8
+    _stats.record(original_size=n * esize, compressed_size=len(out))
+    return out
 
 
 def _finish(cfg, hdr_cfg, dt, fmin, fmax, flat, n, body) -> bytes:
@@ -225,50 +237,77 @@ def _protect_clamp(out, hdr, T):
     return np.where(out < mn, mn, np.where(out > mx, mx, out))
 
 
-def _compress_int(data: np.ndarray, cfg: SZConfig, device) -> bytes:
-    """sz_tpu.compress of a 1-D integer array: SZ_compress_args_int32
-    (sz_int32.c:1193) and its twins; the constant stream, the integer
-    codec, the StoreOriData fallback and the lossless wrap."""
-    data = np.ascontiguousarray(data).reshape(_filter_dims(data.shape))
-    spec = intc.SPECS[data.dtype]
-    mn, vrange = intc.range_size_int(data.reshape(-1))
+def _compress_int(data, cfg: SZConfig, device, dtype=None) -> bytes:
+    """sz_tpu.compress of an integer field of rank 1 to 4:
+    SZ_compress_args_int32 (sz_int32.c:1193) and its twins; the constant
+    stream, the integer codec, the StoreOriData fallback and the lossless
+    wrap.  ``data`` is a numpy array or (ranks 2-4) a carrier tensor
+    (``gpu.int_kernel.carrier``) of numpy ``dtype`` on ``device``, scanned
+    and encoded where it lies."""
+    if torch.is_tensor(data):
+        dt = np.dtype(dtype)
+    else:
+        data = np.ascontiguousarray(data)
+        dt = data.dtype
+    data = data.reshape(_filter_dims(data.shape))
+    spec = intc.SPECS[dt]
+    n = int(np.prod(data.shape))
+    mn, vrange = intc.range_size_int(data.reshape(-1), dt)
     if cfg.error_bound_mode == ErrorBoundMode.PSNR:
         pt = float(np.float32(cfg.pred_threshold))
         rp = vrange * (10.0 ** ((cfg.psnr + 10 * math.log10(
             1 - 2.0 / 3.0 * pt)) / -20.0))
     else:
-        rp, _ = _resolve_precision(cfg, float(vrange), data.size)
+        rp, _ = _resolve_precision(cfg, float(vrange), n)
     hdr_cfg = dataclasses.replace(cfg, abs_err_bound=rp)
     params = md.serialize_params(hdr_cfg, spec.dt, 0.0, 0.0)
     if vrange == 0:
-        body = intc.same_int(data, params, int(cfg.sz_mode), cfg.size_type)
+        first = _host(data.reshape(-1)[:1]).view(dt)[0]
+        body = intc.same_int(first, n, params, int(cfg.sz_mode),
+                             cfg.size_type)
     else:
         t = intc.compress_int(
-            data, rp, max_range_radius=cfg.max_range_radius,
+            data, rp, mn=mn, byte_size=intc.byte_size_per_value(vrange),
+            max_range_radius=cfg.max_range_radius,
             sample_distance=cfg.sample_distance,
             pred_threshold=np.float32(cfg.pred_threshold),
             opt_quant_mode=1 if cfg.quantization_intervals == 0 else 0,
-            fixed_intervals=cfg.quantization_intervals, device=device)
-        body = intc.itdps_to_bytes(t, data.dtype, params, int(cfg.sz_mode),
+            fixed_intervals=cfg.quantization_intervals, dtype=dt,
+            device=device)
+        body = intc.itdps_to_bytes(t, dt, params, int(cfg.sz_mode),
                                    cfg.size_type)
-        if len(body) > data.size * spec.esize:
-            body = intc.store_ori_int(data, params, cfg.size_type)
+        if len(body) > n * spec.esize:
+            body = intc.store_ori_int(_host(data).view(dt), params,
+                                      cfg.size_type)
     if cfg.sz_mode == SZMode.BEST_SPEED:
         return body
     return ll.compress(body, cfg.lossless, cfg.lossless_level)
 
 
-def _decompress_int(blob: bytes, n: int, dtype, device) -> np.ndarray:
-    """sz_tpu.decompress of a 1-D integer stream of ``n`` values."""
+def _decompress_int(blob: bytes, dims, dtype, device,
+                    as_tensor: bool = False):
+    """sz_tpu.decompress of an integer stream of a field of ``dims`` (its
+    size-1 dimensions dropped; an int: a 1-D field of that many values).
+    Returns numpy of ``dims``, or with ``as_tensor`` a tensor of ``dtype``
+    on ``device`` (ranks 2-4 decode there; an unsigned type is a view of
+    its carrier)."""
+    dims = (dims,) if isinstance(dims, int) else tuple(dims)
     dtype = np.dtype(dtype)
+    n = int(np.prod(dims))
     inner = ll.decompress(blob, expected_size=n * dtype.itemsize * 2 + 128)
     flag = inner[3]
     off = 4 + md.meta_length(DataType.FLOAT) + (8 if flag & 0x40 else 4)
     be = dtype.newbyteorder(">")
     if flag & 0x10:   # StoreOriData, verbatim (sz_uint16.c:320)
-        return np.frombuffer(inner, be, count=n, offset=off).astype(dtype)
-    if flag & 0x01:   # allSameData (TightDataPointStorageI.c:356)
+        out = np.frombuffer(inner, be, count=n, offset=off).astype(dtype)
+    elif flag & 0x01:   # allSameData (TightDataPointStorageI.c:356)
         v = np.frombuffer(inner, be, count=1, offset=off)[0]
-        return np.full(n, v, dtype=dtype)
-    t = intc.itdps_from_bytes(inner, md.meta_length(DataType.FLOAT))
-    return intc.decompress_int(t, n, dtype, device=device)
+        out = np.full(n, v, dtype=dtype)
+    else:
+        t = intc.itdps_from_bytes(inner, md.meta_length(DataType.FLOAT))
+        out = intc.decompress_int(t, dims, dtype, device=device,
+                                  as_tensor=as_tensor)
+    if as_tensor and not torch.is_tensor(out):
+        out = int_kernel.to_carrier(out, device).view(
+            int_kernel.torch_dtype(dtype))
+    return out.reshape(dims)

@@ -100,6 +100,10 @@ SIGNATURES = {
     "sz_ts_decode": (_P, _P, _LL, _P, _LL, _I, _D, _I, _P, _P, _P, _P, _P),
     "sz_ts_decode_f64": (_P, _P, _LL, _P, _LL, _I, _D, _I, _P, _P, _P, _P,
                          _P),
+    "sz_int_quantize": (_P, _P, *(_I,) * 9, _D, _I, _I, _I, _P, _P, _P, _P,
+                        _I, _P),
+    "sz_int_decode": (_P, _P, _LL, _P, _P, *(_I,) * 7, _D, _I, _P, _P, _P, _P,
+                      _I, _P),
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)

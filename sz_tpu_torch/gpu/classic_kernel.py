@@ -44,8 +44,7 @@ import torch
 from sz_tpu_torch.gpu import _build
 from sz_tpu_torch.gpu import strips
 from sz_tpu_torch.gpu.msst19_kernel import _diag
-from sz_tpu_torch.gpu.strips import (CHUNK, GROUP, LANES,  # noqa: F401
-                                     scratch_sizes, strip_grid, strip_order)
+from sz_tpu_torch.gpu.strips import LANES, lattice
 
 _F32, _F64, _I32, _I64 = torch.float32, torch.float64, torch.int32, torch.int64
 
@@ -213,18 +212,6 @@ def classic_decode_plain(types, escapes, rp, radius: int):
 
 
 # --- the strips: units, claim order, scratch ------------------------------
-
-def lattice(shape) -> tuple:
-    """(rank, nvol, r1, r2, r3) of the one launch on a field of ``shape``:
-    rank 2 is one plane, rank 3 one volume, rank 4 its q1 volumes of a
-    rank-3 lattice."""
-    shape = tuple(int(s) for s in shape)
-    if len(shape) == 2:
-        return (2, 1, 1) + shape
-    if len(shape) == 3:
-        return (3, 1) + shape
-    return (3,) + shape
-
 
 def shared_bytes(dtype, decode: bool) -> int:
     """Dynamic shared memory of a block (strips.cuh ``shared_bytes`` of

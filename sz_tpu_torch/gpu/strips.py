@@ -1,6 +1,6 @@
 """The unit grid, claim order and scratch of the warp-strip kernels (K10/K11
-in ``csrc/classic.cu``, K1d/K2d in ``csrc/lorenzo.cu``, both on the
-machinery of ``csrc/strips.cuh``).
+in ``csrc/classic.cu``, K1d/K2d in ``csrc/lorenzo.cu``, K16/K17 in
+``csrc/intc.cu``, all on the machinery of ``csrc/strips.cuh``).
 
 A launch walks ``nvol`` volumes of r1 x r2 x r3 (rank 2: one plane).  A
 unit is a group of a block's warps: rank 3, ``warps`` consecutive planes
@@ -9,7 +9,8 @@ plane.  The kernel claims the units from a global counter in the order
 made here, so every unit's predecessors come first.  The constants mirror
 ``strips.cuh`` (a CPU test holds them equal); each kernel family keeps
 its own warps a block and ring length (``classic_kernel.WARPS`` and
-``RING``, ``lorenzo_kernel.WARPS_F64`` and ``RING_F64``).  Made in Python
+``RING``, ``lorenzo_kernel.WARPS_F64`` and ``RING_F64``,
+``int_kernel.WARPS`` and ``RING``).  Made in Python
 so that the CPU tests reach the geometry the kernels use.
 """
 
@@ -51,6 +52,18 @@ def strip_order(rank: int, nvol: int, r1: int, r2: int,
     v, g, s = (a.reshape(-1) for a in np.meshgrid(
         np.arange(nvol), np.arange(ng), np.arange(ns), indexing="ij"))
     return np.lexsort((g, v, g + s)).astype(np.int32)
+
+
+def lattice(shape) -> tuple:
+    """(rank, nvol, r1, r2, r3) of the one launch on a field of ``shape``:
+    rank 2 is one plane, rank 3 one volume, rank 4 its q1 volumes of a
+    rank-3 lattice."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) == 2:
+        return (2, 1, 1) + shape
+    if len(shape) == 3:
+        return (3, 1) + shape
+    return (3,) + shape
 
 
 def scratch_sizes(rank: int, nvol: int, r1: int, r2: int, r3: int,

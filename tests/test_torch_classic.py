@@ -30,6 +30,7 @@ from sz_tpu_torch.core import classic_nd as tcn
 from sz_tpu_torch.format import tdps as ttdps
 from sz_tpu_torch.gpu import classic_engine as tce
 from sz_tpu_torch.gpu import classic_kernel as ck
+from sz_tpu_torch.gpu import strips
 from sz_tpu_torch.gpu import hist_kernel
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
@@ -273,11 +274,11 @@ def test_tiles_mirror_classic_cu():
                                                      "strips.cuh"))
     got = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert {k: int(got[k]) for k in ("kLanes", "kChunk", "kRing")} == dict(
-        kLanes=ck.LANES, kChunk=ck.CHUNK, kRing=ck.RING)
+        kLanes=strips.LANES, kChunk=strips.CHUNK, kRing=ck.RING)
     assert "constexpr int kPitch = kRing + 1;" in src
     group = re.search(r"struct Group \{\s*static constexpr int n = "
                       r"kRank == 3 \? (\d+) : (\d+);", src)
-    assert {3: int(group[1]), 2: int(group[2])} == ck.GROUP
+    assert {3: int(group[1]), 2: int(group[2])} == strips.GROUP
     warps = re.search(r"struct Warps \{\s*static constexpr int n = "
                       r"sizeof\(V\) == 8 \? (\d+) : (\d+);", src)
     assert (int(warps[1]), int(warps[2])) == (ck.WARPS[torch.float64],

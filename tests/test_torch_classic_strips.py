@@ -2,7 +2,7 @@
 hand-offs the kernels of ``csrc/classic.cu`` read, modelled in numpy and
 held to the plain versions and to sz_tpu.
 
-- ``classic_kernel.strip_order`` (the units the kernel claims): every
+- ``strips.strip_order`` (the units the kernel claims): every
   unit once, each unit's predecessors (g - 1, s), (g, s - 1) and
   (g - 1, s - 1) earlier, a 4-D field's volumes interleaved diagonal by
   diagonal, on the ragged edges (strips of 31, 33 and 65 rows, plane
@@ -43,6 +43,7 @@ from sz_tpu.tpu import classic_engine as jce
 
 from sz_tpu_torch.core import classic_nd as tcn
 from sz_tpu_torch.gpu import classic_kernel as ck
+from sz_tpu_torch.gpu import strips
 
 from _chip_smoke import SMOKE
 
@@ -67,8 +68,8 @@ ORDER_CASES = [(3, 1, 7, 31), (3, 1, 13, 33), (3, 1, 5, 65), (3, 1, 1, 70),
 @pytest.mark.parametrize("warps", [4, 6])
 @pytest.mark.parametrize("rank,nvol,r1,r2", ORDER_CASES)
 def test_strip_order(rank, nvol, r1, r2, warps):
-    ng, ns = ck.strip_grid(rank, r1, r2, warps)
-    order = ck.strip_order(rank, nvol, r1, r2, warps)
+    ng, ns = strips.strip_grid(rank, r1, r2, warps)
+    order = strips.strip_order(rank, nvol, r1, r2, warps)
     assert order.dtype == np.int32
     assert sorted(order.tolist()) == list(range(nvol * ng * ns))
     pos = np.empty(order.size, np.int64)
@@ -89,9 +90,9 @@ def test_strip_order(rank, nvol, r1, r2, warps):
     # the units cover the lattice: rank 3 groups of warps planes, rank 2
     # groups of warps strips of LANES rows
     if rank == 3:
-        assert ng == -(-r1 // warps) and ns == -(-r2 // ck.LANES)
+        assert ng == -(-r1 // warps) and ns == -(-r2 // strips.LANES)
     else:
-        assert ng == 1 and ns == -(-(-(-r2 // ck.LANES)) // warps)
+        assert ng == 1 and ns == -(-(-(-r2 // strips.LANES)) // warps)
 
 
 # --- the model of the strip walk -------------------------------------------
@@ -110,21 +111,21 @@ class _Model:
     predictor uses is checked against the point it must hold."""
 
     def __init__(self, shape, dtype, p, decode, seed, warps=None):
-        self.rank, self.nvol, self.r1, self.r2, self.r3 = ck.lattice(shape)
+        self.rank, self.nvol, self.r1, self.r2, self.r3 = strips.lattice(shape)
         self.V = dtype
         self.dbl = p.form.dbl
         self.p = p
         self.decode = decode
         self.W = warps or ck.WARPS[torch.float64 if dtype == F64
                                    else torch.float32]
-        self.G = ck.GROUP[self.rank]
-        self.ng, self.ns = ck.strip_grid(self.rank, self.r1, self.r2,
+        self.G = strips.GROUP[self.rank]
+        self.ng, self.ns = strips.strip_grid(self.rank, self.r1, self.r2,
                                          self.W)
         self.nunits = self.nvol * self.ng * self.ns
-        self.order = ck.strip_order(self.rank, self.nvol, self.r1, self.r2,
+        self.order = strips.strip_order(self.rank, self.nvol, self.r1, self.r2,
                                     self.W)
-        self.nc = -(-self.r3 // ck.CHUNK)
-        n_rows, n_planes, n_flags = ck.scratch_sizes(
+        self.nc = -(-self.r3 // strips.CHUNK)
+        n_rows, n_planes, n_flags = strips.scratch_sizes(
             self.rank, self.nvol, self.r1, self.r2, self.r3, self.W)
         self.rows = np.full(max(n_rows, 1), np.nan, dtype)
         self.rows_tag = np.full(max(n_rows, 1), -1, np.int64)
@@ -215,26 +216,26 @@ class _Model:
     # --- one warp's walk of unit u (classic.cu walk) ---------------------
 
     def walk(self, blk, u, v, gi, si, w):
-        W, G, C_, V = self.W, self.G, ck.CHUNK, self.V
+        W, G, C_, V = self.W, self.G, strips.CHUNK, self.V
         r1, r2, r3, rank = self.r1, self.r2, self.r3, self.rank
-        lanes = np.arange(ck.LANES)
+        lanes = np.arange(strips.LANES)
         mark = blk["mark"]
         i = gi * W + w if rank == 3 else 0
-        j0 = ck.LANES * (si if rank == 3 else si * W + w)
+        j0 = strips.LANES * (si if rank == 3 else si * W + w)
         if i >= r1 or j0 >= r2:
             mark[w] = 1 << 30
             return
-        rows = min(ck.LANES, r2 - j0)
+        rows = min(strips.LANES, r2 - j0)
         up, own = blk["val"][w], blk["val"][w + 1]
         upt, owt = blk["tag"][w], blk["tag"][w + 1]
         nxt = blk["val"][w + 2] if w + 2 <= W else None
         nxt_t = blk["tag"][w + 2] if w + 2 <= W else None
         st, st_t, st_kind = blk["st"][w], blk["st_tag"][w], blk["kind"][w]
         has_next = w + 1 < W
-        feed_next = (rank == 2 and has_next and rows == ck.LANES
-                     and j0 + ck.LANES < r2)
+        feed_next = (rank == 2 and has_next and rows == strips.LANES
+                     and j0 + strips.LANES < r2)
         last_step = r3 + rows - 2
-        xs = r3 + ck.LANES
+        xs = r3 + strips.LANES
         nsc = (last_step + C_) // C_
         pub_rows = (rank == 3 or w == W - 1) and si + 1 < self.ns
         pub_plane = rank == 3 and w == W - 1 and gi + 1 < self.ng
@@ -266,7 +267,7 @@ class _Model:
                         (st_kind[r, x] == 1).all()
                     self.types_out[v, i, j0 + r, col] = st[r, x]
                 self.R_out[v, i, j0 + r, col] = own[r + 1, x]
-                if pub_rows and r == ck.LANES - 1:
+                if pub_rows and r == strips.LANES - 1:
                     at = ((v * self.ns + si) * r1 + i) * r3 + col
                     self.rows[at] = own[r + 1, x]
                     self.rows_tag[at] = want
@@ -311,16 +312,16 @@ class _Model:
                 upt[r + 1, x & MASK] = self.planes_tag[base + r * xs + x]
 
         # K11's escape cursor
-        eidx = np.zeros(ck.LANES, np.int64)
-        enext = np.zeros(ck.LANES, V)
+        eidx = np.zeros(strips.LANES, np.int64)
+        enext = np.zeros(strips.LANES, V)
         if self.decode:
             rb = self.row_base[(v * r1 + i) * r2 + j0 + lanes[:rows]]
             eidx[:rows] = rb
-            for ln in range(ck.LANES):
+            for ln in range(strips.LANES):
                 enext[ln] = self._escape(eidx[ln])
-        A = np.zeros(ck.LANES, V)
+        A = np.zeros(strips.LANES, V)
         A2, Bp, Cp, Ep = A.copy(), A.copy(), A.copy(), A.copy()
-        Ak, A2k, Bk, Ck, Ek = (np.full(ck.LANES, -3, np.int64)
+        Ak, A2k, Bk, Ck, Ek = (np.full(strips.LANES, -3, np.int64)
                                for _ in range(5))
         stage(0)
         for p in range(self.nc + 3):
@@ -359,12 +360,12 @@ class _Model:
                 Ev_t = [upt[lanes, xm[q]].copy() for q in range(G)]
                 Rv, tv = [], []
                 if self.decode:
-                    em = np.zeros(ck.LANES, np.int64)
+                    em = np.zeros(strips.LANES, np.int64)
                     for q in range(G):
                         k = s + q - lanes
                         act = (lanes < rows) & (k >= 0) & (k < r3)
                         em |= (act & (xin[q].astype(np.int64) == 0)) << q
-                    ev = [np.zeros(ck.LANES, V) for _ in range(G)]
+                    ev = [np.zeros(strips.LANES, V) for _ in range(G)]
                     if em.any():
                         for q in range(G):
                             before = np.array([bin(int(e) & ((1 << q) - 1))
@@ -434,9 +435,9 @@ class _Model:
                         st[lanes[act], x] = tv[q][act]
                         st_kind[lanes[act], x] = 1
                     if feed_next and act[-1]:
-                        nxt[0, (s + q - ck.LANES) & MASK] = Rv[q][-1]
-                        nxt_t[0, (s + q - ck.LANES) & MASK] = self.key(
-                            v, i, j0 + ck.LANES - 1, k[-1])
+                        nxt[0, (s + q - strips.LANES) & MASK] = Rv[q][-1]
+                        nxt_t[0, (s + q - strips.LANES) & MASK] = self.key(
+                            v, i, j0 + strips.LANES - 1, k[-1])
                 mark[w] = s + G
                 s += G
         mark[w] = 1 << 30
@@ -484,12 +485,12 @@ class _Model:
         blks = []
         for _ in range(blocks):
             blk = dict(
-                val=np.full((self.W + 2, ck.LANES + 1, PITCH), np.nan, V),
-                tag=np.full((self.W + 2, ck.LANES + 1, PITCH), -1, np.int64),
-                st=np.zeros((self.W, ck.LANES, PITCH), V if not self.decode
+                val=np.full((self.W + 2, strips.LANES + 1, PITCH), np.nan, V),
+                tag=np.full((self.W + 2, strips.LANES + 1, PITCH), -1, np.int64),
+                st=np.zeros((self.W, strips.LANES, PITCH), V if not self.decode
                             else np.int64),
-                st_tag=np.full((self.W, ck.LANES, PITCH), -1, np.int64),
-                kind=np.full((self.W, ck.LANES, PITCH), -1, np.int8),
+                st_tag=np.full((self.W, strips.LANES, PITCH), -1, np.int64),
+                kind=np.full((self.W, strips.LANES, PITCH), -1, np.int8),
                 mark=np.zeros(self.W, np.int64))
             blks.append(self.block(blk))
         waits = [None] * blocks
@@ -638,7 +639,7 @@ def _escape_layout(kind, shape, radius, rng):
     elif kind == "row_starts":
         flat[::r3] = 0
     elif kind == "chunk_edge":
-        for c in range(ck.CHUNK - 2, r3, ck.CHUNK):
+        for c in range(strips.CHUNK - 2, r3, strips.CHUNK):
             flat[c::r3][::2] = 0
             if c + 2 < r3:
                 flat[c + 2::r3][::3] = 0

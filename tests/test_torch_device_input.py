@@ -160,19 +160,18 @@ def test_tensor_is_not_modified():
 
 
 def test_tensor_out_of_slice_raises():
-    """Tensors name the same ROADMAP items as arrays: integers 1.10.
-    Float64 under PW_REL (1.3), float64 with random access (3.4, the
-    classic codec), float32 with random access (1.6) and a 1-D tensor
-    (1.4), all ported, compress to the host array's bytes."""
+    """Tensors take the routes arrays take: integers (1.10), float64
+    under PW_REL (1.3), float64 with random access (3.4, the classic
+    codec), float32 with random access (1.6) and a 1-D tensor (1.4), all
+    ported, compress to the host array's bytes and to sz_tpu's."""
     pw = tcfg.SZConfig().with_bound(tcfg.ErrorBoundMode.PW_REL, 1e-3)
     ab = tcfg.SZConfig().with_bound(tcfg.ErrorBoundMode.ABS, 1e-3)
     ra = tcfg.SZConfig(random_access=True).with_bound(
         tcfg.ErrorBoundMode.ABS, 1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.10\\)"):
-        sz_tpu_torch.compress(torch.ones((10, 11, 12), dtype=torch.int32),
-                              ab, device="cpu")
     wave = _wave((10, 11, 12), 4, np.float64)
     for x, cfg, jc in (
+            ((wave * 1000).astype(np.int32), ab,
+             SZConfig().with_bound(ErrorBoundMode.ABS, 1e-3)),
             (wave, pw, SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)),
             (wave, ra, SZConfig(random_access=True).with_bound(
                 ErrorBoundMode.ABS, 1e-3)),

@@ -91,6 +91,7 @@ def test_no_module_of_the_port_imports_sz_tpu():
         REPO / "chip_smoke.py", REPO / "tools" / "strip_timing.py",
         REPO / "tools" / "temporal_variants.py",
         REPO / "tools" / "slab_threads.py",
+        REPO / "tools" / "codec_walls.py",
         REPO / "tests" / "_torch_mh_worker.py"]
     assert len(files) > 20
     bad = [hit for f in files for hit in _imports_of_sz_tpu(f)]
@@ -155,9 +156,9 @@ _ABS = SZConfig().with_bound(ErrorBoundMode.ABS, 1e-3)
 _PW = SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)
 
 
-# the configurations that named ROADMAP 1.3, 1.4 and 1.6 are ported:
-# there the case holds the port to sz_tpu's stream and decode (item
-# None); integers still raise naming their item
+# the configurations that named ROADMAP 1.3, 1.4, 1.6 and 1.10 are
+# ported: each case holds the port to sz_tpu's stream and decode (item
+# None)
 @pytest.mark.parametrize("data,cfg,item", [
     (_X3.astype(np.float64), SZConfig(with_regression=False).with_bound(
         ErrorBoundMode.ABS, 1e-3), None),
@@ -171,7 +172,7 @@ _PW = SZConfig().with_bound(ErrorBoundMode.PW_REL, 1e-3)
     (_X3.reshape(2, 5, 11, 12), SZConfig(random_access=True).with_bound(
         ErrorBoundMode.ABS, 1e-3), None),
     (_X3.reshape(-1), _ABS, None),
-    ((_X3 * 100).astype(np.int32), _ABS, "1.10"),
+    ((_X3 * 100).astype(np.int32), _ABS, None),
     (_X3.reshape(-1), _PW, None),
     (_X3.astype(np.float64), _PW, None),
     (_X3.astype(np.float64), SZConfig(accelerate_pw_rel=False).with_bound(
@@ -210,12 +211,12 @@ def _stream_of(dtype, shape):
         JMode.ABS, 1e-3))
 
 
-# 1-D streams are ported (ROADMAP 1.4): those cases decode bit-equal to
-# sz_tpu; integers still raise
+# 1-D streams (ROADMAP 1.4) and integer ones (1.10) are ported: those
+# cases decode bit-equal to sz_tpu
 @pytest.mark.parametrize("dtype,shape,item", [
     (np.float64, (1320,), None),
     (np.float32, (1320,), None),
-    (np.int16, (10, 11, 12), "1.10"),
+    (np.int16, (10, 11, 12), None),
 ], ids=["f64", "1d", "int"])
 def test_out_of_slice_decompress_raises(dtype, shape, item):
     if item is not None:
@@ -441,7 +442,7 @@ def test_kernel_build_keeps_ieee_floats():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"lorenzo.cu", "hist.cu", "pack.cu",
                                       "fsm.cu", "msst19.cu", "classic.cu",
-                                      "ra.cu", "temporal.cu"}
+                                      "ra.cu", "temporal.cu", "intc.cu"}
     assert {p.name for p in _build.headers()} == {"tiles.cuh",
                                                   "lookback.cuh",
                                                   "strips.cuh"}
@@ -464,7 +465,7 @@ def test_kernel_digest_follows_headers(tmp_path, monkeypatch):
     for p in _build.sources() + _build.headers():
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.suffix for p in _build.sources()] == [".cu"] * 8
+    assert [p.suffix for p in _build.sources()] == [".cu"] * 9
     before = _build.library_path()
     header = csrc / "tiles.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
