@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 nvcc (CUDA_HOME, PATH or /usr/local/cuda) and a C compiler (cc):
 
     python3 chip_smoke.py [--out FILE.json] [--parent DIR]
-                          [--parent-kernels classic,lorenzo64,temporal]
+                          [--parent-kernels classic,lorenzo64,temporal,int]
 
 Phases (one line of numbers each; any failure raises and exits non-zero):
   1. environment: versions, card name and power limit, the kernel build
@@ -55,7 +55,8 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      float64), 1800x3600, 8x128x256x256 and 512^3 with the byte bound
      (and the parent's 12 B a point) and the chain bound; each kernel's
      registers, spills and shared memory; with --parent DIR, the parent
-     tree's K10/K11, K1d/K2d and K14/K15 (wrappers and bare launches)
+     tree's K10/K11, K1d/K2d, K14/K15 and K16/K17 (wrappers and bare
+     launches)
      timed beside this tree's (tools/strip_timing.py, parent, this,
      this, parent; --parent-kernels picks among them);
      K8d/K9d (MSST19 on float64 data) on K8/K9's shapes, the 1e-4 and
@@ -83,8 +84,14 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      strips of 31, 33 and 65 rows, CHUNK +- 1 columns, one row, one
      plane, 4-D fields) in int8, uint16, int32, uint32, int64 and uint64,
      on fields that reach the traps (a difference of 2^63, int64 values
-     next to 2^63, whole-range random data of five types), and timed at
-     512^3 int32 with the bound, each kernel's registers and spills;
+     next to 2^63, whole-range random data of five types), on cases
+     that reach each ring form and arithmetic form (INT_FORM_CASES:
+     K16's integer, reciprocal and exact forms on 32-bit and int64
+     rings, K17's integer and double forms; each row names its forms,
+     and a form left unreached fails), and timed at 512^3 int32 with the
+     bound under ABS 4 (the integer forms) and ABS 2.5 (K16's
+     reciprocal form), each kernel's registers, spills, shared bytes and
+     the runtime's blocks an SM;
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
      1e-3 (float32 and float64) and PW_REL 1e-3 streams and
      reconstructions hash to the SHA-256 of the host oracle's (sz_tpu,
@@ -2265,13 +2272,15 @@ def temporal_report(ptxas: list) -> list:
 
 def strip_parent_timing(parent: str, kernels: str) -> list:
     """The kernels of tools/strip_timing.py's ``--kernels`` list (classic:
-    K10/K11, lorenzo64: K1d/K2d, temporal: K14/K15) of the parent tree at
-    ``parent`` and of this tree, timed in fresh processes, in turns:
-    parent, this, this, parent."""
+    K10/K11, lorenzo64: K1d/K2d, temporal: K14/K15, int: K16/K17) of the
+    parent tree at ``parent`` and of this tree, timed in fresh processes,
+    in turns: parent, this, this, parent."""
     keys = (("classic_quantize_ms", "classic_decode_ms"),
             ("wavefront_quantize_f64_ms", "wavefront_decode_f64_ms"),
             ("ts_quantize_ms", "ts_quantize_bare_ms", "ts_decode_ms",
-             "ts_decode_bare_ms"))
+             "ts_decode_bare_ms"),
+            ("int_quantize_ms", "int_quantize_bare_ms", "int_decode_ms",
+             "int_decode_bare_ms"))
     runs = []
     for root in (parent, str(REPO), str(REPO), parent):
         res = subprocess.run(
@@ -2360,32 +2369,45 @@ def int_escapes(xt, t, dt):
     return w.reshape(-1)[t.reshape(-1) == 0].contiguous()
 
 
-def int_ops(shape, escapes: int, decode: bool) -> tuple:
-    """(32-bit, 64-bit) operations of one K16/K17 call: the stencil's
-    64-bit adds by position (two 32-bit operations each; counted as
-    classic_ops counts them), the encoder's quantizer at every point but
-    a volume's first (the difference and its wrap as two 64-bit integer
-    operations; the divide, add, two multiplies and add in double), the
-    decoder's reconstruction (a multiply and an add in double) at every
-    point that is not an escape."""
+def int_ops(shape, escapes: int, decode: bool, wide: bool = True,
+            arith: str = "exact") -> tuple:
+    """(32-bit, 64-bit) operations of one K16/K17 call in its forms: the
+    stencil's adds by position (counted as classic_ops counts them; two
+    32-bit operations each on an int64 ring, ``wide``); the encoder's
+    quantizer at every point but a volume's first: the difference and
+    its wrap (two integer operations a width), then in the exact form
+    the divide, add, two multiplies and add in double, in the reciprocal
+    form a multiply, two adds, a truncation and a multiply, in the
+    integer form the absolute value, a multiply-high (two 64-bit
+    operations), a multiply and an add in 32 bits; the decoder's
+    reconstruction at every point that is not an escape: a multiply and
+    an add in double, or (integer form) two 32-bit operations."""
     pred32 = classic_ops(shape, escapes, True, False, True)[0]  # stencil
+    pred32 *= 2 if wide else 1
     n = int(np.prod(shape))
     vol = shape[-3:] if len(shape) >= 3 else (1,) + tuple(shape)
     q = n - n // int(np.prod(vol))
     if decode:
-        return 2 * pred32, 2 * (n - escapes)
-    return 2 * pred32 + 4 * q, 5 * q
+        if arith == "integer":
+            return pred32 + 2 * (n - escapes), 0
+        return pred32, 2 * (n - escapes)
+    w = 4 if wide else 2
+    if arith == "integer":
+        return pred32 + (w + 3) * q, 2 * q
+    return pred32 + w * q, 5 * q
 
 
 def int_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
-                 bound_ok: bool) -> tuple:
+                 bound_ok: bool, step_ns=None) -> tuple:
     """K16 and K17 against their plain versions on one field: each kernel
-    called twice, bit-equal; K17 on the escapes as the stream holds them;
-    one launch a call, 4-D included; where ``bound_ok`` (no wrap, values
-    below 2^53), K17's values within rp of the data but at the 4-D quirk
-    cells.  Above PLAIN_MAX_POINTS the plain versions run on a leading
-    box (plain_box).  Timed: the kernels' mean time, the plain versions'
-    one call on the box, the byte bound."""
+    called twice, bit-equal; K17 on the escapes as the stream holds
+    them; one launch a call, 4-D included; where ``bound_ok`` (no wrap, values below 2^53), K17's values within
+    ceil(rp) of the data but at the 4-D quirk cells.  Above
+    PLAIN_MAX_POINTS the plain versions run on a leading box
+    (plain_box).  The row names the forms each kernel took.  Timed: the
+    kernels' mean time, the plain versions' one call on the box, the byte
+    bound and, with ``step_ns`` (K16's and K17's one-row step latency,
+    int_step_ns), the chain bound: r1 + r2 + r3 - 2 such steps."""
     from sz_tpu_torch.gpu import int_kernel as ik
     dt = x.dtype
     xt = ik.to_carrier(x, dev)
@@ -2394,11 +2416,13 @@ def int_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
     # the small fields, where 100 would leave the histogram empty
     iv = int_params(xt, dt, rp, 100 if timed else 5)
     radius = iv // 2
+    form = ik.quantize_form(dt, rp, iv)
     sub = plain_box(x.shape, 2 * ik.WARPS + 1)
     launches = ik.int_quantize.launches
     t_k = ik.int_quantize(xt, dt, rp, iv, radius, quirk)
     launches = ik.int_quantize.launches - launches
-    e_again = bit_equal(t_k, ik.int_quantize(xt, dt, rp, iv, radius, quirk))
+    e_again = bit_equal(t_k, ik.int_quantize(xt, dt, rp, iv, radius,
+                                             quirk))
     t_p, enc_plain_ms = cuda_once(lambda: ik.int_quantize_plain(
         xt[sub].contiguous(), dt, rp, iv, radius, quirk))
     e_err = max_abs_err(t_k[sub], t_p)
@@ -2420,6 +2444,8 @@ def int_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
     escapes = int(esc.numel())
     row = dict(case=name, shape=list(x.shape), dtype=dt.name, rp=rp,
                intervals=iv, escapes=escapes,
+               quantize_form=f"{form.ring}/{form.arith}",
+               decode_form=ik.decode_form(dt, 2 * rp)[0],
                negative_types=int((t_k < 0).sum()), plain_on=plain_on,
                launches_a_call=launches, decode_launches_a_call=d_launches,
                encode_bit_equal=e_err == 0.0,
@@ -2430,26 +2456,33 @@ def int_vs_plain(name, x: np.ndarray, rp: float, dev, timed: bool,
         if quirk:
             err.reshape(x.shape[0], -1)[:, 1] = 0
         row["decode_max_abs_err"] = int(err.max())
-        row["decode_within_bound"] = row["decode_max_abs_err"] <= rp
+        # the reference's truncated reconstruction stays within ceil(rp)
+        row["decode_within_bound"] = \
+            row["decode_max_abs_err"] <= math.ceil(rp)
     entries = {}
     if timed:
         runs = {  # each input read once, each output written once
             "int_quantize": (
                 e_err, lambda: ik.int_quantize(xt, dt, rp, iv, radius,
                                                quirk),
-                enc_plain_ms, nbytes(xt, t_k), int_ops(x.shape, escapes,
-                                                       False)),
+                enc_plain_ms, nbytes(xt, t_k), int_ops(
+                    x.shape, escapes, False, ik.QUANT_FORMS[form.ring][0]
+                    == 8, form.arith)),
             "int_decode": (
                 d_err, lambda: ik.int_decode(t_k, esc, dt, 2 * rp, radius,
                                              row_base=rb),
                 dec_plain_ms, nbytes(t_k, esc, rb, o_k),
-                int_ops(x.shape, escapes, True)),
+                int_ops(x.shape, escapes, True, dt.itemsize == 8,
+                        row["decode_form"])),
         }
         for key, (err, kern, plain_ms, nb, ops) in runs.items():
             ms = cuda_ms(kern, 3)
             b_ms, b_by = bound(nb, *ops)
             row[key] = dict(ms=ms, plain_ms=plain_ms, plain_on=plain_on,
                             bound_ms=b_ms, bound_by=b_by)
+            if step_ns:
+                row[key]["chain_ms"] = classic_chain_steps(x.shape) * \
+                    step_ns[f"{key}_ns"] * 1e-6
             entries[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 plain_shape=plain_on, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=None,
@@ -2478,14 +2511,66 @@ INT_EDGE_SHAPES = [
 ]
 INT_EDGE_DTYPES = (np.int8, np.uint16, np.int32, np.uint32, np.int64,
                    np.uint64)
-# the main path's 512^3 int32 field, timed (ABS 4)
+# the main path's 512^3 int32 field, timed: ABS 4 (the kernels' integer
+# forms; its entries are the kernels' line) and ABS 2.5 (K16's
+# reciprocal form)
 INT_TIMED = ("full_size_512", (512, 512, 512), np.int32, 42, 4.0)
+INT_TIMED_RECIP = ("full_size_512_abs2.5", (512, 512, 512), np.int32, 42,
+                   2.5)
+# (maker, shape, rp): each ring form and arithmetic form of K16 and K17
+# (int_kernel.quantize_form / decode_form), uint32 values on both sides
+# of 2^31 through K17's 32-bit ring and its double form; rp = 1 + 2^-45 puts every small odd |diff| within the reciprocal's tolerance
+# of a boundary (the exact chain on those lanes)
+INT_FORM_CASES = (
+    ("int32", (13, 33, 40), 1.0), ("int32", (65, 70), 1.0 + 2.0 ** -45),
+    ("int32", (9, 40, 35), 2.0 ** 40), ("uint32", (13, 33, 40), 0.3),
+    ("uint32", (65, 70), 4.0), ("uint16", (9, 40, 35), 4.0),
+    ("int8", (9, 40, 35), 2.5), ("uint16", (65, 70), 0.3),
+    ("int8", (65, 70), 2.0 ** 21), ("int16", (9, 40, 35), 2.0 ** 29),
+    ("int16", (65, 70), 0.3), ("uint8", (3, 7, 33, 17), 0.3),
+    ("int64", (9, 40, 35), 0.3), ("uint64", (65, 70), 1.5),
+)
+# what phase 2 must reach: K16's ring forms and arithmetic forms, K17's
+INT_FORMS_REACHED = ({"r32", "small", "u32", "i64"},
+                     {"integer", "recip", "exact"}, {"integer", "exact"})
+
+
+# one-row lattices (a single chain of r3 steps) of the timed kernels'
+# forms: (shape, dtype, rp)
+INT_STEP_CASES = {"3d_abs4": ((1, 1, 1 << 16), np.int32, 4.0),
+                  "3d_abs2.5": ((1, 1, 1 << 16), np.int32, 2.5),
+                  "2d_int16_abs4": ((1, 1 << 16), np.int16, 4.0)}
+
+
+def int_step_ns(dev) -> dict:
+    """One point step's latency (ns) of K16 and K17 in the timed forms,
+    from one-row lattices (intervals fixed at 65536: a row has no
+    optimizer samples)."""
+    from sz_tpu_torch.gpu import int_kernel as ik
+    out = {}
+    for key, (shape, dt, rp) in INT_STEP_CASES.items():
+        dt = np.dtype(dt)
+        xt = ik.to_carrier(int_field(shape, 3, dt), dev)
+        t = ik.int_quantize(xt, dt, rp, 65536, 32768)
+        esc = int_escapes(xt, t, dt)
+        rb = ik.escape_row_base(t)[0]
+        f = ik.quantize_form(dt, rp, 65536)
+        enc = cuda_ms(lambda: ik.int_quantize(xt, dt, rp, 65536, 32768), 3)
+        dec = cuda_ms(lambda: ik.int_decode(t, esc, dt, 2 * rp, 32768,
+                                            row_base=rb), 3)
+        out[key] = dict(shape=list(shape), dtype=dt.name, rp=rp,
+                        quantize_form=f"{f.ring}/{f.arith}",
+                        decode_form=ik.decode_form(dt, 2 * rp)[0],
+                        int_quantize_ns=enc * 1e6 / shape[-1],
+                        int_decode_ns=dec * 1e6 / shape[-1])
+        _log("K16/K17 step latency", case=key, **out[key])
+    return out
 
 
 def phase_int_cases(dev) -> tuple:
-    """Phase 2, K16/K17: the strip edges in six dtypes, the traps, and
-    the main path's 512^3 int32 timed.  Returns (rows, timed record
-    entries)."""
+    """Phase 2, K16/K17: the strip edges in six dtypes, the traps, the
+    forms, and the main path's 512^3 int32 timed under ABS 4 and 2.5.
+    Returns (rows, timed record entries: ABS 4's)."""
     import torch
     rows, turn = [], {2: 0, 3: 0, 4: 0}
     for n, shape in enumerate(INT_EDGE_SHAPES):
@@ -2512,35 +2597,51 @@ def phase_int_cases(dev) -> tuple:
                                  x, rp, dev, False, False)[0])
     if not any(r["negative_types"] for r in rows):
         raise AssertionError("no K16 case reached a negative type")
-    name, shape, dt, seed, rp = INT_TIMED
-    row, entries = int_vs_plain(name, int_field(shape, seed, dt), rp, dev,
-                                True, True)
-    rows.append(row)
-    torch.cuda.empty_cache()
+    for n, (maker, shape, rp) in enumerate(INT_FORM_CASES):
+        x = int_field(shape, 500 + n, maker)
+        rows.append(int_vs_plain(
+            f"form_{maker}_{'x'.join(map(str, shape))}_rp{rp!r}", x, rp,
+            dev, False, rp < 2 ** 20 and x.dtype != np.uint64)[0])
+    steps = int_step_ns(dev)
+    for (name, shape, dt, seed, rp), step in (
+            (INT_TIMED_RECIP, steps["3d_abs2.5"]),
+            (INT_TIMED, steps["3d_abs4"])):
+        row, entries = int_vs_plain(name, int_field(shape, seed, dt), rp,
+                                    dev, True, True, step)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    reached = ({r["quantize_form"].split("/")[0] for r in rows},
+               {r["quantize_form"].split("/")[1] for r in rows},
+               {r["decode_form"] for r in rows})
+    _log("K16/K17 forms reached", ring=sorted(reached[0]),
+         k16=sorted(reached[1]), k17=sorted(reached[2]))
+    for want, got in zip(INT_FORMS_REACHED, reached):
+        if not want <= got:
+            raise AssertionError(f"K16/K17 forms {sorted(want - got)} "
+                                 f"unreached in phase 2")
+    rows.append(dict(case="step_latency", **steps))
     return rows, entries
 
 
-INT_KERNELS = tuple(
-    f"int_quantize{r}_{f}_kernel" for f in ("small", "i32", "u32", "i64")
-    for r in ("2d", "3d")) + tuple(
-    f"int_decode{r}_{b}_kernel" for b in (8, 16, 32, 64) for r in ("2d", "3d"))
-
-
 def int_strip_report(ptxas: list) -> list:
-    """K16/K17's sixteen kernels: ptxas's registers, stack and spills, and
+    """K16/K17's eighteen kernels: ptxas's registers, stack and spills,
     the block's dynamic shared memory (int_kernel's mirror of strips.cuh
-    shared_bytes)."""
+    shared_bytes), the blocks an SM its __launch_bounds__ asks, and the
+    runtime's registers, local bytes and resident blocks an SM at those
+    shared bytes; fails where a kernel runs fewer blocks an SM than it
+    asks."""
     from sz_tpu_torch.gpu import int_kernel as ik
     rows = []
-    for name in INT_KERNELS:
+    for name, (item, slot, rank, asks) in ik.kernels().items():
         regs, spill = ptxas_of(ptxas, name)
-        wide = name.endswith("i64_kernel")
-        rows.append(dict(kernel=name, warps=ik.WARPS,
-                         shared_bytes=ik.shared_bytes(
-                             np.int64 if wide else np.int32,
-                             "decode" in name),
-                         registers=regs, spill=spill))
+        info = ik.kernel_info(name)
+        rows.append(dict(kernel=name, warps=ik.WARPS, ring=ik.RING[rank],
+                         shared_bytes=ik.shared_bytes(item, slot, rank),
+                         min_blocks=asks, ptxas_registers=regs,
+                         spill=spill, **info))
         _log("K16/K17 strips", **rows[-1])
+        if info["blocks_an_sm"] < asks:
+            raise AssertionError(f"{name}: {rows[-1]}")
     return rows
 
 
@@ -4412,22 +4513,7 @@ DEVICE_NAMES = (
     ("ts_decode_kernel", "ts_decode"), ("ts_decode_f64_kernel", "ts_decode"),
     ("ts_decode_escapes_kernel", "ts_decode"),
     ("ts_decode_escapes_f64_kernel", "ts_decode"),
-    ("int_quantize2d_small_kernel", "int_quantize"),
-    ("int_quantize3d_small_kernel", "int_quantize"),
-    ("int_quantize2d_i32_kernel", "int_quantize"),
-    ("int_quantize3d_i32_kernel", "int_quantize"),
-    ("int_quantize2d_u32_kernel", "int_quantize"),
-    ("int_quantize3d_u32_kernel", "int_quantize"),
-    ("int_quantize2d_i64_kernel", "int_quantize"),
-    ("int_quantize3d_i64_kernel", "int_quantize"),
-    ("int_decode2d_8_kernel", "int_decode"),
-    ("int_decode3d_8_kernel", "int_decode"),
-    ("int_decode2d_16_kernel", "int_decode"),
-    ("int_decode3d_16_kernel", "int_decode"),
-    ("int_decode2d_32_kernel", "int_decode"),
-    ("int_decode3d_32_kernel", "int_decode"),
-    ("int_decode2d_64_kernel", "int_decode"),
-    ("int_decode3d_64_kernel", "int_decode"),
+    ("int_quantize", "int_quantize"), ("int_decode", "int_decode"),
     ("Memcpy", "memcpy"), ("Memset", "memset"),
 )
 

@@ -44,6 +44,7 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
 _ULL = ctypes.c_ulonglong
+_U = ctypes.c_uint
 
 # argtypes of every C entry point (pointers and the stream as c_void_p:
 # a bare Python int would be passed as a 32-bit int and cut)
@@ -100,10 +101,11 @@ SIGNATURES = {
     "sz_ts_decode": (_P, _P, _LL, _P, _LL, _I, _D, _I, _P, _P, _P, _P, _P),
     "sz_ts_decode_f64": (_P, _P, _LL, _P, _LL, _I, _D, _I, _P, _P, _P, _P,
                          _P),
-    "sz_int_quantize": (_P, _P, *(_I,) * 9, _D, _I, _I, _I, _P, _P, _P, _P,
-                        _I, _P),
-    "sz_int_decode": (_P, _P, _LL, _P, _P, *(_I,) * 7, _D, _I, _P, _P, _P, _P,
-                      _I, _P),
+    "sz_int_quantize": (_P, _P, *(_I,) * 9, *(_D,) * 6, _ULL, _U, _U, _I,
+                        _I, _I, _P, _P, _P, _P, _I, _P),
+    "sz_int_decode": (_P, _P, _LL, _P, _P, *(_I,) * 7, _D, _I, _I, _I, _P, _P,
+                      _P, _P, _I, _P),
+    "sz_int_kernel_info": (_I, _P),
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)

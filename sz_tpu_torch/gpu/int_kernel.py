@@ -26,6 +26,15 @@ wraps each value to the output type.  The 4-D encoder codes cell
 and, where it escapes, stores the field's first element
 (``sz_tpu/core/intc.py:_quant_quirk_4d``).
 
+The kernels run each launch in one of the forms that ``intc.cu``'s note
+proves bit-equal to that arithmetic, picked here from the dtype, rp (or
+interval2), the intervals and the data's range (:func:`quantize_form`,
+:func:`decode_form`): a 32-bit ring where the values fit it, and K16's
+integer form (a multiply-high for the divide), its reciprocal form (a
+multiply, the divide only on lanes near a boundary) or the exact double
+chain; K17's integer form or its double chain.  The plain versions keep
+the reference's double arithmetic for every form.
+
 Unsigned types of 16 bits and more travel as the signed type of their
 width (their bits unchanged, :func:`carrier`); ``dtype`` (a numpy dtype)
 says what the bits mean.  Beside each kernel sits its plain torch
@@ -37,6 +46,8 @@ only for CPU tensors; for CUDA tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,10 +61,24 @@ from sz_tpu_torch.gpu.strips import LANES, lattice
 
 _I32, _I64 = torch.int32, torch.int64
 
-# intc.cu's slots of a ring row and warps a block (the ring holds int64
-# values; the other strip constants are strips.cuh's, in gpu/strips.py)
-RING = 64
+# intc.cu's slots of a ring row by rank and warps a block (the other
+# strip constants are strips.cuh's, in gpu/strips.py)
+RING = {2: 64, 3: 32}
 WARPS = 4
+
+# K16's ring forms (sz_int_quantize's form, in its order): (ring value,
+# staged slot) bytes.  K17's ring holds the output type: int32 for 8-,
+# 16- and 32-bit outputs, int64 for 64-bit ones; its slots hold types.
+QUANT_FORMS = {"r32": (4, 4), "small": (8, 4), "u32": (8, 4),
+               "i64": (8, 8)}
+# the arithmetic forms (intc.cu Arith)
+ARITH = {"exact": 0, "recip": 1, "integer": 2}
+# intc.cu's __launch_bounds__ blocks an SM (kMin*) by ring value bytes,
+# staged slot bytes and rank
+MIN_BLOCKS = {(4, 4, 3): 4, (4, 4, 2): 3, (8, 4, 3): 2, (8, 4, 2): 1,
+              (8, 8, 3): 2, (8, 8, 2): 1}
+# K17's integer form takes interval2 up to this magnitude (intc.cu's note)
+I2_MAX = 1 << 20
 
 # the encoder's (AN, DN) bits by dtype: its prediction's and difference's
 # widths (core.intc.SPECS)
@@ -231,15 +256,113 @@ def optimizer_samples_int(data, dtype, sample_distance: int) -> np.ndarray:
     return (pred - at(0)).abs().cpu().numpy()
 
 
+# --- the forms ------------------------------------------------------------
+
+def value_bound(dtype) -> int:
+    """The largest |value| of ``dtype``."""
+    info = np.iinfo(np.dtype(dtype))
+    return max(abs(int(info.min)), abs(int(info.max)))
+
+
+def ring_form(dtype, rp: float) -> str:
+    """K16's ring form (QUANT_FORMS) for data of ``dtype`` under ``rp``:
+    r32 for int32, and for 8- and 16-bit data where 8 M0 + 7 rp + 28 <
+    2^31 for the type's largest |value| M0 (intc.cu's note), else the
+    type's int64 form."""
+    dt = np.dtype(dtype)
+    if dt.itemsize == 8:
+        return "i64"
+    if dt == np.int32:
+        return "r32"
+    rp = float(rp)
+    if 0 < rp < 2 ** 31 and 8 * value_bound(dt) + 7 * rp + 28 < 2 ** 31:
+        return "r32"
+    return "small" if dt.itemsize <= 2 else "u32"
+
+
+class QuantForm(NamedTuple):
+    """K16's launch form: the ring form, the arithmetic form and the
+    constants sz_int_quantize takes after ``arith``."""
+    ring: str
+    arith: str
+    consts: tuple   # rp, rcp_h, rp2, lo_z, hi_z, tol_z, magic, P, thr
+
+
+def quantize_form(dtype, rp: float, intervals: int) -> QuantForm:
+    """K16's form for one launch (intc.cu's note): the integer form on a
+    32-bit ring where rp is an integer P, 1 <= P < 2^31 and P intervals <
+    2^51 (the r32i kernel); the reciprocal form where rp is not an
+    integer, 2^-1000 < rp < 2^1000 and intervals >= 2; else the exact
+    double chain."""
+    ring = ring_form(dtype, rp)
+    rp, n = float(rp), int(intervals)
+    rcp_h = rp2 = lo = hi = tol = 0.0
+    magic = p = thr = 0
+    if ring == "r32" and rp.is_integer() and 1 <= rp < 2 ** 31 \
+            and rp * n < 2 ** 51:
+        arith, p = "integer", int(rp)
+        magic = (1 << 64) // (2 * p) + 1
+        thr = min(max(n - 1, 0) * p, 2 ** 32 - 1)
+    elif not rp.is_integer() and 2.0 ** -1000 < rp < 2.0 ** 1000 \
+            and n >= 2:
+        arith = "recip"
+        rcp_h, rp2 = (1.0 / rp) * 0.5, 2.0 * rp
+        tol = n * 2.0 ** -49
+        lo, hi = n / 2 - tol, n / 2 + tol
+    else:
+        arith = "exact"
+    return QuantForm(ring, arith, (rp, rcp_h, rp2, lo, hi, tol, magic, p,
+                                   thr))
+
+
+def decode_form(dtype, interval2: float) -> tuple:
+    """K17's form for one launch: ("integer", I2) where the output has 32
+    bits or less and interval2 is an integer I2 with |I2| <= I2_MAX, else
+    ("exact", 0), the double chain."""
+    i2 = float(interval2)
+    if np.dtype(dtype).itemsize <= 4 and i2.is_integer() and \
+            abs(i2) <= I2_MAX:
+        return "integer", int(i2)
+    return "exact", 0
+
+
 # --- the strips -----------------------------------------------------------
 
-def shared_bytes(dtype, decode: bool) -> int:
+def shared_bytes(item: int, slot: int, rank: int) -> int:
     """Dynamic shared memory of a block (strips.cuh ``shared_bytes`` of
-    intc.cu's rule): the int64 value rings, one staging array of 4-byte
-    slots (K16's words of 8-, 16- and 32-bit data, K17's types) or 8-byte
-    ones (K16's 64-bit data)."""
-    slot = 8 if (not decode and np.dtype(dtype).itemsize == 8) else 4
-    return strips.shared_bytes(WARPS, 8, LANES * (RING + 1) * slot, RING)
+    intc.cu's rules): value rings of ``item``-byte values and one staging
+    array of ``slot``-byte slots a warp, RING[rank] slots a row."""
+    ring = RING[rank]
+    return strips.shared_bytes(WARPS, item, LANES * (ring + 1) * slot, ring)
+
+
+def kernels() -> dict:
+    """intc.cu's eighteen kernels: name -> (ring value bytes, staged slot
+    bytes, rank, the blocks an SM its __launch_bounds__ asks).  K16's
+    r32i kernels run the integer form, its r32 kernels the double forms
+    on the same ring."""
+    out = {}
+    for form in ("r32i", *QUANT_FORMS):
+        item, slot = QUANT_FORMS[form.removesuffix("i")]
+        for r in (2, 3):
+            out[f"int_quantize{r}d_{form}_kernel"] = (
+                item, slot, r, MIN_BLOCKS[item, slot, r])
+    for bits in (8, 16, 32, 64):
+        item = 8 if bits == 64 else 4
+        for r in (2, 3):
+            out[f"int_decode{r}d_{bits}_kernel"] = (
+                item, 4, r, MIN_BLOCKS[item, 4, r])
+    return out
+
+
+def kernel_info(name: str) -> dict:
+    """Kernel ``name`` (:func:`kernels`) on the current card, from the
+    runtime: the resident blocks an SM at its shared bytes, its registers
+    a thread and its local bytes a thread (stack and spills)."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.lib().sz_int_kernel_info(
+        list(kernels()).index(name), out), "int_kernel_info")
+    return dict(blocks_an_sm=out[0], registers=out[1], local_bytes=out[2])
 
 
 # --- wrappers -------------------------------------------------------------
@@ -268,6 +391,10 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ring_dtype(item: int):
+    return _I32 if item == 4 else _I64
+
+
 def int_quantize(data, dtype, rp: float, intervals: int, radius: int,
                  quirk4d: bool = False):
     """K16 encode: the int32 types (0 an escape) of a rank 2-4 integer
@@ -278,15 +405,17 @@ def int_quantize(data, dtype, rp: float, intervals: int, radius: int,
         return int_quantize_plain(data, dtype, rp, intervals, radius,
                                   quirk4d)
     dt = np.dtype(dtype)
-    an, dn = FORMS[dt]
     types = torch.empty(data.shape, dtype=_I32, device=data.device)
     if data.numel() == 0:
         return types
+    form = quantize_form(dt, rp, intervals)
     lat = lattice(data.shape)
-    sargs, keep = strips.strip_args(lat, WARPS, _I64, data.device)
+    sargs, keep = strips.strip_args(
+        lat, WARPS, _ring_dtype(QUANT_FORMS[form.ring][0]), data.device)
     rc = _build.lib().sz_int_quantize(
-        _p(data), _p(types), *lat, dt.itemsize, int(dt.kind == "i"), an, dn,
-        float(rp), int(intervals), int(radius), int(bool(quirk4d)), *sargs,
+        _p(data), _p(types), *lat, dt.itemsize, int(dt.kind == "i"),
+        list(QUANT_FORMS).index(form.ring), ARITH[form.arith], *form.consts,
+        int(intervals), int(radius), int(bool(quirk4d)), *sargs,
         _stream(data))
     _build.check(rc, "int_quantize")
     _build.launched(int_quantize)
@@ -324,12 +453,14 @@ def int_decode(types, escapes, dtype, interval2: float, radius: int,
     if (row_base.dtype != _I64 or row_base.device != types.device
             or row_base.numel() != types.numel() // types.shape[-1]):
         raise ValueError(f"{name}: row_base must be escape_row_base(types)")
+    arith, i2 = decode_form(dt, interval2)
     lat = lattice(types.shape)
-    sargs, keep = strips.strip_args(lat, WARPS, _I64, types.device)
+    sargs, keep = strips.strip_args(
+        lat, WARPS, _ring_dtype(8 if dt.itemsize == 8 else 4), types.device)
     rc = _build.lib().sz_int_decode(
         _p(types), _p(escapes), int(escapes.numel()), _p(row_base), _p(out),
         *lat, dt.itemsize, int(dt.kind == "i"), float(interval2),
-        int(radius), *sargs, _stream(out))
+        ARITH[arith], i2, int(radius), *sargs, _stream(out))
     _build.check(rc, "int_decode")
     _build.launched(int_decode)
     del keep

@@ -176,22 +176,63 @@ def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
 
 
 def test_intc_cu_matches_its_wrappers():
-    """intc.cu's warps a block and ring length are int_kernel's, its entry
-    points are bound with as many arguments as the wrappers pass, and its
-    __global__ names are chip_smoke's."""
+    """intc.cu's warps a block, ring length by rank, forms and blocks an
+    SM are int_kernel's, its entry points are bound with as many
+    arguments as the wrappers pass, its __global__ names are chip_smoke's
+    and int_kernel's, and each kernel's shared bytes are strips.cuh's of
+    its rule's ring value and staged slot."""
     src = (pathlib.Path(ik.__file__).parent.parent / "csrc" /
            "intc.cu").read_text()
     assert '#include "strips.cuh"' in src
     assert int(re.search(r"constexpr int kWarps = (\d+);", src)[1]) == \
         ik.WARPS
-    assert set(re.findall(r"static constexpr int kRing = (\d+);", src)) == \
-        {str(ik.RING)}
-    for name in ("sz_int_quantize", "sz_int_decode"):
+    rings = re.findall(
+        r"static constexpr int kRing = kRank == 3 \? (\d+) : (\d+);", src)
+    assert set(rings) == {(str(ik.RING[3]), str(ik.RING[2]))}
+    assert len(rings) == 2
+    assert not re.search(r"static constexpr int kRing = \d+;", src)
+    for name in ("sz_int_quantize", "sz_int_decode", "sz_int_kernel_info"):
         sig = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)[1]
         assert len(sig.split(",")) == len(_build.SIGNATURES[name])
-    kernels = set(re.findall(r"^    (int_\w+_kernel)\(Geo", src, re.M))
-    assert kernels == set(SMOKE.INT_KERNELS)
-    assert ik.shared_bytes(np.int32, False) == strips.shared_bytes(
-        4, 8, strips.LANES * 65 * 4, 64)
-    assert ik.shared_bytes(np.uint64, False) == strips.shared_bytes(
-        4, 8, strips.LANES * 65 * 8, 64)
+    assert re.search(r"enum Arith \{ kExact = (\d), kRecip = (\d), "
+                     r"kInteger = (\d) \};", src).groups() == tuple(
+        str(ik.ARITH[k]) for k in ("exact", "recip", "integer"))
+    # every kernel: its rule, its blocks an SM, in kernels()'s order
+    mins = dict(re.findall(r"(kMin\w+) = (\d+)", src))
+    rules = dict(re.findall(r"using (Q\w+) = (IntQuant<[^>]*>);", src))
+    found = re.findall(r"__launch_bounds__\(kWarps \* 32, (kMin\w+)\)\s+"
+                       r"(int_\w+_kernel)\(Geo<(\w+)> g, \w+ a\) \{\s+"
+                       r"run_strips<([^;]*)>\(g, a\);", src)
+    assert [f[1] for f in found] == list(ik.kernels())
+    table = re.findall(r"\{\(const void\*\)\((int_\w+_kernel)\),\s+"
+                       r"strips::shared_bytes<(\w+(?:<[^>]*>)?)>\(\)\}",
+                       src)
+    assert [k for k, _ in table] == list(ik.kernels())
+    size = {"int": 4, "unsigned": 4, "i64": 8}
+    for (mn, name, geo, rule), (_, rule2) in zip(found, table):
+        item, slot, rank, asks = ik.kernels()[name]
+        assert int(mins[mn]) == asks
+        assert rules.get(rule, rule) == rules.get(rule2, rule2)
+        args = re.search(r"<(\d), (.*)>", rules.get(rule, rule)).groups()
+        rank_src, rest = int(args[0]), [a.strip() for a in
+                                        args[1].split(",")]
+        assert rank_src == rank and size[geo] == item
+        if name.startswith("int_quantize"):
+            form = name.split("_")[2]
+            v, s, dn, *only = rest
+            assert (size[v], size[s]) == (item, slot) == \
+                ik.QUANT_FORMS[form.removesuffix("i")]
+            assert int(dn) == (32 if form in ("r32i", "r32", "small")
+                               else 64)
+            assert only == (["true"] if form == "r32i" else [])
+        else:
+            nbytes = int(rest[0])
+            assert item == (8 if nbytes == 8 else 4) and slot == 4
+            assert name.split("_")[2] == str(8 * nbytes)
+        ring = ik.RING[rank]
+        assert ik.shared_bytes(item, slot, rank) == strips.shared_bytes(
+            4, item, strips.LANES * (ring + 1) * slot, ring)
+    # the sizes the note states for 3-D blocks
+    assert ik.shared_bytes(4, 4, 3) == 38696
+    assert ik.shared_bytes(8, 4, 3) == 60476
+    assert ik.shared_bytes(8, 8, 3) == 77372

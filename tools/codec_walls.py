@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Compress and decompress walls of sz_tpu_torch's float codecs on one
-card, for comparing two trees in one machine.
+"""Compress and decompress walls of sz_tpu_torch's float and integer
+codecs on one card, for comparing two trees in one machine.
 
 Usage, from the repo root, alternating the trees in one call:
 
@@ -14,10 +14,12 @@ fields, configurations and the best-of timing are that checkout's own
 both trees time the same inputs the same way.  Each run is a fresh
 process that times, in a fixed order, chip_smoke's phase-4 rows: 512^3
 float32 ABS 1e-3, 512^3 PW_REL 1e-3 (|field|), 512^3 float64 ABS 1e-3,
-the classic codec on 512^3 float32, the 1-D codec on its 2^27 values
-(``--rows`` picks some of them): each compressed and decompressed warm,
-the best of ``--reps`` with the sz_tpu_torch.utils.trace spans of the
-best run (summed by name; some nest).  Prints one JSON line with the
+the classic codec on 512^3 float32, the 1-D codec on its 2^27 values,
+the integer codec on 512^3 int32 and 1800x3600 int16 under ABS 4
+(chip_smoke.int_field; ``--rows`` picks some of them): each compressed
+and decompressed warm, the best of ``--reps`` with the
+sz_tpu_torch.utils.trace spans of the best run (summed by name; some
+nest).  Prints one JSON line with the
 card's name and power limit; exits 1 without a card.
 """
 
@@ -31,7 +33,8 @@ import sys
 
 import numpy as np
 
-ROWS = ("abs_512", "pwrel_512", "abs64_512", "classic_512", "classic_1d_2^27")
+ROWS = ("abs_512", "pwrel_512", "abs64_512", "classic_512", "classic_1d_2^27",
+        "int32_512", "int16_1800x3600")
 
 
 def main() -> int:
@@ -69,6 +72,10 @@ def main() -> int:
                         dict(with_regression=False)),
         "classic_1d_2^27": (lambda: cs.field(n, 42).reshape(-1),
                             ("ABS", 1e-3), {}),
+        "int32_512": (lambda: cs.int_field(n, 42, np.int32), ("ABS", 4),
+                      {}),
+        "int16_1800x3600": (lambda: cs.int_field((1800, 3600), 6,
+                                                 np.int16), ("ABS", 4), {}),
     }
     rows = {}
     for name in ROWS:

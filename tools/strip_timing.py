@@ -2,8 +2,10 @@
 """The strip and temporal kernels timed on one card, for comparing two
 trees in one machine: K10/K11 (the classic codec's recurrence) at the
 main path's five shapes, K1d/K2d (the float64 Lorenzo recurrence) at
-256^3, 1800x3600 and 512^3, and K14/K15 (the temporal step and restore)
-at 100x500x500 and 2^24 float32 and 2^24 and 1800x3600 float64.
+256^3, 1800x3600 and 512^3, K14/K15 (the temporal step and restore)
+at 100x500x500 and 2^24 float32 and 2^24 and 1800x3600 float64, and
+K16/K17 (the integer codecs' recurrence) at 512^3 int32 under ABS 4 and
+ABS 2.5, 1800x3600 int16 and 8x64x64x64 int32 under ABS 4.
 
 Usage, from the repo root, alternating the trees in one call:
 
@@ -16,7 +18,8 @@ parent.)  ``--root`` is a checkout holding ``sz_tpu_torch`` and
 ``build/``); the fields and the timing are that checkout's own
 (chip_smoke.classic_field, k1_inputs, k2_inputs, ts_step, ts_params,
 cuda_ms), so both trees time the same inputs the same way.
-``--kernels`` picks among classic, lorenzo64 and temporal (default: all).
+``--kernels`` picks among classic, lorenzo64, temporal and int (default:
+all).
 Each kernel is called as that tree's main path calls it: K10 with no
 reconstruction where the wrapper has ``want_R`` (also timed with it),
 K11 on the compact escapes and the row bases where it takes them, else
@@ -24,7 +27,11 @@ on a full-size ``known``; K1d without R (also timed with it), K2d on the
 inputs a decoder derives from K1d's types; K14 on step 1 of
 chip_smoke.ts_step against step 0, K15 on K14's types and escapes, each
 timed through its wrapper and as bare launches (the C entry point on
-outputs and scratch allocated once).  Prints one JSON line with the
+outputs and scratch allocated once); K16 and K17 as the integer main
+path calls them (chip_smoke.int_field, its intervals at sample distance
+100, K17 on the compact escapes and row bases), through the wrappers
+and as bare launches (outputs and scratch allocated once, the claim
+flags zeroed before each launch).  Prints one JSON line with the
 card's name and power limit; exits 1 without a card.
 """
 
@@ -54,7 +61,12 @@ TEMPORAL_CASES = [("ts_hurricane_100x500x500", "field", (100, 500, 500), 5),
                   ("ts_2^24", "field", (256, 256, 256), 42),
                   ("ts_2^24_f64", "field64", (256, 256, 256), 42),
                   ("ts_cesm_atm64_1800x3600", "field64", (1800, 3600), 6)]
-KINDS = ("classic", "lorenzo64", "temporal")
+# K16/K17: (case, shape, dtype, seed, rp), the integer main path's fields
+INT_CASES = [("int_512_abs4", (512, 512, 512), np.int32, 42, 4.0),
+             ("int_512_abs2.5", (512, 512, 512), np.int32, 42, 2.5),
+             ("int16_1800x3600_abs4", (1800, 3600), np.int16, 6, 4.0),
+             ("int_4d_8x64x64x64_abs4", (8, 64, 64, 64), np.int32, 20, 4.0)]
+KINDS = ("classic", "lorenzo64", "temporal", "int")
 
 
 def lorenzo64_rows(cs, dev, reps: int) -> list:
@@ -152,6 +164,106 @@ def temporal_rows(cs, dev) -> list:
     return rows
 
 
+def bare_int(ik, xt, dt, rp: float, iv: int, quirk: bool, t, esc, rb,
+             o) -> tuple:
+    """K16's and K17's C entry points on outputs and scratch allocated
+    once, the flags zeroed before each launch: (quantize, decode)
+    callables, checked once against the wrappers' types ``t`` and decode
+    ``o``.  A tree whose int_kernel has no quantize_form has the
+    first form (int64 rings; an and dn bits in place of the forms)."""
+    import ctypes
+    import torch
+    from sz_tpu_torch.gpu import _build, strips
+    lib, dev = _build.lib(), xt.device
+    lat = strips.lattice(xt.shape)
+    types = torch.empty_like(t)
+    out = torch.empty_like(xt)
+    esize, sgn, radius = dt.itemsize, int(dt.kind == "i"), iv // 2
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def p(a):
+        return ctypes.c_void_p(a.data_ptr())
+
+    if hasattr(ik, "quantize_form"):
+        f = ik.quantize_form(dt, rp, iv)
+        arith, i2 = ik.decode_form(dt, 2 * rp)
+        q_ring = torch.int32 if ik.QUANT_FORMS[f.ring][0] == 4 else \
+            torch.int64
+        d_ring = torch.int64 if esize == 8 else torch.int32
+        q_sa, q_keep = strips.strip_args(lat, ik.WARPS, q_ring, dev)
+        d_sa, d_keep = strips.strip_args(lat, ik.WARPS, d_ring, dev)
+        q_args = (p(xt), p(types), *lat, esize, sgn,
+                  list(ik.QUANT_FORMS).index(f.ring), ik.ARITH[f.arith],
+                  *f.consts, iv, radius, int(quirk), *q_sa, stream)
+        d_args = (p(t), p(esc), esc.numel(), p(rb), p(out), *lat, esize,
+                  sgn, 2 * rp, ik.ARITH[arith], i2, radius, *d_sa, stream)
+    else:
+        an, dn = ik.FORMS[dt]
+        q_sa, q_keep = strips.strip_args(lat, ik.WARPS, torch.int64, dev)
+        d_sa, d_keep = strips.strip_args(lat, ik.WARPS, torch.int64, dev)
+        q_args = (p(xt), p(types), *lat, esize, sgn, an, dn, rp, iv, radius,
+                  int(quirk), *q_sa, stream)
+        d_args = (p(t), p(esc), esc.numel(), p(rb), p(out), *lat, esize,
+                  sgn, 2 * rp, radius, *d_sa, stream)
+
+    def quantize():
+        q_keep[1].zero_()
+        _build.check(lib.sz_int_quantize(*q_args), "int_quantize")
+
+    def decode():
+        d_keep[1].zero_()
+        _build.check(lib.sz_int_decode(*d_args), "int_decode")
+
+    quantize()
+    decode()
+    if not (torch.equal(types, t) and torch.equal(out, o)):
+        raise AssertionError("bare K16/K17 launches differ from the "
+                             "wrappers'")
+    return quantize, decode, (q_keep, d_keep, types, out)
+
+
+def int_rows(cs, dev, reps: int) -> list:
+    """K16 and K17 of the tree chip_smoke ``cs`` belongs to, through their
+    wrappers and as bare launches, ``reps`` launches each."""
+    import torch
+    from sz_tpu_torch.gpu import int_kernel as ik
+    rows = []
+    for case, shape, dtype, seed, rp in INT_CASES:
+        dt = np.dtype(dtype)
+        x = cs.int_field(shape, seed, dt)
+        xt = ik.to_carrier(x, dev)
+        del x
+        iv = cs.int_params(xt, dt, rp, 100)
+        quirk = len(shape) == 4
+        t = ik.int_quantize(xt, dt, rp, iv, iv // 2, quirk)
+        esc = cs.int_escapes(xt, t, dt)
+        rb = ik.escape_row_base(t)[0]
+        o = ik.int_decode(t, esc, dt, 2 * rp, iv // 2, row_base=rb)
+        q_bare, d_bare, keep = bare_int(ik, xt, dt, rp, iv, quirk, t, esc,
+                                        rb, o)
+        form = {}
+        if hasattr(ik, "quantize_form"):
+            f = ik.quantize_form(dt, rp, iv)
+            form = dict(quantize_form=f"{f.ring}/{f.arith}",
+                        decode_form=ik.decode_form(dt, 2 * rp)[0])
+        rows.append(dict(
+            case=case, shape=list(shape), dtype=dt.name, rp=rp,
+            intervals=iv, escapes=int(esc.numel()), **form,
+            int_quantize_ms=cs.cuda_ms(
+                lambda: ik.int_quantize(xt, dt, rp, iv, iv // 2, quirk),
+                reps),
+            int_quantize_bare_ms=cs.cuda_ms(q_bare, reps),
+            int_decode_ms=cs.cuda_ms(
+                lambda: ik.int_decode(t, esc, dt, 2 * rp, iv // 2,
+                                      row_base=rb), reps),
+            int_decode_bare_ms=cs.cuda_ms(d_bare, reps),
+            int_quantize_bound_ms=cs.bound(cs.nbytes(xt, t))[0],
+            int_decode_bound_ms=cs.bound(cs.nbytes(t, esc, rb, xt))[0]))
+        del xt, t, esc, rb, o, q_bare, d_bare, keep
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=".")
@@ -199,6 +311,8 @@ def main() -> int:
         rows += lorenzo64_rows(cs, dev, args.reps)
     if "temporal" in kinds:
         rows += temporal_rows(cs, dev)
+    if "int" in kinds:
+        rows += int_rows(cs, dev, args.reps)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
