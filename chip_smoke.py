@@ -91,7 +91,13 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      and a form left unreached fails), and timed at 512^3 int32 with the
      bound under ABS 4 (the integer forms) and ABS 2.5 (K16's
      reciprocal form), each kernel's registers, spills, shared bytes and
-     the runtime's blocks an SM;
+     the runtime's blocks an SM; K10's subblock form (compress_region's
+     quantizer, classic_quantize_sub) on the classic edges, every other
+     one at origin 0 and the rest at an odd origin, float32 and float64,
+     and on escape-heavy
+     fields, bit-equal to its plain version, called twice, the types the
+     same without R, one launch a call, and timed at 256^3 and 1800x3600
+     with the byte and chain bounds (a one-row step of each dtype);
   3. the main path, sz_tpu_torch.compress/decompress on the card: ABS
      1e-3 (float32 and float64) and PW_REL 1e-3 streams and
      reconstructions hash to the SHA-256 of the host oracle's (sz_tpu,
@@ -147,6 +153,21 @@ Phases (one line of numbers each; any failure raises and exits non-zero):
      127.0.0.1, tests/_torch_mh_worker.py, all on this card) each
      compress a slab of the Hurricane field and rank 0's container
      hashes to ORACLE_SLAB (the wall logged);
+  3c. the surfaces beside the codec, each with the launch counters set
+     to 0 just before it and read just after (SURFACE_KERNELS must
+     rise): the sz-tpu-torch command on the Hurricane field written
+     under build/smoke_cli/ (-z, -x and -p through cli.main in this
+     process on its default device, the card, then -z again as `python
+     -m sz_tpu_torch.cli`): each .sz file hashes to ORACLE's stream, the
+     -x file to its decode, -p prints get_metadata's fields; its
+     printed compression and decompression times; compress_region of
+     ORACLE_REGION's regions (80x400x400 float32 of the Hurricane field,
+     1600x3200 float64 of CESM-ATM, 2^24 values of the flattened
+     Hurricane field; K10's subblock form on the first two) hashes
+     stream and decode (decompress with the region's shape) to the
+     oracle's (tests/test_torch_smoke_oracle_region.py), holds ABS 1e-3
+     where the oracle's decode does, and its MB/s; the ExaFEL app
+     codec's stream and decode hash to ORACLE_EXAFEL;
   4. 512^3 float32 (NYX scale): the ABS error bound holds, compress and
      decompress MB/s (warm, best of 3) with per-span times and counts,
      the same field in 4 slabs of 128x512x512 (each payload equal to
@@ -192,6 +213,7 @@ import contextlib
 import hashlib
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -485,6 +507,70 @@ ORACLE_TEMPORAL = (
      {0: "85f09ce4b37197c06c11b84b1e8f0b9ac5e8ceb686321163d453895d09def0e7",
       1: "3442c0de7cdd0be80741bb758e19bebf0fd2b87e64c4f0bbe6936aa1c5ede3bf"}),
 )
+
+
+# compress_region (SZ_compress_args3, K10's subblock form) under ABS 1e-3:
+# name -> (maker, field shape, seed, start, end, whether the decode holds
+# the bound, SHA-256 of the oracle's stream (sz_tpu.compress_region), of
+# its decode with the region's shape); "flat" is field() flattened (a 1-D
+# region of 2^24 values).  The reference's quirks, which sz_tpu and the
+# port keep, break the bound on two: a float32 region is encoded with the
+# double precision and decoded with the float one (max error 1.2565e-3
+# here), and the 1-D subblock encoder's 2a - b predictor is not the one
+# the 1-D decoder replays (max error 3.43)
+ORACLE_REGION = {
+    "hurricane_region": (
+        "field", (100, 500, 500), 5, (10, 50, 50), (90, 450, 450),
+        False,
+        "07063a20009cb71ef7aff7f5a87ec2ac9a31d5f879c68619063e9b3557b6b70a",
+        "e8974af8f83db9bccc15cc0cfed86c277042328d89f9ae52b9626d703fc5bc47"),
+    "cesm_atm64_region": (
+        "field64", (1800, 3600), 6, (100, 200), (1700, 3400),
+        True,
+        "6801d6595c5dbfa36400eae864673c316ee4b551df9bfb73ee2e24d366b03a44",
+        "ce65a038e46433c86c434d646e975e3e1794f52dcff41e9ceca6c8ec80be0736"),
+    "hurricane_1d_region": (
+        "flat", (100, 500, 500), 5, (12345,), (12345 + (1 << 24),),
+        False,
+        "36190bc52216952c4db148661ab13e6f03b5f4221766de3ae2c41862eef7c656",
+        "45ad8ed651898b4ba10ff710806dad7b479a988c690098ec80f1810f82c52caf"),
+}
+
+
+def region_input(maker: str, shape, seed: int) -> np.ndarray:
+    if maker == "field64":
+        return field64(shape, seed)
+    x = field(shape, seed)
+    return x.reshape(-1) if maker == "flat" else x
+
+
+# the ExaFEL case of tests/test_exafel.py's shape (3 events of 2 panels of
+# 64 x 48, three bright peaks, a masked edge strip), its values from
+# field(): SHA-256 of the oracle's stream (sz_tpu.apps.exafel), of its
+# decode
+EXAFEL_SHAPE = (3, 2, 64, 48)
+ORACLE_EXAFEL = (
+    "eebafa65221a73094deae32d926197930ef2cb7c290d09c3f911cb0fd63e4354",
+    "ed270fed6dae667e6e3bd15d9991d1083a73990cfd2a2d9316987bc8c0fda0c1")
+
+
+def exafel_inputs() -> tuple:
+    """(data, ExaFELConfig keyword arguments) of the ExaFEL case; each
+    package builds its own ExaFELConfig from them."""
+    events, panels, rows, cols = EXAFEL_SHAPE
+    data = (field((events * panels * rows, cols), 8).reshape(EXAFEL_SHAPE)
+            * np.float32(8) + np.float32(100))
+    calib = np.ones((panels, rows, cols), dtype=np.uint8)
+    calib[:, :2, :] = 0
+    kw = dict(calib_panel=calib,
+              peaks_segs=np.array([0, 1, 1], dtype=np.uint16),
+              peaks_rows=np.array([10, 30, 62], dtype=np.uint16),
+              peaks_cols=np.array([12, 40, 2], dtype=np.uint16),
+              bin_size=2, tolerance=0.5, sz_dim=3, peak_size=5)
+    for p, r, c in zip(kw["peaks_segs"], kw["peaks_rows"], kw["peaks_cols"]):
+        data[:, p, max(r - 2, 0):r + 3, max(c - 2, 0):c + 3] += np.float32(
+            500)
+    return data, kw
 
 
 def ts_chain_inputs() -> dict:
@@ -2232,6 +2318,137 @@ CLASSIC_TIMED = [
 ]
 
 
+# K10's subblock form (compress_region): the classic edge shapes at
+# origins 0 and odd, both dtypes; timed at the main path's shapes
+SUBBLOCK_TIMED = [
+    ("main_path_256", (256, 256, 256), np.float32, ABS, 42, 0.1),
+    ("main_path_cesm_atm", (1800, 3600), np.float32, ABS, 6, 0.1),
+]
+
+
+def subblock_params(x: np.ndarray, rp: float, origin):
+    """compress_region's quantizer parameters of a field cut at
+    ``origin`` (classic_nd.params with the subblock origin)."""
+    from sz_tpu_torch.core import classic_nd
+    dtype = x.dtype.type
+    vr = dtype(x.max() - x.min())
+    return classic_nd.params(x, rp, vr, dtype(x.min() + vr / 2),
+                             max_range_radius=32768, sample_distance=100,
+                             pred_threshold=np.float32(0.99),
+                             subblock_origin=origin)
+
+
+def subblock_step_ns(dev) -> dict:
+    """One point step's latency (ns) of the subblock form, float32 and
+    float64, on a one-row lattice."""
+    import torch
+    from sz_tpu_torch.gpu import classic_kernel as ck
+    out = {}
+    for form, dtype in (("float", np.float32), ("f64", np.float64)):
+        x, _ = classic_field((1, 1 << 16), dtype, ABS, 3, 0.1)
+        p = subblock_params(x, ABS, (0, 0))
+        xt = torch.from_numpy(x).to(dev)
+        ms = cuda_ms(lambda: ck.classic_quantize_sub(
+            xt, p.rp, p.intervals, p.radius, p.median, p.req_length,
+            want_R=False), 3)
+        out[form] = ms * 1e6 / x.shape[-1]
+    _log("K10 subblock step latency", **out)
+    return out
+
+
+def subblock_vs_plain(name, x, p, dev, timed: bool, step_ns=None) -> tuple:
+    """K10's subblock form against its plain version on one field: called
+    twice, bit-equal types and reconstructions, the types the same
+    without R, one launch a call (the plain version on plain_box past
+    PLAIN_MAX_POINTS).  Timed: the mean time without R (as
+    compress_region asks), the plain version's one call, the byte bound
+    and the chain bound, as K10's row reckons them."""
+    import torch
+    from sz_tpu_torch.gpu import classic_kernel as ck
+    xt = torch.from_numpy(x).to(dev)
+    args = (p.rp, p.intervals, p.radius, p.median, p.req_length)
+    box = plain_box(x.shape, 2 * ck.WARPS[xt.dtype] + 1)
+    launches = ck.classic_quantize_sub.launches
+    t_k, R_k = ck.classic_quantize_sub(xt, *args)
+    launches = ck.classic_quantize_sub.launches - launches
+    t_2, R_2 = ck.classic_quantize_sub(xt, *args)
+    again = bit_equal(t_k, t_2) and bit_equal(R_k, R_2)
+    del t_2, R_2
+    t_n, R_n = ck.classic_quantize_sub(xt, *args, want_R=False)
+    no_R_same = R_n is None and bit_equal(t_n, t_k)
+    del t_n
+    (t_p, R_p), plain_ms = cuda_once(lambda: ck.classic_quantize_plain(
+        xt[box].contiguous(), p.rp, None, p.intervals, p.radius, p.median,
+        p.req_length, sub=True))
+    err = max(max_abs_err(t_k[box], t_p), max_abs_err(R_k[box], R_p))
+    plain_on = list(t_p.shape)
+    escapes = int((t_k == 0).sum())
+    del t_p, R_p, t_k, R_k
+    row = dict(case=name, shape=list(x.shape), dtype=x.dtype.name,
+               intervals=p.intervals, escapes=escapes, plain_on=plain_on,
+               launches_a_call=launches, bit_equal=err == 0.0,
+               repeat_bit_equal=again, types_without_R_equal=no_R_same)
+    entries = {}
+    if timed:
+        f64 = x.dtype == np.float64
+        steps = classic_chain_steps(x.shape)
+        ms = cuda_ms(lambda: ck.classic_quantize_sub(xt, *args,
+                                                     want_R=False), 3)
+        nb, nb_old = classic_bytes(x.shape, x.dtype, escapes, False)
+        ops = classic_ops(x.shape, escapes, False, f64, True)
+        b_ms, b_by = bound(nb, *ops)
+        step = step_ns["f64" if f64 else "float"] if step_ns else None
+        row["classic_quantize_sub"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            chain_steps=steps,
+            chain_ms=steps * step * 1e-6 if step else None)
+        entries["classic_quantize_sub"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_shape=plain_on,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=list(x.shape))
+    _log("kernel K10 subblock form vs plain", **row)
+    if not (row["bit_equal"] and row["repeat_bit_equal"]
+            and row["types_without_R_equal"]):
+        raise AssertionError(f"K10's subblock form differs from its plain "
+                             f"version or from itself on {name}: {row}")
+    if launches != 1:
+        raise AssertionError(f"K10's subblock form took {launches} "
+                             f"launches on {name}, not one a call")
+    return row, entries
+
+
+def phase_subblock_cases(dev) -> tuple:
+    """Phase 2, K10's subblock form: the classic edge shapes (2-D, 3-D,
+    4-D; float32, and float64 on every third and the 4-D ones), every
+    other case at origin 0 and the rest at an odd origin (the
+    optimizer's sample walk, hence the intervals, follows it),
+    escape-heavy fields, and the main path's shapes timed.  Returns
+    (rows, the 256^3 entry)."""
+    import torch
+    rows, entries = [], {}
+    cases = classic_edge_cases() + [
+        ("escape_heavy", (64, 64, 64), np.float32, 1e-7, 18, None),
+        ("escape_heavy_f64", (40, 50, 60), np.float64, 1e-9, 19, None)]
+    for n, (name, shape, dtype, rp, seed, noise) in enumerate(cases):
+        x, _ = classic_field(shape, dtype, rp, seed, noise)
+        origin = tuple(0 if n % 2 == 0 else 2 * k + 1 + n % 3
+                       for k in range(len(shape)))
+        p = subblock_params(x, rp, origin)
+        rows.append(subblock_vs_plain(
+            f"{name}@{'_'.join(map(str, origin))}", x, p, dev, False)[0])
+    step_ns = subblock_step_ns(dev)
+    for name, shape, dtype, rp, seed, noise in SUBBLOCK_TIMED:
+        x, _ = classic_field(shape, dtype, rp, seed, noise)
+        p = subblock_params(x, rp, (3,) * len(shape))
+        row, ent = subblock_vs_plain(name, x, p, dev, True, step_ns)
+        rows.append(row)
+        if name == "main_path_256":
+            entries.update(ent)
+        del x
+        torch.cuda.empty_cache()
+    return rows, entries
+
+
 def classic_strip_report(ptxas: list) -> list:
     """K10/K11's ten kernels: ptxas's registers, stack and spills, and
     the block's warps and dynamic shared memory (classic_kernel's mirror
@@ -3128,6 +3345,172 @@ def _counted(wrappers: dict, fn):
     out = fn()
     dt = time.perf_counter() - t0
     return out, dt, _rises(wrappers, before)
+
+
+SURFACE_DIR = REPO / "build" / "smoke_cli"
+
+
+def _cli(args: list) -> tuple:
+    """sz_tpu_torch.cli.main(args) in this process: (its stdout lines,
+    the seconds it took)."""
+    import io
+    from sz_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(args)
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def _printed(lines: list, key: str) -> float:
+    """The number a CLI line "<key> = <number>..." prints."""
+    line = next(ln for ln in lines if ln.startswith(key))
+    return float(line.split("=")[1].split()[0])
+
+
+def surfaces_cli(dev, rows: list) -> None:
+    """The sz-tpu-torch command at full width: the Hurricane field written
+    to a file, compressed by cli.main (-z, its default device, the card)
+    and decompressed (-x), then compressed again by `python -m
+    sz_tpu_torch.cli` in a process of its own; each .sz file hashes to
+    ORACLE's stream, the -x file to its decode (the CLI's config is the
+    oracle's, ABS 1e-3), and -p prints get_metadata's fields."""
+    import sz_tpu_torch
+    shape, seed, want_stream, want_recon = ORACLE["hurricane_100x500x500"]
+    SURFACE_DIR.mkdir(parents=True, exist_ok=True)
+    src = SURFACE_DIR / "hurricane_100x500x500.f32"
+    field(shape, seed).tofile(src)
+    dims = ["-3", *(str(r) for r in reversed(shape))]
+    sz, out = SURFACE_DIR / "inproc.sz", SURFACE_DIR / "inproc.out"
+    z_lines, z_s = _cli(["-z", str(sz), "-f", "-i", str(src), "-M", "ABS",
+                         "-A", str(ABS), *dims])
+    x_lines, x_s = _cli(["-x", str(out), "-f", "-s", str(sz), *dims])
+    p_lines, _ = _cli(["-p", "-s", str(sz)])
+    meta = sz_tpu_torch.get_metadata(sz.read_bytes())
+    printed = [f"{k}: {v}" for k, v in meta.items()]
+    sub_sz = SURFACE_DIR / "subprocess.sz"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "sz_tpu_torch.cli", "-z", str(sub_sz), "-f",
+         "-i", str(src), "-M", "ABS", "-A", str(ABS), *dims],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    sub_s = time.perf_counter() - t0
+    if r.returncode:
+        raise AssertionError(f"python -m sz_tpu_torch.cli failed: "
+                             f"{r.stderr[-2000:]}")
+    row = dict(case="cli_hurricane_100x500x500", shape=list(shape),
+               stream_sha256_equal=sha256(sz.read_bytes()) == want_stream,
+               decode_sha256_equal=sha256(out.read_bytes()) == want_recon,
+               subprocess_stream_sha256_equal=(
+                   sha256(sub_sz.read_bytes()) == want_stream),
+               metadata_printed=p_lines == printed,
+               num_elements=meta["num_elements"],
+               compression_time_s=_printed(z_lines, "compression time"),
+               decompression_time_s=_printed(x_lines, "decompression time"),
+               cli_z_wall_s=z_s, cli_x_wall_s=x_s, subprocess_z_wall_s=sub_s)
+    _log("surfaces", **row)
+    if not all(row[k] for k in (
+            "stream_sha256_equal", "decode_sha256_equal",
+            "subprocess_stream_sha256_equal", "metadata_printed")):
+        raise AssertionError(f"the CLI differs from the oracle: {row}")
+    for f in (src, sz, out, sub_sz):
+        f.unlink()
+    rows.append(row)
+
+
+def surfaces_region(dev, rows: list) -> None:
+    """compress_region at full width (K10's subblock form on ranks 2-3,
+    the host recurrence on rank 1): ORACLE_REGION's streams and region
+    decodes hash to the oracle's; the decode holds ABS 1e-3 where the
+    oracle's does (the reference's quirks, kept, break it on the
+    others); compress MB/s of the region."""
+    import sz_tpu_torch
+    from sz_tpu_torch import ErrorBoundMode, SZConfig
+    cfg = SZConfig().with_bound(ErrorBoundMode.ABS, ABS)
+    for name, (maker, shape, seed, start, end, holds, want_stream,
+               want_recon) in ORACLE_REGION.items():
+        x = region_input(maker, shape, seed)
+        rshape = tuple(e - s_ for s_, e in zip(start, end))
+        sz_tpu_torch.compress_region(x, start, end, cfg, device=dev)  # warm
+        t0 = time.perf_counter()
+        blob = sz_tpu_torch.compress_region(x, start, end, cfg, device=dev)
+        t1 = time.perf_counter()
+        out = sz_tpu_torch.decompress(blob, rshape, x.dtype, device=dev)
+        t2 = time.perf_counter()
+        region = x[tuple(slice(s_, e) for s_, e in zip(start, end))]
+        err = float(np.abs(out.astype(np.float64) - region).max())
+        mb = region.nbytes / 1e6
+        row = dict(case=name, dtype=x.dtype.name, region=list(rshape),
+                   start=list(start),
+                   stream_sha256_equal=sha256(blob) == want_stream,
+                   decode_sha256_equal=sha256(out.tobytes()) == want_recon,
+                   max_abs_err=err, bound_held=err <= ABS,
+                   bound_held_by_oracle=holds, ratio=region.nbytes / len(blob),
+                   compress_s=t1 - t0, compress_MBps=mb / (t1 - t0),
+                   decompress_s=t2 - t1, decompress_MBps=mb / (t2 - t1))
+        _log("surfaces", **row)
+        if not (row["stream_sha256_equal"] and row["decode_sha256_equal"]
+                and row["bound_held"] == holds):
+            raise AssertionError(f"{name}: compress_region differs from "
+                                 f"the oracle: {row}")
+        rows.append(row)
+        del x, out, region
+
+
+def surfaces_exafel(dev, rows: list) -> None:
+    """The ExaFEL app codec (its SZ stream through the port on the card):
+    stream and decode hash to ORACLE_EXAFEL; its peaks decode exactly."""
+    from sz_tpu_torch.apps import exafel
+    data, kw = exafel_inputs()
+    pr = exafel.ExaFELConfig(**kw)
+    blob = exafel.compress(pr, data, device=dev)
+    out = exafel.decompress(pr, blob, *data.shape, device=dev)
+    mask = exafel._roi_mask(pr, *data.shape)
+    row = dict(case="exafel_3x2x64x48", shape=list(data.shape),
+               stream_sha256_equal=sha256(blob) == ORACLE_EXAFEL[0],
+               decode_sha256_equal=sha256(out.tobytes()) == ORACLE_EXAFEL[1],
+               roi_exact=bool(np.array_equal(out[mask == 0],
+                                             data[mask == 0])),
+               ratio=data.nbytes / len(blob))
+    _log("surfaces", **row)
+    if not all(row[k] for k in ("stream_sha256_equal",
+                                "decode_sha256_equal", "roi_exact")):
+        raise AssertionError(f"ExaFEL differs from the oracle: {row}")
+    rows.append(row)
+
+
+# the kernels each surface must launch (the counts set to 0 before it)
+SURFACE_KERNELS = {
+    "cli": ("wavefront_quantize", "wavefront_decode", "histogram",
+            "pack_bits", "fsm_sweep", "fsm_scan", "fsm_emit"),
+    "region": ("classic_quantize_sub", "histogram", "pack_bits",
+               "classic_decode", "fsm_sweep", "fsm_scan", "fsm_emit"),
+    "exafel": ("wavefront_quantize", "wavefront_decode", "histogram",
+               "pack_bits", "fsm_sweep", "fsm_scan", "fsm_emit"),
+}
+
+
+def phase_surfaces(dev, record: dict, wrappers: dict) -> dict:
+    """Phase 3c, the surfaces beside the codec (ROADMAP 1.12): the CLI,
+    compress_region and ExaFEL, each driven with every launch count set
+    to 0 just before it and read just after; each must launch the
+    kernels of SURFACE_KERNELS.  Returns the launches of
+    classic_quantize_sub in compress_region's run."""
+    rows, launches = [], {}
+    for name, run in (("cli", surfaces_cli), ("region", surfaces_region),
+                      ("exafel", surfaces_exafel)):
+        for w in wrappers.values():
+            w.launches = 0
+        run(dev, rows)
+        launches[name] = {k: w.launches for k, w in wrappers.items()
+                          if w.launches}
+        _log("surfaces launches", surface=name, **launches[name])
+        idle = [k for k in SURFACE_KERNELS[name] if not wrappers[k].launches]
+        if idle:
+            raise AssertionError(f"{name} never launched {idle}")
+    record["surfaces"] = dict(rows=rows, launches=launches)
+    return launches["region"]["classic_quantize_sub"]
 
 
 @contextlib.contextmanager
@@ -4494,6 +4877,10 @@ DEVICE_NAMES = (
     ("classic_quantize4d_kernel", "classic_quantize"),
     ("classic_quantize2d_f64_kernel", "classic_quantize"),
     ("classic_quantize3d_f64_kernel", "classic_quantize"),
+    ("classic_quantize2d_sub_kernel", "classic_quantize_sub"),
+    ("classic_quantize3d_sub_kernel", "classic_quantize_sub"),
+    ("classic_quantize2d_sub_f64_kernel", "classic_quantize_sub"),
+    ("classic_quantize3d_sub_f64_kernel", "classic_quantize_sub"),
     ("classic_decode2d_kernel", "classic_decode"),
     ("classic_decode3d_kernel", "classic_decode"),
     ("classic_decode4d_kernel", "classic_decode"),
@@ -4589,6 +4976,10 @@ KERNELS = {   # name -> (K id, CUDA source, the TPU kernel it replaces)
                          "sz_tpu/tpu/classic_engine.py:95"),
     "classic_decode": ("K11", "sz_tpu_torch/csrc/classic.cu",
                        "sz_tpu/tpu/classic_engine.py:236"),
+    # K10's subblock form (compress_region) replaces sz_tpu's host C
+    # subblock quantizer; its launches are phase 3c's
+    "classic_quantize_sub": ("K10", "sz_tpu_torch/csrc/classic.cu",
+                             "sz_tpu/native/core.c:3547"),
     # MSST19 on float64 data has no Pallas form: K8d/K9d replace the XLA
     # scans of the JAX engine
     "msst19_wavefront3d_encode_f64": ("K8d", "sz_tpu_torch/csrc/msst19.cu",
@@ -4695,6 +5086,8 @@ def main() -> int:
     record["classic_cases"], classic_entries, record["classic_step_ns"] = \
         phase_classic_cases(dev)
     entries.update(classic_entries)
+    record["subblock_cases"], subblock_entries = phase_subblock_cases(dev)
+    entries.update(subblock_entries)
     if args.parent:
         record["strip_parent_timing"] = strip_parent_timing(
             args.parent, args.parent_kernels)
@@ -4754,6 +5147,12 @@ def main() -> int:
     walls.append(("3 main path", time.perf_counter()))
     phase_multi_device(dev, record, wrappers)
     walls.append(("3b multi-device", time.perf_counter()))
+    surface_wrappers = dict(wrappers,
+                            classic_quantize_sub=classic_kernel.
+                            classic_quantize_sub)
+    launches["classic_quantize_sub"] = phase_surfaces(dev, record,
+                                                      surface_wrappers)
+    walls.append(("3c surfaces", time.perf_counter()))
 
     # phase 4: full size (float32 from a host array and from a tensor),
     # PW_REL, then float64 (after the float32 phases, which so run as

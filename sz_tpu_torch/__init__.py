@@ -8,15 +8,21 @@ and runs the device stages in torch, with the TPU's Pallas kernels
 replaced by CUDA C++ kernels for ``sm_90a`` (``csrc``, built with
 ``nvcc`` at first use).  It never imports ``jax``.
 
-Public API (float32 and float64 fields of rank 1-4 through the
-regression, classic, random-access, MSST19 and pre-log codecs; integer
-data is not ported yet; ``data`` a numpy array or a torch tensor, which
-stays on the card when it lies there on the regression codec's route);
-each runs on the card unless the caller passes ``device="cpu"``:
+Public API, as sz_tpu exports it (float32 and float64 fields of rank 1-4
+through the regression, classic, random-access, MSST19 and pre-log
+codecs, and the eight integer dtypes through the integer codecs;
+``data`` a numpy array or a torch tensor, which stays on the card when
+it lies there on the regression and integer codecs' routes); each runs
+on the card unless the caller passes ``device="cpu"``:
     compress(data, cfg, device="cuda") -> bytes
     decompress(blob, shape, dtype, device="cuda", as_tensor=False)
     decompress_region(blob, shape, start, end, dtype, device="cuda",
                       as_tensor=False)
+    compress_region(data, start, end, cfg, mode=None, abs_bound=None,
+                    rel_bound=None, device="cuda") -> bytes
+    get_metadata(blob) -> dict
+    SZConfig (SZConfig.from_file reads an sz.config INI), ErrorBoundMode,
+    SZMode, Lossless, DataType
 
 Submodules, reached as in sz_tpu (not exported here):
     sz_tpu_torch.ra -- the SZRA slab container: compress(data, cfg,
@@ -28,10 +34,20 @@ Submodules, reached as in sz_tpu (not exported here):
         of slab tensors; decompress_sharded(blob, n_devices,
         devices=None, as_tensor=False)
     sz_tpu_torch.temporal -- TemporalCompressor
+    sz_tpu_torch.cli -- the sz-tpu-torch command (python -m
+        sz_tpu_torch.cli), the reference sz CLI's flags
+    sz_tpu_torch.io, .pysz, .format.arith, .parallel.ompsz (the sz_omp
+        byte format, on host threads), .integrations.{hdf5,readers},
+        .apps.{exafel,pastri,wavelet}
 """
 
-from sz_tpu_torch.api import compress, decompress, decompress_region
-from sz_tpu_torch.config import ErrorBoundMode, SZConfig
+from sz_tpu_torch.api import (compress, compress_region, decompress,
+                              decompress_region, get_metadata)
+from sz_tpu_torch.config import (DataType, ErrorBoundMode, Lossless,
+                                 SZConfig, SZMode)
 
-__all__ = ["compress", "decompress", "decompress_region", "SZConfig",
-           "ErrorBoundMode"]
+__version__ = "0.1.0"
+
+__all__ = ["SZConfig", "ErrorBoundMode", "SZMode", "Lossless", "DataType",
+           "compress", "compress_region", "decompress", "decompress_region",
+           "get_metadata", "__version__"]

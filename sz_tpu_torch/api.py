@@ -1,5 +1,5 @@
-"""``compress`` / ``decompress`` / ``decompress_region`` of the PyTorch
-port, for the slice it covers: float32 and float64 fields of rank 1 to 4
+"""``compress`` / ``decompress`` / ``decompress_region`` /
+``compress_region`` / ``get_metadata`` of the PyTorch port, for the slice it covers: float32 and float64 fields of rank 1 to 4
 under any error bound that resolves to an absolute one (ABS, REL,
 ABS_AND_REL, ABS_OR_REL, PSNR, NORM) through the SZ2.1
 blocked-regression codec (ranks 2-4, rank 4 folded to 3), the
@@ -10,7 +10,9 @@ relative bound (PW_REL and the modes above it) through the MSST19 codec
 (both dtypes, when it is accelerated: ``accelerate_pw_rel`` and a ratio
 of at least 1e-5, the reference's default route) or the pre-log codec
 (the rest).  ``decompress_region`` decodes a region of a random-access
-stream from the blocks that cover it.
+stream from the blocks that cover it.  ``compress_region`` compresses a
+region of a larger field (SZ_compress_args3) through the classic codec's
+subblock form: K10's on ranks 2-4, the host 1-D recurrence's on rank 1.
 
 ``compress`` also takes a torch tensor.  One on the compute device (a
 field a simulation holds on the card) is compressed where it lies, as
@@ -32,14 +34,17 @@ is routed to a host codec.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from sz_tpu_torch import framing, native
 from sz_tpu_torch.config import (DEFAULT_CONFIG, MIN_NUM_OF_ELEMENTS,
-                                 DataType, SZConfig, data_type, float_type,
-                                 np_dtype)
+                                 DataType, ErrorBoundMode, SZConfig, SZMode,
+                                 data_type, float_type, np_dtype)
 from sz_tpu_torch.core import classic, pwr, rablock
+from sz_tpu_torch.format import bytes_util as bu
 from sz_tpu_torch.format import lossless as ll
 from sz_tpu_torch.format import metadata as md
 from sz_tpu_torch.format import tdps as tdps_mod
@@ -274,3 +279,103 @@ def decompress_region(blob: bytes, shape, start, end, dtype=np.float32, *,
     return rablock.decompress_ra(memoryview(inner)[off:], dims, start, end,
                                  size_type=hdr.size_type, device=dev,
                                  as_tensor=as_tensor)
+
+
+def compress_region(data, start, end, cfg: SZConfig = DEFAULT_CONFIG, *,
+                    mode: ErrorBoundMode = None, abs_bound: float = None,
+                    rel_bound: float = None, device="cuda") -> bytes:
+    """Compress the region [start, end) (end exclusive; the reference takes
+    inclusive corners) of a float32 or float64 field into a classic stream
+    of the region's shape, byte-equal to ``sz_tpu.compress_region``
+    (SZ_compress_args3, sz.c:403; SZ_compress_args_float_subblock,
+    sz_float.c:3046).  Decode it with ``decompress(blob, region_shape)``.
+
+    The bound comes from ``mode`` / ``abs_bound`` / ``rel_bound`` (cfg's
+    where not given); the reference's quirks are kept: the header's
+    params block is ``cfg`` unmodified and its fmin/fmax are zeros;
+    PW_REL raises NotImplementedError (the reference produces nothing,
+    sz_float.c:3104); a region whose value range is at most the precision
+    gives the constant stream; the quantizer is the subblock form (double,
+    a division, no epsilon recheck).  ``data`` is a numpy array or a torch
+    tensor (taken to the host: the region is cut there); the recurrence of
+    ranks 2-4 runs on ``device``."""
+    dev = devmod.resolve(device)
+    native.tune_malloc()
+    data = framing._host(data)
+    if np_dtype(data.dtype) not in (np.float32, np.float64):
+        raise TypeError(f"subblock compression: {data.dtype}")
+    dt = data_type(data.dtype)
+    T = float_type(data.dtype)
+    start = tuple(int(s) for s in start)
+    end = tuple(int(e) for e in end)
+    region = np.ascontiguousarray(
+        data[tuple(slice(s, e) for s, e in zip(start, end))], dtype=T)
+    if region.ndim > 4:
+        raise NotImplementedError("subblock supports up to 4D")
+    n = region.size
+    flat = region.reshape(-1)
+    # computeRangeSize_float_subblock (dataCompression.c:196)
+    fmin = T(flat.min())
+    value_range = T(T(flat.max()) - fmin)
+    fmax = T(fmin + value_range)
+    bound_cfg = cfg
+    if mode is not None:
+        bound_cfg = dataclasses.replace(
+            cfg, error_bound_mode=mode,
+            abs_err_bound=cfg.abs_err_bound if abs_bound is None
+            else abs_bound,
+            rel_bound_ratio=cfg.rel_bound_ratio if rel_bound is None
+            else rel_bound)
+    rp, eff_mode = framing._resolve_precision(bound_cfg, float(value_range),
+                                              n, dt)
+    if eff_mode == ErrorBoundMode.PW_REL:
+        raise NotImplementedError(
+            "subblock does not support point-wise relative bounds "
+            "(sz_float.c:3104)")
+    if value_range <= rp:
+        # the reference leaves this a TODO (sz_float.c:3095) and produces
+        # nothing; the constant stream, as sz_tpu emits
+        return framing._constant_stream(cfg, dt, fmin, fmax, flat[0], n)
+    median = T(fmin + value_range / T(2))
+    kw = dict(max_range_radius=cfg.max_range_radius,
+              sample_distance=cfg.sample_distance,
+              pred_threshold=np.float32(cfg.pred_threshold),
+              opt_quant_mode=1 if cfg.quantization_intervals == 0 else 0,
+              fixed_intervals=cfg.quantization_intervals, device=dev)
+    if region.ndim == 1:
+        t = classic.compress_1d(region, rp, value_range, median,
+                                subblock=True, **kw)
+    else:
+        t = classic_engine.compress(region, rp, value_range, median,
+                                    subblock_origin=start, **kw)
+    # SZ_compress_args3 never runs computeRangeSize into confparams: the
+    # header's fmin/fmax serialize as zeros
+    body = (md.make_header(cfg, dt, T(0), T(0)) + bu.size_be(n, cfg.size_type)
+            + tdps_mod.to_bytes(t, cfg.size_type))
+    if cfg.sz_mode == SZMode.BEST_SPEED:
+        return body
+    return ll.compress(body, cfg.lossless, cfg.lossless_level)
+
+
+def get_metadata(blob: bytes) -> dict:
+    """SZ_getMetadata (sz.c:683): the header of a float stream, as
+    ``sz_tpu.get_metadata`` reads it."""
+    inner = ll.decompress(blob, 0)
+    dt = DataType(inner[4 + 5] & 0x0F)   # the params block's type nibble
+    hdr = md.parse_header(inner, dt)
+    return {
+        "version": hdr.version,
+        "data_type": dt,
+        "is_constant": hdr.same,
+        "is_lossless": hdr.lossless,
+        "regression": hdr.regression,
+        "size_type": hdr.size_type,
+        "num_elements": bu.read_size_be(inner, hdr.body_offset,
+                                        hdr.size_type),
+        "error_bound_mode": hdr.params.error_bound_mode,
+        "bound1": float(hdr.params.bound1),
+        "bound2": float(hdr.params.bound2),
+        "max_quant_intervals": hdr.params.max_quant_intervals,
+        "fmin": hdr.params.fmin,
+        "fmax": hdr.params.fmax,
+    }

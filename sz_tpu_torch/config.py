@@ -142,6 +142,7 @@ class SZConfig:
 
     snapshot_cmpr_step: int = 5  # temporal mode snapshot period
     segment_size: int = 36  # legacy pwr segment size
+    pwr_type: int = 0  # SZ_PWR_MIN_TYPE
 
     sol_id: int = 101  # SZ (defines.h:21)
     data_endian_little: bool = True
@@ -172,6 +173,92 @@ class SZConfig:
         elif mode == ErrorBoundMode.NORM:
             kw["norm_err"] = value
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_file(cls, path) -> "SZConfig":
+        """Load an sz.config INI — SZ_ReadConf (conf.c:74-391).
+
+        Mirrors iniparser semantics, including the config-file-path
+        defaults that DIFFER from the no-file defaults (predThreshold 0,
+        sampleDistance 0, segment_size 0, bounds 0, protectValueRange
+        YES when the key is absent): a stream produced after loading a
+        config file serializes those values, so faithful loading is part
+        of byte parity."""
+        import configparser
+
+        cp = configparser.ConfigParser(inline_comment_prefixes=("#", ";"),
+                                       strict=False)
+        cp.optionxform = str.lower  # iniparser lowercases keys
+        with open(path) as f:
+            cp.read_string(f.read())
+
+        def get(key, default=None):
+            for sec in ("PARAMETER", "parameter", "ENV", "env"):
+                if cp.has_option(sec, key.lower()):
+                    return cp.get(sec, key.lower()).strip().strip('"')
+            return default
+
+        kw = {}
+        sol = get("sol_name", "SZ")
+        kw["sol_id"] = {"SZ": 101, "PASTRI": 103,
+                        "SZ_Transpose": 104}.get(sol, 101)
+        kw["data_endian_little"] = get(
+            "dataEndianType", "LITTLE_ENDIAN_DATA") != "BIG_ENDIAN_DATA"
+        mqi = int(get("max_quant_intervals", 65536))
+        qi = int(get("quantization_intervals", 0))
+        if qi > 0:
+            qi = 1 << (qi - 1).bit_length()  # roundUpToPowerOf2
+            mqi = qi
+        kw["max_quant_intervals"] = mqi
+        kw["quantization_intervals"] = qi
+        kw["pred_threshold"] = float(get("predThreshold", 0.0))
+        kw["sample_distance"] = int(get("sampleDistance", 0))
+        kw["sz_mode"] = {"SZ_BEST_SPEED": SZMode.BEST_SPEED,
+                         "SZ_DEFAULT_COMPRESSION":
+                             SZMode.DEFAULT_COMPRESSION,
+                         "SZ_BEST_COMPRESSION": SZMode.BEST_COMPRESSION,
+                         }[get("szMode", "SZ_BEST_COMPRESSION")]
+        lossless = get("losslessCompressor", "ZSTD_COMPRESSOR")
+        kw["lossless"] = (Lossless.GZIP if lossless == "GZIP_COMPRESSOR"
+                          else Lossless.ZSTD)
+        if kw["lossless"] == Lossless.GZIP:
+            kw["lossless_level"] = {
+                "Gzip_NO_COMPRESSION": 0, "Gzip_BEST_SPEED": 1,
+                "Gzip_BEST_COMPRESSION": 9,
+                "Gzip_DEFAULT_COMPRESSION": -1,
+            }.get(get("gzipMode", "Gzip_BEST_SPEED"), 1)
+        else:
+            kw["lossless_level"] = {
+                "Zstd_BEST_SPEED": 1, "Zstd_HIGH_SPEED": 3,
+                "Zstd_HIGH_COMPRESSION": 19, "Zstd_BEST_COMPRESSION": 22,
+                "Zstd_DEFAULT_COMPRESSION": 3,
+            }.get(get("zstdMode", "Zstd_HIGH_SPEED"), 3)
+        kw["with_regression"] = get("withLinearRegression",
+                                    "YES").upper() == "YES"
+        kw["protect_value_range"] = get("protectValueRange",
+                                        "YES").upper() == "YES"
+        kw["random_access"] = bool(int(get("randomAccess", 0)))
+        kw["snapshot_cmpr_step"] = int(get("snapshotCmprStep", 5))
+        ebm = get("errorBoundMode")
+        if ebm is None:
+            raise ValueError("errorBoundMode missing in config "
+                             "(conf.c:174 exits)")
+        names = {m.name: m for m in ErrorBoundMode}
+        names["VR_REL"] = ErrorBoundMode.REL
+        kw["error_bound_mode"] = names[ebm.upper()]
+        kw["abs_err_bound"] = float(get("absErrBound", 0.0))
+        kw["rel_bound_ratio"] = float(get("relBoundRatio", 0.0))
+        kw["psnr"] = float(get("psnr", 0.0))
+        kw["norm_err"] = float(get("normErr", 0.0))
+        kw["pw_rel_bound_ratio"] = float(get("pw_relBoundRatio", 0.0))
+        kw["segment_size"] = int(get("segment_size", 0))
+        kw["accelerate_pw_rel"] = bool(int(
+            get("accelerate_pw_rel_compression", 1)))
+        kw["pwr_type"] = {"MIN": 0, "AVG": 1, "MAX": 2}.get(
+            get("pwr_type", "MIN"), 1)
+        kw["plus_bits"] = 3  # conf.c:97, not configurable via INI
+        return cls(**kw)
+
 
 
 DEFAULT_CONFIG = SZConfig()

@@ -216,36 +216,62 @@ def optimize_intervals_1d(flat: np.ndarray, real_precision: float,
                                  max_range_radius, pred_threshold)
 
 
+def optimize_intervals_1d_subblock(flat: np.ndarray, real_precision: float,
+                                   max_range_radius: int,
+                                   sample_distance: int,
+                                   pred_threshold) -> int:
+    """optimize_intervals_float_1D_subblock (sz_float.c:3231): the 2a - b
+    prediction errors of the values from index 2 whose local index is a
+    multiple of sample_distance, of n // sample_distance samples."""
+    sidx = np.arange(2, len(flat))
+    sidx = sidx[sidx % sample_distance == 0]
+    pred = 2 * flat[sidx - 1] - flat[sidx - 2]
+    pred_err = np.abs((pred - flat[sidx]).astype(np.float64))
+    return intervals_from_errors(pred_err, len(flat) // sample_distance,
+                                 float(real_precision), max_range_radius,
+                                 pred_threshold)
+
+
 def compress_1d(data: np.ndarray, real_precision: float, value_range,
                 median, *, max_range_radius: int, sample_distance: int,
                 pred_threshold, opt_quant_mode: int = 1,
-                fixed_intervals: int = 0, device) -> TDPS:
+                fixed_intervals: int = 0, subblock: bool = False,
+                device) -> TDPS:
     """The classic 1-D encode; the TDPS is byte-equal to
-    ``sz_tpu.core.classic.compress_1d``'s."""
+    ``sz_tpu.core.classic.compress_1d``'s.  ``subblock`` takes
+    SZ_compress_args3's kernel (sz_float.c:3444): its own optimizer, the
+    quantizer and the stored precision in double."""
     dev = devmod.resolve(device)
     T = float_type(data.dtype)
     flat = np.ascontiguousarray(data, dtype=T).reshape(-1)
     n = flat.size
     rp = T(real_precision)   # the float kernel receives float precision
+    rp_kept = float(real_precision) if subblock else float(rp)
     if opt_quant_mode == 1:
         with _tr.trace("optimizer"):
-            intervals = optimize_intervals_1d(
-                flat, float(rp), max_range_radius, sample_distance,
-                pred_threshold)
+            if subblock:
+                intervals = optimize_intervals_1d_subblock(
+                    flat, real_precision, max_range_radius,
+                    sample_distance, pred_threshold)
+            else:
+                intervals = optimize_intervals_1d(
+                    flat, float(rp), max_range_radius, sample_distance,
+                    pred_threshold)
     else:
         intervals = fixed_intervals
     radius = intervals // 2
-    req_length, median = req_length_median(rp, value_range, median, T)
+    req_length, median = req_length_median(rp_kept, value_range, median, T)
     with _tr.trace("quantize"):
         types, lead, mid, resi, _cnt = native.classic1d_encode(
-            flat, rp, int(intervals), radius, req_length, median)
+            flat, rp, int(intervals), radius, req_length, median,
+            subblock=subblock, rp64=float(real_precision))
     enc = ExactEncoder(req_length, median, T)
     enc.add_parts(lead, mid, resi)
     type_array, _ = encode_types(types, intervals, dev)
     return TDPS(
         data_type=data_type(T), ds_length=n, intervals=intervals,
         median_value=float(median), req_length=req_length,
-        real_precision=float(rp), type_array=type_array,
+        real_precision=rp_kept, type_array=type_array,
         lead_num=enc.lead_packed(), exact_mid_bytes=bytes(enc.mid_bytes),
         residual_mid_bits=enc.resi_packed(),
         exact_data_num=enc.exact_count(),

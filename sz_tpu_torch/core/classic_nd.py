@@ -11,7 +11,12 @@ SZ_compress_double_{2,3,4}D_MDQ, optimize_intervals_float_{2D,3D}_opt
 Three numeric forms (``Form``): float32 data on ranks 2-3 quantizes with
 float ``realPrecision`` and ``recip`` and rounds ``itvNum`` to float;
 the float 4-D kernel declares ``double itvNum`` and keeps the precision
-double (sz_float.c:1496); float64 data is double throughout.
+double (sz_float.c:1496); float64 data is double throughout.  A fourth,
+the subblock form of SZ_compress_args3 (``SZ_compress_float_{2,3,4}D_
+MDQ_subblock``, sz_float.c:3566/3777/4118), quantizes every dtype and
+rank in double, dividing by the precision, with no epsilon recheck; its
+optimizer samples on the region's global coordinates
+(:func:`optimize_intervals_subblock`).
 """
 
 from __future__ import annotations
@@ -27,18 +32,22 @@ from sz_tpu_torch.core import optimizer as opt
 @dataclasses.dataclass(frozen=True)
 class Form:
     """The quantizer's types: T the data's, RT the precision's, the
-    reconstruction's and itvNum's; ``dbl`` when RT is double."""
+    reconstruction's and itvNum's; ``dbl`` when RT is double; ``sub``
+    the subblock form (RT double, a division, no recheck)."""
     T: type
     RT: type
+    sub: bool = False
 
     @property
     def dbl(self) -> bool:
         return self.RT is np.float64
 
 
-def form(T, ndim: int) -> Form:
-    """The numeric form of the kernel for ``T`` data of rank ``ndim``."""
-    return Form(T, np.float64 if T is np.float64 or ndim == 4 else T)
+def form(T, ndim: int, sub: bool = False) -> Form:
+    """The numeric form of the kernel for ``T`` data of rank ``ndim``
+    (``sub``: the subblock form)."""
+    dbl = T is np.float64 or ndim == 4 or sub
+    return Form(T, np.float64 if dbl else T, sub)
 
 
 def _sample_4d(shape, sample_distance: int) -> np.ndarray:
@@ -102,6 +111,41 @@ def optimize_intervals(data: np.ndarray, real_precision: float,
                                      pred_threshold)
 
 
+def optimize_intervals_subblock(data: np.ndarray, origin,
+                                real_precision: float,
+                                max_range_radius: int, sample_distance: int,
+                                pred_threshold) -> int:
+    """optimize_intervals_float_{2,3,4}D_subblock (sz_float.c:3278/3330/
+    3382): the points of [1, r)^rank whose GLOBAL coordinates (local plus
+    ``origin``) sum to a multiple of sample_distance, predicted by the
+    2-D Lorenzo (rank 2) or the 3-D Lorenzo over the last three axes
+    (ranks 3 and 4, sz_float.c:3410), of size // sample_distance
+    samples."""
+    grids = np.meshgrid(*[np.arange(1, r) for r in data.shape],
+                        indexing="ij")
+    gsum = sum(g + int(o) for g, o in zip(grids, origin))
+    loc = [g[(gsum % sample_distance) == 0] for g in grids]
+    d = data
+    if data.ndim == 2:
+        i, j = loc
+        pred = d[i, j - 1] + d[i - 1, j] - d[i - 1, j - 1]
+        cur = d[i, j]
+    else:
+        head = tuple(loc[:-3])     # rank 4: the outer index stays
+        i, j, k = loc[-3:]
+        pred = d[head + (i, j, k - 1)] + d[head + (i, j - 1, k)]
+        pred = pred + d[head + (i - 1, j, k)]
+        pred = pred - d[head + (i, j - 1, k - 1)]
+        pred = pred - d[head + (i - 1, j, k - 1)]
+        pred = pred - d[head + (i - 1, j - 1, k)]
+        pred = pred + d[head + (i - 1, j - 1, k - 1)]
+        cur = d[head + (i, j, k)]
+    pred_err = np.abs((pred - cur).astype(np.float64))
+    return opt.intervals_from_errors(pred_err, data.size // sample_distance,
+                                     float(real_precision),
+                                     max_range_radius, pred_threshold)
+
+
 @dataclasses.dataclass(frozen=True)
 class Params:
     """What the recurrence needs besides the field: the precision in RT
@@ -118,14 +162,22 @@ class Params:
 
 def params(data: np.ndarray, real_precision: float, value_range, median, *,
            max_range_radius: int, sample_distance: int, pred_threshold,
-           opt_quant_mode: int = 1, fixed_intervals: int = 0) -> Params:
+           opt_quant_mode: int = 1, fixed_intervals: int = 0,
+           subblock_origin=None) -> Params:
     """compress_nd's set-up: the float 2-D/3-D kernels receive
     realPrecision narrowed to float, the float 4-D and every double kernel
-    keep it double; req_length from the narrowed precision."""
-    f = form(data.dtype.type, data.ndim)
+    keep it double; req_length from the narrowed precision.  With
+    ``subblock_origin`` (the region's corner in the whole field), the
+    subblock form and its optimizer."""
+    sub = subblock_origin is not None
+    f = form(data.dtype.type, data.ndim, sub)
     rp = f.RT(real_precision)
     recip = f.RT(f.RT(1) / rp)
-    if opt_quant_mode == 1:
+    if opt_quant_mode == 1 and sub:
+        intervals = optimize_intervals_subblock(
+            data, subblock_origin, real_precision, max_range_radius,
+            sample_distance, pred_threshold)
+    elif opt_quant_mode == 1:
         intervals = optimize_intervals(data, float(real_precision),
                                        max_range_radius, sample_distance,
                                        pred_threshold)

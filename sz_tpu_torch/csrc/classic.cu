@@ -30,6 +30,16 @@
 // reconstruction is its value less the median with the low
 // width - req_length bits cleared, plus the median.
 //
+// A fourth form, K10's alone: the subblock kernels of SZ_compress_args3
+// (SZ_compress_{float,double}_{2,3,4}D_MDQ_subblock, sz_float.c:3566/
+// 3777/4118; sz_tpu/core/classic_nd.py:470-484), for a region of a
+// field: itv = |(double)diff| / rp64 + 1 (a division, not the
+// reciprocal), t = (int)(itv / 2) + radius, rec = (V)((double)pred +
+// (double)(2 (t - radius)) * rp64), and no epsilon recheck, on float32
+// and float64 data of every rank (a 4-D region runs the 3-D scheme per
+// outer slice, as the double form does).  A template flag (kSub) of the
+// double form, so the other forms compile as before.
+//
 // Design: warp strips on the machinery of strips.cuh (shared with
 // K1d/K2d), whose note has the walk, the rings, the hand-offs and the
 // claim order; here the point rules.  K10 stages the data, writes each
@@ -174,11 +184,18 @@ __device__ __forceinline__ V recon(V pred, Q inc) {
 // intervals; the recheck |(double)(cur - rec)| > rp64 on a float
 // difference is |cur - rec| > rp_dn; t = (int)h + radius is off the
 // chain.
-template <bool kDbl, class V>
+// The subblock form (kSub, double only) divides by rp64 and keeps every
+// point within the intervals: no recheck.
+template <bool kDbl, bool kSub, class V>
 __device__ __forceinline__ int quantize(V cur, V pred, const Quantizer<V>& q,
                                         V* rec) {
+  static_assert(kDbl || !kSub, "the subblock form is a double form");
   const V diff = sub_rn(cur, pred);
-  const double m = __dadd_rn(__dmul_rn(fabs((double)diff), q.recip64), 1.0);
+  double m;
+  if constexpr (kSub)
+    m = __dadd_rn(__ddiv_rn(fabs((double)diff), q.rp64), 1.0);
+  else
+    m = __dadd_rn(__dmul_rn(fabs((double)diff), q.recip64), 1.0);
   bool within;
   int half;
   if constexpr (kDbl) {
@@ -193,6 +210,7 @@ __device__ __forceinline__ int quantize(V cur, V pred, const Quantizer<V>& q,
     half = __float2int_rz(h);
     *rec = recon<kDbl>(pred, mul_rn(__fadd_rn(h, h), q.rp_t));
   }
+  if constexpr (kSub) return within ? half + q.radius : 0;
   const bool ok = within & !(fabs(sub_rn(cur, *rec)) > q.rp_dn);
   return ok ? half + q.radius : 0;
 }
@@ -228,8 +246,8 @@ __device__ __forceinline__ int* type_at(S* slot) {
 // arithmetic, decode.  S is the staged input (K10's data, K11's types),
 // one array of the warp's staging region; K10 writes each type over its
 // consumed value.  Column chunks, rings of 64 slots: a float block holds
-// two an SM.
-template <int kRank_, class V_, bool kDbl, bool kDec>
+// two an SM.  kSub: K10's subblock form.
+template <int kRank_, class V_, bool kDbl, bool kDec, bool kSub = false>
 struct Classic {
   using V = V_;
   using S = typename std::conditional<kDec, int, V>::type;
@@ -344,7 +362,7 @@ struct Classic {
         return R;
       } else {
         V rec;
-        int tq = quantize<kDbl>(x.x, pred, a.q, &rec);
+        int tq = quantize<kDbl, kSub>(x.x, pred, a.q, &rec);
         if ((i | j | k) == 0) tq = 0;
         *t = tq;
         return tq ? rec : x.er;
@@ -418,6 +436,28 @@ __global__ void __launch_bounds__(Warps<double>::n * 32) classic_decode3d_f64_ke
   run_strips<Classic<3, double, true, true>>(g, a);
 }
 
+// K10's subblock form: float32 data of rank 2, or rank 3 (a 3-D field,
+// or the volumes of a 4-D one), and float64 data.
+__global__ void __launch_bounds__(Warps<float>::n * 32) classic_quantize2d_sub_kernel(
+    Geo<float> g, QuantArgs<float> a) {
+  run_strips<Classic<2, float, true, false, true>>(g, a);
+}
+
+__global__ void __launch_bounds__(Warps<float>::n * 32) classic_quantize3d_sub_kernel(
+    Geo<float> g, QuantArgs<float> a) {
+  run_strips<Classic<3, float, true, false, true>>(g, a);
+}
+
+__global__ void __launch_bounds__(Warps<double>::n * 32) classic_quantize2d_sub_f64_kernel(
+    Geo<double> g, QuantArgs<double> a) {
+  run_strips<Classic<2, double, true, false, true>>(g, a);
+}
+
+__global__ void __launch_bounds__(Warps<double>::n * 32) classic_quantize3d_sub_f64_kernel(
+    Geo<double> g, QuantArgs<double> a) {
+  run_strips<Classic<3, double, true, false, true>>(g, a);
+}
+
 // rp64 rounded down to float: for a float x, |x| > rp64 iff |x| > it.
 float down_to_float(double rp64) {
   float r = (float)rp64;
@@ -431,10 +471,13 @@ unsigned long long mask_of(int ign, int width) {
   return (~((1ull << ign) - 1ull)) & full;
 }
 
-template <class V, bool kDbl, bool kDec>
-int launch_rank(void (*k2)(Geo<V>, typename Classic<2, V, kDbl, kDec>::Args),
-                void (*k3)(Geo<V>, typename Classic<3, V, kDbl, kDec>::Args),
-                const typename Classic<3, V, kDbl, kDec>::Args& a, int rank,
+template <class V, bool kDbl, bool kDec, bool kSub = false>
+int launch_rank(void (*k2)(Geo<V>,
+                           typename Classic<2, V, kDbl, kDec, kSub>::Args),
+                void (*k3)(Geo<V>,
+                           typename Classic<3, V, kDbl, kDec, kSub>::Args),
+                const typename Classic<3, V, kDbl, kDec, kSub>::Args& a,
+                int rank,
                 int nvol, int r1, int r2, int r3, const int* order,
                 int* flags, V* rows, V* planes, int nunits, void* stream) {
   Geo<V> g;
@@ -442,8 +485,10 @@ int launch_rank(void (*k2)(Geo<V>, typename Classic<2, V, kDbl, kDec>::Args),
                                        flags, rows, planes, nunits);
   if (rc) return rc;
   if (rank == 2)
-    return launch<Classic<2, V, kDbl, kDec>>(k2, g, a, (cudaStream_t)stream);
-  return launch<Classic<3, V, kDbl, kDec>>(k3, g, a, (cudaStream_t)stream);
+    return launch<Classic<2, V, kDbl, kDec, kSub>>(k2, g, a,
+                                                   (cudaStream_t)stream);
+  return launch<Classic<3, V, kDbl, kDec, kSub>>(k3, g, a,
+                                                 (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -513,6 +558,44 @@ extern "C" int sz_classic_quantize_f64(const double* data, int* types,
   return launch_rank<double, true, false>(
       classic_quantize2d_f64_kernel, classic_quantize3d_f64_kernel, a, rank,
       nvol, r1, r2, r3, order, flags, rows, planes, nunits, stream);
+}
+
+// K10's subblock form, float32 data (rank 2, rank 3, or the volumes of
+// rank 4): the double form on rp64, dividing, with no recheck.
+extern "C" int sz_classic_quantize_sub(const float* data, int* types,
+                                       float* R, int rank, int nvol, int r1,
+                                       int r2, int r3, double rp64,
+                                       int intervals, int radius,
+                                       float median, int ign,
+                                       const int* order, int* flags,
+                                       float* rows, float* planes,
+                                       int nunits, void* stream) {
+  QuantArgs<float> a{data, types, R,
+                     Quantizer<float>{0.0f, rp64, 0.0, intervals, radius,
+                                      0.0f},
+                     median, mask_of(ign, 32)};
+  return launch_rank<float, true, false, true>(
+      classic_quantize2d_sub_kernel, classic_quantize3d_sub_kernel, a, rank,
+      nvol, r1, r2, r3, order, flags, rows, planes, nunits, stream);
+}
+
+// K10's subblock form, float64 data.
+extern "C" int sz_classic_quantize_sub_f64(const double* data, int* types,
+                                           double* R, int rank, int nvol,
+                                           int r1, int r2, int r3,
+                                           double rp64, int intervals,
+                                           int radius, double median,
+                                           int ign, const int* order,
+                                           int* flags, double* rows,
+                                           double* planes, int nunits,
+                                           void* stream) {
+  QuantArgs<double> a{data, types, R,
+                      Quantizer<double>{rp64, rp64, 0.0, intervals, radius,
+                                        rp64},
+                      median, mask_of(ign, 64)};
+  return launch_rank<double, true, false, true>(
+      classic_quantize2d_sub_f64_kernel, classic_quantize3d_sub_f64_kernel,
+      a, rank, nvol, r1, r2, r3, order, flags, rows, planes, nunits, stream);
 }
 
 // K11, float32 data on ranks 2-3: types i32, the escapes' values in

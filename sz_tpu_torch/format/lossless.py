@@ -3,11 +3,16 @@
 Mirrors sz_lossless_compress / sz_lossless_decompress /
 is_lossless_compressed_data (utility.c:156-215).  zstd is the vendored
 1.3.5 release of ``sz_tpu_torch.native`` (the reference's own), so outer
-frames are byte-equal to the reference binary's.
+frames are byte-equal to the reference binary's.  SZ_TPU_SYSTEM_ZSTD=1
+takes the ``zstandard`` package's encoder instead, as ``sz_tpu`` does
+(multithreaded from 4 MB; standard frames, other bytes); where that
+package is absent it raises RuntimeError.  Decoding always takes the
+vendored decoder, which reads either frame.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
 
 from sz_tpu_torch import native
@@ -18,8 +23,23 @@ _ZLIB_MAGIC = {(0x78, 0x01), (0x78, 0x5E), (0x78, 0x9C), (0x78, 0xDA),
                (0x78, 0x20), (0x78, 0x7D), (0x78, 0xBB), (0x78, 0xF9)}
 
 
+def _system_zstd(data: bytes, level: int) -> bytes:
+    """The zstandard package's frame of ``data``, with its content size
+    (the decoder's sniffing needs it, utility.c:158-161)."""
+    try:
+        import zstandard
+    except ImportError:
+        raise RuntimeError("zstandard module unavailable") from None
+    threads = -1 if len(data) >= (4 << 20) else 0
+    return zstandard.ZstdCompressor(level=level, write_content_size=True,
+                                    write_checksum=False,
+                                    threads=threads).compress(data)
+
+
 def compress(data: bytes, backend: Lossless, level: int) -> bytes:
     if backend == Lossless.ZSTD:
+        if os.environ.get("SZ_TPU_SYSTEM_ZSTD") == "1":
+            return _system_zstd(data, level)
         return native.zstd_compress(data, level)
     if backend == Lossless.GZIP:
         # zlib_compress5 (callZlib.c:205): plain zlib stream at `level`

@@ -85,6 +85,10 @@ SIGNATURES = {
                                _F, _I, _P, _P, _P, _P, _I, _P),
     "sz_classic_quantize_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I,
                                 _I, _D, _I, _P, _P, _P, _P, _I, _P),
+    "sz_classic_quantize_sub": (_P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I,
+                                _F, _I, _P, _P, _P, _P, _I, _P),
+    "sz_classic_quantize_sub_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _D, _I,
+                                    _I, _D, _I, _P, _P, _P, _P, _I, _P),
     "sz_classic_decode": (_P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                           _P, _P, _P, _P, _I, _P),
     "sz_classic_decode_4d": (_P, _P, _LL, _P, _P, _I, _I, _I, _I, _D, _I,

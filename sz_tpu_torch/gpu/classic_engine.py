@@ -30,9 +30,11 @@ from sz_tpu_torch.utils import trace as _tr
 def compress(data: np.ndarray, real_precision: float, value_range, median,
              *, max_range_radius: int, sample_distance: int, pred_threshold,
              opt_quant_mode: int = 1, fixed_intervals: int = 0,
-             device) -> TDPS:
+             subblock_origin=None, device) -> TDPS:
     """Classic encode of a float32 or float64 rank-2/3/4 field; the TDPS
-    is byte-equal to ``sz_tpu.core.classic_nd.compress_nd``'s."""
+    is byte-equal to ``sz_tpu.core.classic_nd.compress_nd``'s.  With
+    ``subblock_origin`` (a region's corner in its field,
+    SZ_compress_args3), K10 runs the subblock form."""
     dev = devmod.resolve(device)
     T = float_type(data.dtype)
     data = np.ascontiguousarray(data, dtype=T)
@@ -41,14 +43,20 @@ def compress(data: np.ndarray, real_precision: float, value_range, median,
             data, real_precision, value_range, median,
             max_range_radius=max_range_radius,
             sample_distance=sample_distance, pred_threshold=pred_threshold,
-            opt_quant_mode=opt_quant_mode, fixed_intervals=fixed_intervals)
+            opt_quant_mode=opt_quant_mode, fixed_intervals=fixed_intervals,
+            subblock_origin=subblock_origin)
     with _tr.trace("upload"):
         x = torch.from_numpy(data).to(dev)
         devmod.sync(dev)
     with _tr.trace("quantize"):
-        types, _ = classic_kernel.classic_quantize(
-            x, p.rp, p.recip, p.intervals, p.radius, p.median, p.req_length,
-            want_R=False)
+        if p.form.sub:
+            types, _ = classic_kernel.classic_quantize_sub(
+                x, p.rp, p.intervals, p.radius, p.median, p.req_length,
+                want_R=False)
+        else:
+            types, _ = classic_kernel.classic_quantize(
+                x, p.rp, p.recip, p.intervals, p.radius, p.median,
+                p.req_length, want_R=False)
         types = types.reshape(-1)
         devmod.sync(dev)
     with _tr.trace("escapes"):

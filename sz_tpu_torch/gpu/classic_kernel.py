@@ -16,7 +16,9 @@ scratch, chunk by chunk, in the claim order
 :func:`sz_tpu_torch.gpu.strips.strip_order` makes (a 4-D field's volumes
 side by side in that one order).
 ``classic.cu``'s note has the rules, the three numeric forms
-(``core.classic_nd.Form``) and the bound.
+(``core.classic_nd.Form``) and the bound, and K10's fourth, the subblock
+form of ``compress_region`` (:func:`classic_quantize_sub`: double, a
+division by rp, no epsilon recheck).
 
 Beside each kernel sits its plain torch version: an anti-diagonal
 wavefront over s = i + j + k, each diagonal one vectorized exact step,
@@ -114,17 +116,23 @@ def _recon_plain(pred, t, radius: int, rp, dbl: bool):
 
 
 def _quantize_plain(cur, pred, rp, recip, intervals: int, radius: int,
-                    dbl: bool):
+                    dbl: bool, sub: bool = False):
     """(types, reconstructions) of one diagonal's cells; type 0 where the
-    cell escapes."""
+    cell escapes.  ``sub``: the subblock form (dbl, |diff| / rp, no
+    recheck)."""
     diff = cur - pred
-    m = diff.abs().to(_F64) * float(recip) + 1.0
+    if sub:
+        m = diff.abs().to(_F64) / float(rp) + 1.0
+    else:
+        m = diff.abs().to(_F64) * float(recip) + 1.0
     itv = m if dbl else m.to(_F32)
     within = itv < intervals
     itv = torch.where(within, torch.where(diff < 0, -itv, itv),
                       torch.zeros_like(itv))
     t = torch.trunc(itv / 2).to(_I64) + radius
     rec = _recon_plain(pred, t, radius, rp, dbl)
+    if sub:
+        return torch.where(within, t, 0), rec
     ok = within & ~((cur - rec).abs().to(_F64) > float(rp))
     return torch.where(ok, t, 0), rec
 
@@ -157,8 +165,9 @@ def _volume_plain(vol, step):
 
 
 def classic_quantize_plain(data, rp, recip, intervals: int, radius: int,
-                           median, req_length: int, want_R: bool = True):
-    dbl = is_dbl(data.dtype, data.dim())
+                           median, req_length: int, want_R: bool = True,
+                           sub: bool = False):
+    dbl = sub or is_dbl(data.dtype, data.dim())
     mask = _mask(req_length, data.dtype)
     types = torch.empty(data.shape, dtype=_I32, device=data.device)
     R = torch.empty_like(data)
@@ -168,7 +177,7 @@ def classic_quantize_plain(data, rp, recip, intervals: int, radius: int,
         def step(fi, pred):
             cur = flat[fi]
             t, rec = _quantize_plain(cur, pred, rp, recip, intervals,
-                                     radius, dbl)
+                                     radius, dbl, sub)
             t = torch.where(fi == 0, 0, t)     # the first point escapes
             return t, torch.where(t != 0, rec,
                                   _escape_plain(cur, median, mask))
@@ -276,14 +285,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def classic_quantize(data, rp, recip, intervals: int, radius: int, median,
-                     req_length: int, want_R: bool = True):
-    """K10 encode: the int32 types of a float32 or float64 field of rank
-    2-4 and, when ``want_R``, its reconstruction (else None)."""
-    kind = _check("classic_quantize", data)
+def _quantize(wrapper, data, rp, recip, intervals: int, radius: int,
+              median, req_length: int, want_R: bool, sub: bool):
+    """K10 in one of its forms (``sub``: the subblock form); counts the
+    launch on ``wrapper``."""
+    name = wrapper.__name__
+    kind = _check(name, data)
     if kind == "cpu":
         return classic_quantize_plain(data, rp, recip, intervals, radius,
-                                      median, req_length, want_R)
+                                      median, req_length, want_R, sub)
     dbl, f64 = is_dbl(data.dtype, data.dim()), data.dtype == _F64
     width = 64 if f64 else 32
     ign = max(width - int(req_length), 0)
@@ -296,7 +306,12 @@ def classic_quantize(data, rp, recip, intervals: int, radius: int, median,
     sargs, keep = _strips(lat, data.dtype, data.device)
     r_ptr = _p(R) if want_R else None
     lib = _build.lib()
-    if f64:
+    if sub:
+        entry = (lib.sz_classic_quantize_sub_f64 if f64
+                 else lib.sz_classic_quantize_sub)
+        rc = entry(_p(data), _p(types), r_ptr, *lat, float(rp), intervals,
+                   radius, float(median), ign, *sargs, _stream(data))
+    elif f64:
         rc = lib.sz_classic_quantize_f64(
             _p(data), _p(types), r_ptr, *lat, float(rp), float(recip),
             intervals, radius, float(median), ign, *sargs, _stream(data))
@@ -310,10 +325,28 @@ def classic_quantize(data, rp, recip, intervals: int, radius: int, median,
             _p(data), _p(types), r_ptr, *lat, float(np.float32(rp)),
             float(rp), float(recip), intervals, radius, float(median), ign,
             *sargs, _stream(data))
-    _build.check(rc, "classic_quantize")
-    _build.launched(classic_quantize)
+    _build.check(rc, name)
+    _build.launched(wrapper)
     del keep
     return types, R
+
+
+def classic_quantize(data, rp, recip, intervals: int, radius: int, median,
+                     req_length: int, want_R: bool = True):
+    """K10 encode: the int32 types of a float32 or float64 field of rank
+    2-4 and, when ``want_R``, its reconstruction (else None)."""
+    return _quantize(classic_quantize, data, rp, recip, intervals, radius,
+                     median, req_length, want_R, False)
+
+
+def classic_quantize_sub(data, rp, intervals: int, radius: int, median,
+                         req_length: int, want_R: bool = True):
+    """K10's subblock form (``compress_region``): as
+    :func:`classic_quantize`, quantizing in double on ``rp`` (the double
+    precision), dividing, with no epsilon recheck, in every dtype and
+    rank (``classic_quantize2d_sub_kernel`` and its siblings)."""
+    return _quantize(classic_quantize_sub, data, rp, None, intervals,
+                     radius, median, req_length, want_R, True)
 
 
 def classic_decode(types, escapes, rp, radius: int, row_base=None):
@@ -361,3 +394,4 @@ def classic_decode(types, escapes, rp, radius: int, row_base=None):
 
 
 classic_quantize.launches = classic_decode.launches = 0
+classic_quantize_sub.launches = 0

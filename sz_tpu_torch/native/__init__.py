@@ -54,10 +54,12 @@ _SIGNATURES = {
                           _P, _P), None),
     "exact_stream_f64": ((_P, _I64, _I, ctypes.c_double, _I, _P, _P, _P,
                           _P, _P, _P), None),
-    "classic1d_encode_f32": ((_P, _I64, ctypes.c_float, _I, _I, _I,
-                              ctypes.c_float, _P, _P, _P, _P, _P), _I64),
-    "classic1d_encode_f64": ((_P, _I64, ctypes.c_double, _I, _I, _I,
-                              ctypes.c_double, _P, _P, _P, _P, _P), _I64),
+    "classic1d_encode_f32": ((_P, _I64, ctypes.c_float, ctypes.c_double, _I,
+                              _I, _I, ctypes.c_float, _I, _P, _P, _P, _P,
+                              _P), _I64),
+    "classic1d_encode_f64": ((_P, _I64, ctypes.c_double, ctypes.c_double,
+                              _I, _I, _I, ctypes.c_double, _I, _P, _P, _P,
+                              _P, _P), _I64),
     "classic1d_decode_f32": ((_P, _I64, ctypes.c_float, _I, _I,
                               ctypes.c_float, _I, _P, _P, _P, _P), None),
     "classic1d_decode_f64": ((_P, _I64, ctypes.c_double, _I, _I,
@@ -85,6 +87,18 @@ _SIGNATURES = {
     "msst19_build_table": ((_P, _I64, ctypes.c_double, _I, _I64, _I64, _P),
                            None),
     "pack_w_bits": ((_P, _I64, _I, _P), None),
+    "ompblock_encode_f32": ((_P, _I64, _I64, _I64, ctypes.c_double,
+                             ctypes.c_double, ctypes.c_float, _I, _I, _I, _P,
+                             _P), _I64),
+    "ompblock_encode_f64": ((_P, _I64, _I64, _I64, ctypes.c_double,
+                             ctypes.c_double, ctypes.c_double, _I, _I, _I,
+                             _P, _P), _I64),
+    "ompblock_decode_f32": ((_P, _I64, _I64, _I64, ctypes.c_float,
+                             ctypes.c_double, ctypes.c_float, _I, _I, _P, _P),
+                            None),
+    "ompblock_decode_f64": ((_P, _I64, _I64, _I64, ctypes.c_double,
+                             ctypes.c_double, ctypes.c_double, _I, _I, _P,
+                             _P), None),
     "ZSTD_compress": ((_P, _SZ, _P, _SZ, _I), _SZ),
     "ZSTD_decompress": ((_P, _SZ, _P, _SZ), _SZ),
     "ZSTD_compressBound": ((_SZ,), _SZ),
@@ -299,18 +313,22 @@ def exact_stream(vals: np.ndarray, req_length: int, median, raw: bool,
 
 
 def classic1d_encode(x: np.ndarray, rp, intervals: int, radius: int,
-                     req_length: int, median):
+                     req_length: int, median, *, subblock: bool = False,
+                     rp64: float | None = None):
     """The classic 1-D encode of a float32 or float64 field (the dtype of
-    ``x``).  Returns (types i32[n], lead u8, mid bytes, resi u8 entries,
-    escape count)."""
+    ``x``); ``subblock`` takes SZ_compress_args3's kernel, which
+    quantizes on ``rp64`` (the double precision; default ``rp``).
+    Returns (types i32[n], lead u8, mid bytes, resi u8 entries, escape
+    count)."""
     x = np.ascontiguousarray(x)
     T = float_type(x.dtype)
     n = x.size
     types = np.zeros(n, np.int32)
     lead, mid, resi, nmid = _escape_buffers(n, req_length)
     cnt = int(getattr(lib(), f"classic1d_encode_{_suffix(T)}")(
-        _ptr(x), n, float(rp), int(intervals), int(radius), req_length,
-        float(median), _ptr(types), _ptr(lead), _ptr(mid), _ptr(nmid),
+        _ptr(x), n, float(rp), float(rp if rp64 is None else rp64),
+        int(intervals), int(radius), req_length, float(median),
+        int(subblock), _ptr(types), _ptr(lead), _ptr(mid), _ptr(nmid),
         _ptr(resi)))
     return (types, *_escape_parts(lead, mid, resi, nmid, cnt, req_length,
                                   np.dtype(T).itemsize), cnt)
@@ -532,6 +550,40 @@ def pack_w_bits(vals: np.ndarray, w: int) -> bytes:
     if n:
         lib().pack_w_bits(_ptr(vals), n, w, _ptr(out))
     return out.tobytes()
+
+
+def ompblock_encode(block: np.ndarray, rp, intervals: int, radius: int):
+    """One block of the sz_omp format (the classic scheme, the first value
+    predicted from itself, escapes raw): float32 quantizes in float with
+    the float reciprocal, float64 in double.  Returns (types i32, the
+    escapes' values)."""
+    x = np.ascontiguousarray(block)
+    T = float_type(x.dtype)
+    r1, r2, r3 = x.shape
+    types = np.zeros(x.size, np.int32)
+    unpred = np.zeros(max(x.size, 1), T)
+    f32 = T is np.float32
+    recip64 = (float(np.float32(1) / np.float32(rp)) if f32
+               else 1.0 / float(rp))
+    cnt = int(getattr(lib(), f"ompblock_encode_{_suffix(T)}")(
+        _ptr(x), r1, r2, r3, float(rp), recip64, float(rp), int(intervals),
+        int(radius), int(not f32), _ptr(types), _ptr(unpred)))
+    return types, unpred[:cnt].copy()
+
+
+def ompblock_decode(types: np.ndarray, shape, mean, rp, radius: int,
+                    unpred: np.ndarray, T) -> np.ndarray:
+    """The inverse of :func:`ompblock_encode` for a block of ``shape``
+    whose first value's seed is ``mean``."""
+    T = float_type(T)
+    r1, r2, r3 = shape
+    out = np.zeros(r1 * r2 * r3, T)
+    up = np.ascontiguousarray(unpred, T) if len(unpred) else np.zeros(1, T)
+    getattr(lib(), f"ompblock_decode_{_suffix(T)}")(
+        _ptr(np.ascontiguousarray(types, np.int32)), r1, r2, r3,
+        float(mean), float(rp), float(rp), int(radius),
+        int(T is np.float64), _ptr(up), _ptr(out))
+    return out.reshape(shape)
 
 
 def zstd_compress(data: bytes, level: int) -> bytes:

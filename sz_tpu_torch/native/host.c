@@ -439,11 +439,15 @@ void exact_stream_f64(const double *vals, int64_t n, int req_length,
 
 /* Classic 1D MDQ encode (SZ_compress_float_1D_MDQ sz_float.c:353-524):
  * previous-reconstruction predictor, the float quantizer with its
- * machine-epsilon recheck.  Returns the exact-value count. */
+ * machine-epsilon recheck.  With subblock, SZ_compress_float_1D_MDQ_
+ * subblock (sz_float.c:3444, SZ_compress_args3's kernel): a 2a - b
+ * predictor, the quantizer in double on rp64, no recheck.  Returns the
+ * exact-value count. */
 int64_t classic1d_encode_f32(const float *x, int64_t n, float rp,
-                             int intervals, int radius, int req_length,
-                             float median, int32_t *types, uint8_t *lead,
-                             uint8_t *mid, int64_t *nmid, uint8_t *resi) {
+                             double rp64, int intervals, int radius,
+                             int req_length, float median, int subblock,
+                             int32_t *types, uint8_t *lead, uint8_t *mid,
+                             int64_t *nmid, uint8_t *resi) {
     xenc E;
     E.esize = 4; E.req_bytes = req_length / 8; E.resi_len = req_length % 8;
     if (E.req_bytes > 4) E.req_bytes = 4;
@@ -451,33 +455,61 @@ int64_t classic1d_encode_f32(const float *x, int64_t n, float rp,
     E.lead = lead; E.nlead = 0; E.mid = mid; E.nmid = 0;
     E.resi = resi; E.nresi = 0;
     uint32_t mask = (uint32_t)xenc_mask(4, req_length);
-    float pred = 0.0f;
+    float last1 = 0.0f, pred = 0.0f;
     for (int i = 0; i < 2 && i < n; i++) {
-        pred = xenc_add_f32(&E, x[i], median, 0, mask);
+        float rec = xenc_add_f32(&E, x[i], median, 0, mask);
         types[i] = 0;
+        last1 = pred;
+        pred = rec;
     }
     float check_radius = (float)(intervals - 1) * rp;
     float interval2 = 2.0f * rp;
     float recip = 1.0f / rp;
-    for (int64_t i = 2; i < n; i++) {
-        float cur = x[i];
-        float err = fabsf(cur - pred);
-        if (err < check_radius) {
-            int state = ((int)(err * recip + 1.0f)) >> 1;
-            if (cur >= pred) {
-                types[i] = radius + state;
-                pred = pred + (float)state * interval2;
+    if (subblock) {
+        double check64 = (intervals - 1) * rp64;
+        double interval64 = 2.0 * rp64;
+        float last0 = pred;
+        for (int64_t i = 2; i < n; i++) {
+            float cur = x[i];
+            float p = 2.0f * last0 - last1;
+            float pae = fabsf(cur - p);
+            if ((double)pae <= check64) {
+                int state = (int)(((double)pae / rp64 + 1.0) / 2.0);
+                if (cur >= p) {
+                    types[i] = radius + state;
+                    p = (float)((double)p + state * interval64);
+                } else {
+                    types[i] = radius - state;
+                    p = (float)((double)p - state * interval64);
+                }
+                last1 = last0; last0 = p;
             } else {
-                types[i] = radius - state;
-                pred = pred - (float)state * interval2;
+                types[i] = 0;
+                last1 = last0;
+                last0 = xenc_add_f32(&E, cur, median, 0, mask);
             }
-            if (fabsf(cur - pred) > rp) {
+        }
+    } else {
+        for (int64_t i = 2; i < n; i++) {
+            float cur = x[i];
+            float err = fabsf(cur - pred);
+            if (err < check_radius) {
+                int state = ((int)(err * recip + 1.0f)) >> 1;
+                if (cur >= pred) {
+                    types[i] = radius + state;
+                    pred = pred + (float)state * interval2;
+                } else {
+                    types[i] = radius - state;
+                    pred = pred - (float)state * interval2;
+                }
+                if (fabsf(cur - pred) > rp) {
+                    types[i] = 0;
+                    pred = xenc_add_f32(&E, cur, median, 0, mask);
+                }
+            } else {
                 types[i] = 0;
                 pred = xenc_add_f32(&E, cur, median, 0, mask);
             }
-        } else {
-            types[i] = 0;
-            pred = xenc_add_f32(&E, cur, median, 0, mask);
         }
     }
     *nmid = E.nmid;
@@ -487,9 +519,10 @@ int64_t classic1d_encode_f32(const float *x, int64_t n, float rp,
 /* The double twin (SZ_compress_double_1D_MDQ sz_double.c:260-395):
  * state = (int)((err*recip + 1) * 0.5), no epsilon recheck. */
 int64_t classic1d_encode_f64(const double *x, int64_t n, double rp,
-                             int intervals, int radius, int req_length,
-                             double median, int32_t *types, uint8_t *lead,
-                             uint8_t *mid, int64_t *nmid, uint8_t *resi) {
+                             double rp64, int intervals, int radius,
+                             int req_length, double median, int subblock,
+                             int32_t *types, uint8_t *lead, uint8_t *mid,
+                             int64_t *nmid, uint8_t *resi) {
     xenc E;
     E.esize = 8; E.req_bytes = req_length / 8; E.resi_len = req_length % 8;
     if (E.req_bytes > 8) E.req_bytes = 8;
@@ -497,29 +530,57 @@ int64_t classic1d_encode_f64(const double *x, int64_t n, double rp,
     E.lead = lead; E.nlead = 0; E.mid = mid; E.nmid = 0;
     E.resi = resi; E.nresi = 0;
     uint64_t mask = xenc_mask(8, req_length);
-    double pred = 0.0;
+    double last1 = 0.0, pred = 0.0;
     for (int i = 0; i < 2 && i < n; i++) {
-        pred = xenc_add_f64(&E, x[i], median, 0, mask);
+        double rec = xenc_add_f64(&E, x[i], median, 0, mask);
         types[i] = 0;
+        last1 = pred;
+        pred = rec;
     }
     double check_radius = (double)(intervals - 1) * rp;
     double interval2 = 2.0 * rp;
     double recip = 1.0 / rp;
-    for (int64_t i = 2; i < n; i++) {
-        double cur = x[i];
-        double err = fabs(cur - pred);
-        if (err < check_radius) {
-            int state = (int)((err * recip + 1.0) * 0.5);
-            if (cur >= pred) {
-                types[i] = radius + state;
-                pred = pred + (double)state * interval2;
+    if (subblock) {
+        double check64 = (intervals - 1) * rp64;
+        double interval64 = 2.0 * rp64;
+        double last0 = pred;
+        for (int64_t i = 2; i < n; i++) {
+            double cur = x[i];
+            double p = 2.0 * last0 - last1;
+            double pae = fabs(cur - p);
+            if (pae <= check64) {
+                int state = (int)((pae / rp64 + 1.0) / 2.0);
+                if (cur >= p) {
+                    types[i] = radius + state;
+                    p = p + state * interval64;
+                } else {
+                    types[i] = radius - state;
+                    p = p - state * interval64;
+                }
+                last1 = last0; last0 = p;
             } else {
-                types[i] = radius - state;
-                pred = pred - (double)state * interval2;
+                types[i] = 0;
+                last1 = last0;
+                last0 = xenc_add_f64(&E, cur, median, 0, mask);
             }
-        } else {
-            types[i] = 0;
-            pred = xenc_add_f64(&E, cur, median, 0, mask);
+        }
+    } else {
+        for (int64_t i = 2; i < n; i++) {
+            double cur = x[i];
+            double err = fabs(cur - pred);
+            if (err < check_radius) {
+                int state = (int)((err * recip + 1.0) * 0.5);
+                if (cur >= pred) {
+                    types[i] = radius + state;
+                    pred = pred + (double)state * interval2;
+                } else {
+                    types[i] = radius - state;
+                    pred = pred - (double)state * interval2;
+                }
+            } else {
+                types[i] = 0;
+                pred = xenc_add_f64(&E, cur, median, 0, mask);
+            }
         }
     }
     *nmid = E.nmid;
@@ -1126,3 +1187,185 @@ void int1d_decode(const int32_t *types, int64_t n, double interval2,
         out[i] = prev;
     }
 }
+
+/* The sz_omp format's block codec (SZ_compress_float_3D_MDQ_RA_block,
+ * sz_float.c:4704, and its double twin sz_double.c:4396; their decode
+ * decompressDataSeries_*_3D_RA_block): the classic positional scheme on
+ * one block, its first value predicted from itself (the mean seed),
+ * escapes stored raw.  Returns the escape count. */
+#define GEN_OMPB(SUF, FT)                                               \
+static inline FT ompb_quant_##SUF(int32_t *types, int64_t idx, FT cur,  \
+                                  FT pred, double rp64, double recip64, \
+                                  FT rp, int intervals, int radius,     \
+                                  int dbl, FT *unpred, int64_t *ucnt) { \
+    FT diff = cur - pred;                                               \
+    if (dbl) {                                                          \
+        double itv = fabs((double)diff) * recip64 + 1.0;                \
+        if (itv < (double)intervals) {                                  \
+            if (diff < 0) itv = -itv;                                   \
+            int t = (int)(itv / 2.0) + radius;                          \
+            FT rec = (FT)((double)pred                                  \
+                          + (double)(2 * (t - radius)) * rp64);         \
+            if (!(fabs((double)(FT)(cur - rec)) > rp64)) {              \
+                types[idx] = t;                                         \
+                return rec;                                             \
+            }                                                           \
+        }                                                               \
+    } else {                                                            \
+        FT itv = (FT)(fabs((double)diff) * recip64 + 1.0);              \
+        if (itv < (FT)intervals) {                                      \
+            if (diff < 0) itv = -itv;                                   \
+            int t = (int)(itv / (FT)2) + radius;                        \
+            FT rec = pred + (FT)(2 * (t - radius)) * rp;                \
+            if (!(fabs((double)(FT)(cur - rec)) > rp64)) {              \
+                types[idx] = t;                                         \
+                return rec;                                             \
+            }                                                           \
+        }                                                               \
+    }                                                                   \
+    types[idx] = 0;                                                     \
+    unpred[(*ucnt)++] = cur;                                            \
+    return cur;                                                         \
+}                                                                       \
+                                                                        \
+int64_t ompblock_encode_##SUF(const FT *x, int64_t r1, int64_t r2,      \
+                              int64_t r3, double rp64, double recip64,  \
+                              FT rp, int intervals, int radius,         \
+                              int dbl, int32_t *types, FT *unpred) {    \
+    int64_t r23 = r2 * r3;                                              \
+    FT *P1 = malloc(r23 * sizeof(FT));                                  \
+    FT *P0 = malloc(r23 * sizeof(FT));                                  \
+    int64_t ucnt = 0;                                                   \
+    P1[0] = ompb_quant_##SUF(types, 0, x[0], x[0], rp64, recip64, rp,   \
+                             intervals, radius, dbl, unpred, &ucnt);    \
+    if (r3 > 1)                                                         \
+        P1[1] = ompb_quant_##SUF(types, 1, x[1], P1[0], rp64, recip64,  \
+                                 rp, intervals, radius, dbl, unpred,    \
+                                 &ucnt);                                \
+    for (int64_t j = 2; j < r3; j++) {                                  \
+        FT pred = (FT)2 * P1[j-1] - P1[j-2];                            \
+        P1[j] = ompb_quant_##SUF(types, j, x[j], pred, rp64, recip64,   \
+                                 rp, intervals, radius, dbl, unpred,    \
+                                 &ucnt);                                \
+    }                                                                   \
+    for (int64_t i = 1; i < r2; i++) {                                  \
+        int64_t ix = i * r3;                                            \
+        P1[ix] = ompb_quant_##SUF(types, ix, x[ix], P1[ix - r3], rp64,  \
+                                  recip64, rp, intervals, radius, dbl,  \
+                                  unpred, &ucnt);                       \
+        for (int64_t j = 1; j < r3; j++) {                              \
+            int64_t c = ix + j;                                         \
+            FT pred = P1[c-1] + P1[c-r3] - P1[c-r3-1];                  \
+            P1[c] = ompb_quant_##SUF(types, c, x[c], pred, rp64,        \
+                                     recip64, rp, intervals, radius,    \
+                                     dbl, unpred, &ucnt);               \
+        }                                                               \
+    }                                                                   \
+    for (int64_t k = 1; k < r1; k++) {                                  \
+        int64_t index = k * r23;                                        \
+        P0[0] = ompb_quant_##SUF(types, index, x[index], P1[0], rp64,   \
+                                 recip64, rp, intervals, radius, dbl,   \
+                                 unpred, &ucnt);                        \
+        for (int64_t j = 1; j < r3; j++) {                              \
+            index++;                                                    \
+            FT pred = P0[j-1] + P1[j] - P1[j-1];                        \
+            P0[j] = ompb_quant_##SUF(types, index, x[index], pred,      \
+                                     rp64, recip64, rp, intervals,      \
+                                     radius, dbl, unpred, &ucnt);       \
+        }                                                               \
+        for (int64_t i = 1; i < r2; i++) {                              \
+            index = k * r23 + i * r3;                                   \
+            int64_t i2 = i * r3;                                        \
+            FT pred = P0[i2-r3] + P1[i2] - P1[i2-r3];                   \
+            P0[i2] = ompb_quant_##SUF(types, index, x[index], pred,     \
+                                      rp64, recip64, rp, intervals,     \
+                                      radius, dbl, unpred, &ucnt);      \
+            for (int64_t j = 1; j < r3; j++) {                          \
+                index++;                                                \
+                i2 = i * r3 + j;                                        \
+                FT pred2 = P0[i2-1] + P0[i2-r3];                        \
+                pred2 = pred2 + P1[i2];                                 \
+                pred2 = pred2 - P0[i2-r3-1];                            \
+                pred2 = pred2 - P1[i2-r3];                              \
+                pred2 = pred2 - P1[i2-1];                               \
+                pred2 = pred2 + P1[i2-r3-1];                            \
+                P0[i2] = ompb_quant_##SUF(types, index, x[index],       \
+                                          pred2, rp64, recip64, rp,     \
+                                          intervals, radius, dbl,       \
+                                          unpred, &ucnt);               \
+            }                                                           \
+        }                                                               \
+        FT *t_ = P1; P1 = P0; P0 = t_;                                  \
+    }                                                                   \
+    free(P1); free(P0);                                                 \
+    return ucnt;                                                        \
+}                                                                       \
+                                                                        \
+static inline void ompb_rec_##SUF(const int32_t *ty, FT *o,             \
+                                  int64_t idx, FT pred, double rp64,    \
+                                  FT rp, int radius, int dbl,           \
+                                  const FT *unpred, int64_t *up) {      \
+    int t = ty[idx];                                                    \
+    if (t == 0) { o[idx] = unpred[(*up)++]; return; }                   \
+    if (dbl)                                                            \
+        o[idx] = (FT)((double)pred                                      \
+                      + (double)(2 * (t - radius)) * rp64);             \
+    else                                                                \
+        o[idx] = pred + (FT)(2 * (t - radius)) * rp;                    \
+}                                                                       \
+                                                                        \
+void ompblock_decode_##SUF(const int32_t *ty, int64_t r1, int64_t r2,   \
+                           int64_t r3, FT mean, double rp64, FT rp,     \
+                           int radius, int dbl, const FT *unpred,       \
+                           FT *o) {                                     \
+    int64_t r23 = r2 * r3;                                              \
+    int64_t up = 0;                                                     \
+    ompb_rec_##SUF(ty, o, 0, mean, rp64, rp, radius, dbl, unpred, &up); \
+    if (r3 > 1)                                                         \
+        ompb_rec_##SUF(ty, o, 1, o[0], rp64, rp, radius, dbl, unpred,   \
+                       &up);                                            \
+    for (int64_t j = 2; j < r3; j++)                                    \
+        ompb_rec_##SUF(ty, o, j, (FT)2 * o[j-1] - o[j-2], rp64, rp,     \
+                       radius, dbl, unpred, &up);                       \
+    for (int64_t i = 1; i < r2; i++) {                                  \
+        int64_t ix = i * r3;                                            \
+        ompb_rec_##SUF(ty, o, ix, o[ix - r3], rp64, rp, radius, dbl,    \
+                       unpred, &up);                                    \
+        for (int64_t j = 1; j < r3; j++) {                              \
+            int64_t c = ix + j;                                         \
+            ompb_rec_##SUF(ty, o, c, o[c-1] + o[c-r3] - o[c-r3-1],      \
+                           rp64, rp, radius, dbl, unpred, &up);         \
+        }                                                               \
+    }                                                                   \
+    for (int64_t k = 1; k < r1; k++) {                                  \
+        int64_t index = k * r23;                                        \
+        ompb_rec_##SUF(ty, o, index, o[index - r23], rp64, rp, radius,  \
+                       dbl, unpred, &up);                               \
+        for (int64_t j = 1; j < r3; j++) {                              \
+            int64_t c = index + j;                                      \
+            ompb_rec_##SUF(ty, o, c, o[c-1] + o[c-r23] - o[c-r23-1],    \
+                           rp64, rp, radius, dbl, unpred, &up);         \
+        }                                                               \
+        for (int64_t i = 1; i < r2; i++) {                              \
+            int64_t c = index + i * r3;                                 \
+            ompb_rec_##SUF(ty, o, c,                                    \
+                           o[c-r3] + o[c-r23] - o[c-r23-r3], rp64, rp,  \
+                           radius, dbl, unpred, &up);                   \
+            for (int64_t j = 1; j < r3; j++) {                          \
+                int64_t cj = c + j;                                     \
+                FT pred = o[cj-1] + o[cj-r3];                           \
+                pred = pred + o[cj-r23];                                \
+                pred = pred - o[cj-r3-1];                               \
+                pred = pred - o[cj-r23-r3];                             \
+                pred = pred - o[cj-r23-1];                              \
+                pred = pred + o[cj-r23-r3-1];                           \
+                ompb_rec_##SUF(ty, o, cj, pred, rp64, rp, radius, dbl,  \
+                               unpred, &up);                            \
+            }                                                           \
+        }                                                               \
+    }                                                                   \
+}
+
+GEN_OMPB(f32, float)
+GEN_OMPB(f64, double)
+#undef GEN_OMPB

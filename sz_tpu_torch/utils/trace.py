@@ -10,17 +10,35 @@ Device spans in the port end with a synchronize inside the ``with``, so
 they time the device work, not its enqueue.  The record is one for the
 process: spans of slabs compressed in several threads at once interleave
 in it (the sharded codec records its own ``slabs`` span around them).
+SZ_TPU_TRACE set to anything but "" or "0" also prints each span to
+stderr as it closes, as ``sz_tpu`` does; :func:`enable` overrides it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import sys
 import threading
 import time
 
+_enabled = None   # None: follow SZ_TPU_TRACE
 _spans: list = []
 _counts: dict = {}
 _lock = threading.Lock()
+
+
+def enable(on: bool | None = True) -> None:
+    """Print spans (True), or not (False), whatever SZ_TPU_TRACE says;
+    None follows it again."""
+    global _enabled
+    _enabled = on
+
+
+def printing() -> bool:
+    if _enabled is not None:
+        return _enabled
+    return os.environ.get("SZ_TPU_TRACE", "") not in ("", "0")
 
 
 def reset() -> None:
@@ -49,7 +67,11 @@ def trace(name: str):
     try:
         yield
     finally:
+        dt = time.perf_counter() - t0
         with _lock:
-            _spans.append((name, time.perf_counter() - t0))
+            _spans.append((name, dt))
             if len(_spans) > 4096:
                 del _spans[:2048]
+        if printing():
+            print(f"[sz_tpu_torch {name}: {dt * 1e3:.1f} ms]",
+                  file=sys.stderr, flush=True)

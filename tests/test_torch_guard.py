@@ -147,6 +147,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         ra.decompress(ra.build_container((8, 8, 8), np.float32,
                                          ra._slab_bounds(8, 1), [b""]))
+    with pytest.raises(RuntimeError, match="cuda"):
+        sz_tpu_torch.compress_region(x, (0, 0, 0), (4, 4, 4), SZConfig())
+    from sz_tpu_torch import cli
+    assert cli._build_parser().parse_args(["-p"]).device == "cuda"
 
 
 _X3 = np.linspace(0, 1, 10 * 11 * 12, dtype=np.float32).reshape(10, 11, 12)

@@ -8,6 +8,8 @@ port to on the card (K14, K15).  The steps use exact arithmetic only
 exact (equal hashes).
 """
 
+import multiprocessing
+
 import numpy as np
 import torch
 torch.set_num_threads(1)  # xdist workers share the cores: one thread each
@@ -18,7 +20,9 @@ from sz_tpu.temporal import TemporalCompressor
 from _chip_smoke import SMOKE
 
 
-def test_temporal_oracle_hashes():
+def _chain() -> list:
+    """The chain at full size: per step the frame's hash, the decodes'
+    hashes, each variable's compression type, dtype and maximum error."""
     cfg = SZConfig(engine="numpy").with_bound(ErrorBoundMode.ABS, SMOKE.ABS)
     enc = TemporalCompressor(SMOKE.TS_SNAPSHOT_STEP)
     dec = TemporalCompressor(SMOKE.TS_SNAPSHOT_STEP)
@@ -27,18 +31,41 @@ def test_temporal_oracle_hashes():
         x0[vid] = make(shape, seed)
         for c in (enc, dec):
             c.register(vid, name, shape, x0[vid].dtype, cfg)
-    kinds = []
-    for s, (want_frame, want_dec) in enumerate(SMOKE.ORACLE_TEMPORAL):
+    steps = []
+    for s in range(len(SMOKE.ORACLE_TEMPORAL)):
         step = {vid: SMOKE.ts_step(x, s, SMOKE.TS_VARS[vid][3])
                 for vid, x in x0.items()}
         frame = enc.compress_step(step)
         out = dec.decompress_step(frame)
-        got = {vid: SMOKE.sha256(o.tobytes()) for vid, o in out.items()}
-        print(s, SMOKE.sha256(frame), got)
-        kinds.append([enc.vars[vid].compress_type for vid in x0])
-        assert SMOKE.sha256(frame) == want_frame, f"step {s}"
-        assert got == want_dec, f"step {s}"
-        for vid, x in step.items():
-            assert out[vid].dtype == x.dtype
-            assert np.abs(out[vid].astype(np.float64) - x).max() <= SMOKE.ABS
+        steps.append((
+            SMOKE.sha256(frame),
+            {vid: SMOKE.sha256(o.tobytes()) for vid, o in out.items()},
+            [enc.vars[vid].compress_type for vid in x0],
+            {vid: (out[vid].dtype == x.dtype, float(np.abs(
+                out[vid].astype(np.float64) - x).max()))
+             for vid, x in step.items()}))
+        del step, frame, out
+    return steps
+
+
+def test_temporal_oracle_hashes():
+    """The chain runs in a process of its own (spawned), which returns
+    its 2.7 GB peak when it ends: the xdist worker that runs this test
+    keeps no such heap for the tests after it (the suite's conftest stops
+    malloc from trimming), and a process killed for memory fails this
+    test alone, not the worker."""
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        steps = pool.apply(_chain)
+    kinds = []
+    for s, (want, got) in enumerate(zip(SMOKE.ORACLE_TEMPORAL, steps)):
+        want_frame, want_dec = want
+        frame, decodes, kind, errs = got
+        print(s, frame, decodes)
+        kinds.append(kind)
+        assert frame == want_frame, f"step {s}"
+        assert decodes == want_dec, f"step {s}"
+        for same_dtype, err in errs.values():
+            assert same_dtype
+            assert err <= SMOKE.ABS
+    assert len(steps) == len(SMOKE.ORACLE_TEMPORAL)
     assert kinds == [[0, 0], [1, 1], [1, 1], [1, 1], [1, 1], [0, 0]]
